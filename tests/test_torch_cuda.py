@@ -1,7 +1,7 @@
 """Port CUDA kernels against their plain PyTorch versions, on the card.
 
-Every kernel entry point (csrc/convert.cu, tree.cu, packed.cu, bpr.cu) runs
-on CUDA tensors and must equal its plain version word for word: both
+Every kernel entry point (csrc/convert.cu, tree.cu, packed.cu, bpr.cu,
+stream.cu, legacy.cu, canon.cu) runs on CUDA tensors and must equal its plain version word for word: both
 compute the same exact integers (no tolerance).  Marked ``cuda``; without
 a CUDA device every test skips.  On a GPU machine:
 
@@ -10,15 +10,21 @@ a CUDA device every test skips.  On a GPU machine:
 
 import random
 
+import numpy as np
 import pytest
 import torch
 
-from webgpu_msm_bls12_377_tpu_torch.models.cuzk import CuzkMsmEngine
+from webgpu_msm_bls12_377_tpu_torch.models import (
+    CuzkMsmEngine,
+    NaiveMsmEngine,
+    PippengerMsmEngine,
+)
 from webgpu_msm_bls12_377_tpu_torch.ops import field as F
 from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
 from webgpu_msm_bls12_377_tpu_torch.ops import smvp_stream as S
 from webgpu_msm_bls12_377_tpu_torch.ops import smvp_tree as T
 from webgpu_msm_bls12_377_tpu_torch.ops.buckets import build_bucket_plan
+from webgpu_msm_bls12_377_tpu_torch.ops.convert import ints_to_words
 from webgpu_msm_bls12_377_tpu_torch.ops.decompose import (
     decompose_scalars_signed,
     num_windows_for,
@@ -76,7 +82,7 @@ def test_tree_levels_and_finish(dev):
     rng = random.Random("k23")
     npts, chunk = 512, 8
     windows = num_windows_for(chunk)
-    table = T.build_tree_table(rand_plane(rng, 26, npts, P, dev))
+    table = S.build_signed_table(rand_plane(rng, 26, npts, P, dev))
     sw = torch.tensor([[rng.randrange(1 << 32) for _ in range(npts)]
                        for _ in range(8)], dtype=torch.int64)
     sw[7] &= (1 << 29) - 1
@@ -98,6 +104,85 @@ def test_tree_levels_and_finish(dev):
     lvl2 = T.run_tree_level(lvl1, map2, "full")
     same(S.packed_finish(lvl2, hp.layout),
          S.packed_finish_plain(lvl2, hp.layout.starts_rk, hp.layout.lens_rk))
+
+
+    layout = S.build_stream_layout(plan.starts, plan.lens, windows)
+    same(S.accumulate_buckets_streamed(table, plan.sorted_vals, layout),
+         S.accumulate_buckets_streamed_plain(table, plan.sorted_vals,
+                                             layout.starts_rk, layout.lens_rk))
+
+
+def test_stream_duplicate_heavy_bucket(dev):
+    """One bucket holds every entry of its window: a long runtime loop."""
+    rng = random.Random("k5-dup")
+    npts, chunk = 300, 8
+    windows = num_windows_for(chunk)
+    table = S.build_signed_table(rand_plane(rng, 26, npts, P, dev))
+    sw = torch.tensor([[0x9ABCDEF0] * npts, [0x12345678] * npts]
+                      + [[0] * npts] * 6, dtype=torch.int64)
+    plan = build_bucket_plan(decompose_scalars_signed(sw.to(dev), chunk, windows),
+                             chunk)
+    layout = S.build_stream_layout(plan.starts, plan.lens, windows)
+    assert int(layout.lens_rk.max()) == npts
+    same(S.accumulate_buckets_streamed(table, plan.sorted_vals, layout),
+         S.accumulate_buckets_streamed_plain(table, plan.sorted_vals,
+                                             layout.starts_rk, layout.lens_rk))
+
+
+def test_canonical_family_and_masked_add_mixed(dev):
+    rng = random.Random("k67")
+    a, g, b = (rand_plane(rng, 39, LANES, P, dev) for _ in range(3))
+    aff = rand_plane(rng, 26, LANES, P, dev)
+    gen = torch.Generator().manual_seed(3)
+    bits, valid = (torch.randint(0, 2, (LANES,), dtype=torch.int32,
+                                 generator=gen).to(dev) for _ in range(2))
+    K.reset_launches()
+    same(K.masked_add_mixed(a, aff, bits, valid),
+         K.masked_add_mixed_plain(a, aff, bits, valid))
+    same(K.fused_add(a, b), K.fused_add_plain(a, b))
+    same(K.masked_add_and_double(a, g, bits),
+         K.masked_add_and_double_plain(a, g, bits))
+    same(K.fused_running_add(a, g, b), K.fused_running_add_plain(a, g, b))
+    assert all(K.launches[k] == 1 for k in
+               ("masked_add_mixed", "fused_add", "masked_add_and_double",
+                "fused_running_add"))
+
+
+@pytest.fixture(scope="module")
+def msm_case():
+    rng = random.Random("k-e2e")
+    pts = [crv.g1_scalar_mult(crv.G1_GENERATOR, rng.randrange(1, 1 << 60))
+           for _ in range(96)]
+    scalars = [rng.randrange(0, 1 << 253) for _ in range(96)]
+    return ([crv.g1_to_affine(p) for p in pts], scalars,
+            crv.g1_to_affine(naive_msm(pts, scalars, G1)))
+
+
+@pytest.mark.parametrize("mode,kernel", [("stream", "stream_buckets"),
+                                         ("legacy", "masked_add_mixed")])
+def test_stream_and_legacy_engines_on_the_card(dev, msm_case, mode, kernel):
+    aff, scalars, want = msm_case
+    cls = PippengerMsmEngine if mode == "legacy" else CuzkMsmEngine
+    eng = cls(chunk_size=4, num_bpr_threads=4, smvp_mode=mode)
+    K.reset_launches()
+    got = eng.compute_msm(aff, scalars)
+    assert (got["x"], got["y"]) == want
+    assert K.launches[kernel] > 0 and K.launches["bpr_add"] > 0
+
+
+def test_naive_engine_on_the_card(dev, msm_case):
+    aff, scalars, _ = msm_case
+    aff, scalars = aff[:64], scalars[:64]
+    pw = np.stack([ints_to_words([a[0] for a in aff], 12),
+                   ints_to_words([a[1] for a in aff], 12)])
+    K.reset_launches()
+    out = NaiveMsmEngine().build_fn()(pw, ints_to_words(scalars, 8))
+    got = crv.ProjectivePoint(*(F.plane_to_ints(out[c * 13:(c + 1) * 13])[0]
+                                for c in range(3)))
+    want = naive_msm([crv.g1_from_affine(*a) for a in aff], scalars, G1)
+    assert crv.g1_eq(got, want)
+    assert K.launches["masked_add_and_double"] == 256
+    assert K.launches["fused_add"] == 6
 
 
 def test_engine_on_the_card_matches_oracle(dev):

@@ -1,5 +1,6 @@
-"""Port G1 lazy point formulas (webgpu_msm_bls12_377_tpu_torch/ops/curve.py)
-against the JAX package's ops/curve.py:G1Ops and the bigint oracle.
+"""Port G1 point formulas, lazy and canonical
+(webgpu_msm_bls12_377_tpu_torch/ops/curve.py), against the JAX package's
+ops/curve.py:G1Ops and the bigint oracle.
 
 Both packages run the same complete RCB formulas in Montgomery form, so on
 the same points the canonical outputs agree coordinate by coordinate mod p
@@ -161,6 +162,68 @@ def test_lazy_chains_stay_closed():
             assert max(F.plane_to_ints(c)) < 4 * P
     for g, w in zip(as_oracle(port_ints(G1.canon(pa))), want_a):
         assert crv.g1_eq(g, w)
+
+
+def affine_lanes(rng):
+    """(accumulator, addend) lists for the mixed adds: the addend is never
+    the identity; the accumulator covers equal, inverse and identity lanes."""
+    b = [rand_point(rng) for _ in range(8)]
+    a = [rand_point(rng) for _ in range(5)] + [b[5], crv.g1_neg(b[6]), crv.G1_ZERO]
+    return a, b
+
+
+def port_aff(pts):
+    affs = [crv.g1_to_affine(p) for p in pts]
+    return tuple(F.ints_to_plane([v[i] * R % P for v in affs]) for i in range(2))
+
+
+def jax_aff(pts):
+    affs = [crv.g1_to_affine(p) for p in pts]
+    return tuple(jax_limbs([v[i] * RJ % P for v in affs]) for i in range(2))
+
+
+def test_add_mixed_lazy_pair_matches_jax_and_oracle():
+    rng = random.Random("curve-mixed-lazy")
+    a, b = affine_lanes(rng)
+    out = G1.add_mixed_lazy_pair(port_point(a, rng), port_aff(b))
+    assert all(v < 2 * P for c in out for v in F.plane_to_ints(c))
+    jgot = jax.jit(lambda p, q: JG1.canon(JG1.add_mixed_lazy(p, q)))(
+        jax_point(a), jax_aff(b)
+    )
+    check(port_ints(G1.canon(out)), jax_ints(jgot),
+          [crv.g1_add(p, q) for p, q in zip(a, b)])
+
+
+def test_canonical_add_mixed_and_neg_affine_match_jax_and_oracle():
+    rng = random.Random("curve-mixed")
+    a, b = affine_lanes(rng)
+    got = port_ints(G1.add_mixed(port_point(a), G1.neg_affine(port_aff(b))))
+    jgot = jax.jit(lambda p, q: JG1.add_mixed(p, JG1.neg_affine(q)))(
+        jax_point(a), jax_aff(b)
+    )
+    assert all(v < P for c in got for v in c)
+    check(got, jax_ints(jgot),
+          [crv.g1_add(p, crv.g1_neg(q)) for p, q in zip(a, b)])
+
+
+def test_canonical_add_matches_jax_and_oracle():
+    rng = random.Random("curve-canon-add")
+    a, b = lanes(rng)
+    got = port_ints(G1.add(port_point(a), port_point(b)))
+    jgot = jax.jit(JG1.add)(jax_point(a), jax_point(b))
+    assert all(v < P for c in got for v in c)
+    check(got, jax_ints(jgot), [crv.g1_add(p, q) for p, q in zip(a, b)])
+
+
+def test_canonical_double_and_is_zero_match_jax_and_oracle():
+    rng = random.Random("curve-canon-dbl")
+    a = [rand_point(rng) for _ in range(6)] + [crv.G1_ZERO]
+    got = port_ints(G1.double(port_point(a)))
+    jgot = jax.jit(JG1.double)(jax_point(a))
+    check(got, jax_ints(jgot), [crv.g1_double(p) for p in a])
+    assert G1.is_zero(port_point(a)).tolist() == \
+        np.asarray(JG1.is_zero(jax_point(a))).reshape(-1).tolist() == \
+        [False] * 6 + [True]
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 1 << 61])

@@ -87,12 +87,22 @@ def test_input_validation():
         eng.compute_msm([(1, 2)], [1 << 253])
     with pytest.raises(ValueError, match="mismatch"):
         eng.compute_msm([(1, 2)], [1, 2])
-    with pytest.raises(NotImplementedError, match="stream path"):
-        CuzkMsmEngine(device="cpu").compute_msm([(1, 2)] * 4, [1] * 4)
+    with pytest.raises(NotImplementedError, match="fused"):
+        CuzkMsmEngine(device="cpu", smvp_mode="fused").compute_msm(
+            [(1, 2)] * 4, [1] * 4)
     with pytest.raises(NotImplementedError, match="Edwards"):
         CuzkMsmEngine(CurveId.EDWARDS_BLS12, device="cpu")
     with pytest.raises(ValueError, match="power of two"):
         engine(num_bpr_threads=6)
+
+
+def test_default_options_answer_below_2_18(case):
+    """smvp_mode="auto" with the default chunk policy raises for no valid
+    input: a small n takes chunk 4 and the legacy path."""
+    pts, aff, scalars = case
+    got = port.compute_msm(aff[:8], scalars[:8], device="cpu")
+    assert (got["x"], got["y"]) == crv.g1_to_affine(
+        naive_msm(pts[:8], scalars[:8], G1))
 
 
 def test_default_device_needs_a_gpu(case):

@@ -208,3 +208,30 @@ def test_mont_entry_exit_and_neg():
     # to_mont is canonical for any 416-bit input
     big = F.ints_to_plane(rand_below(rng, R, 16) + [R - 1])
     assert all(v < P for v in F.plane_to_ints(F.to_mont(big)))
+
+
+def test_field_add_sub_match_jax_and_ints():
+    """Canonical add and subtract: the same canonical inputs give the same
+    canonical integers in both packages, with the wrap lanes (a + b >= p,
+    a < b, equal operands, zero) included."""
+    rng = random.Random("field-addsub")
+    a = rand_below(rng, P) + [0, P - 1, P - 1, 5, 0, 7]
+    b = rand_below(rng, P) + [0, P - 1, 1, P - 1, P - 1, 7]
+    pa, pb = F.ints_to_plane(a), F.ints_to_plane(b)
+    ja, jb = jax_limbs(a), jax_limbs(b)
+    got_add = F.plane_to_ints(F.field_add(pa, pb))
+    got_sub = F.plane_to_ints(F.field_sub(pa, pb))
+    assert got_add == [(x + y) % P for x, y in zip(a, b)]
+    assert got_sub == [(x - y) % P for x, y in zip(a, b)]
+    assert jax_value(jax.jit(lambda s, t: JF.field_add(JCTX, s, t))(ja, jb)) == got_add
+    assert jax_value(jax.jit(lambda s, t: JF.field_sub(JCTX, s, t))(ja, jb)) == got_sub
+
+
+def test_mont_mul_canon_and_is_zero():
+    rng = random.Random("mm-canon")
+    a = rand_below(rng, P) + [0, P - 1]
+    b = rand_below(rng, P) + [P - 1, P - 1]
+    got = F.plane_to_ints(F.mont_mul_canon(F.ints_to_plane(a), F.ints_to_plane(b)))
+    assert got == [x * y * pow(R, -1, P) % P for x, y in zip(a, b)]
+    zeros = F.is_zero(F.ints_to_plane([0, 1, 1 << 400, 0]))
+    assert zeros.tolist() == [True, False, False, True]

@@ -132,7 +132,7 @@ def levels(stage):
 
 def test_tree_table_matches_jax(stage):
     ptab = carry(np.asarray(stage["table"]).reshape(2 * W, N))
-    got = smvp_tree.build_tree_table(ptab)
+    got = smvp_stream.build_signed_table(ptab)
     jt = np.asarray(jst.build_tree_table(JG1, stage["table"]))[:2 * N, :2 * W].T
     assert torch.equal(got, carry(jt))
 
@@ -141,7 +141,7 @@ def test_tree_table_matches_jax(stage):
 def test_tree_level_aff_matches_jax(stage, levels, last):
     lvl1, t1 = levels["lvl1"], levels["t1"]
     want = mod_p(carry(jax.jit(JG1.canon)(lvl1)))
-    ptab = smvp_tree.build_tree_table(
+    ptab = smvp_stream.build_signed_table(
         carry(np.asarray(stage["table"]).reshape(2 * W, N)))
     got = smvp_tree.run_tree_level(ptab, stage["ph"].level_map1, "aff", last,
                                    stage["pplan"].sorted_vals)

@@ -1,4 +1,5 @@
-"""PyTorch and CUDA port of the MSM engine (BLS12-377 G1, hybrid tree).
+"""PyTorch and CUDA port of the MSM engines (BLS12-377 G1: the cuZK engine's
+hybrid-tree, stream and legacy paths, Pippenger and the naive baseline).
 
 The JAX package webgpu_msm_bls12_377_tpu is the reference this port is
 tested against; the port imports nothing of it and no JAX.  Kernels are

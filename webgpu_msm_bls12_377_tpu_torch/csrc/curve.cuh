@@ -1,10 +1,13 @@
-// BLS12-377 G1 point formulas in the lazy domain, shared by every kernel.
+// BLS12-377 G1 point formulas, lazy and canonical domain, shared by every
+// kernel.
 //
 // Complete projective formulas of Renes-Costello-Batina 2016 (a = 0,
 // b3 = 3), Montgomery form, in the exact operation order of
-// ops/curve.py:G1Ops (the plain PyTorch forms).  Comments give value
-// bounds in units of p ("b<=k": value < k*p).  REDC outputs stay below 2p
-// because R/p ~ 2^39 dwarfs every bound product used here (at most 304).
+// ops/curve.py:G1Ops (the plain PyTorch forms).  Lazy forms: comments give
+// value bounds in units of p ("b<=k": value < k*p); REDC outputs stay
+// below 2p because R/p ~ 2^39 dwarfs every bound product used here (at
+// most 304).  Canonical forms (g1_add, g1_add_mixed, g1_double) take and
+// return coordinates below p and reduce after every field operation.
 #pragma once
 #include "field.cuh"
 
@@ -51,6 +54,35 @@ __device__ __forceinline__ void g1_add_affine_lazy_pair(G1& r,
   mont_mul_pair(r.x, t3, t1, u, Y3);   // 48 -> b<=2
   mont_mul_pair(r.y, t1, Z3, Y3, t0);  // 48 -> b<=2
   mont_mul_pair(r.z, Z3, t4, t0, t3);  // 42 -> b<=2
+}
+
+// Mixed add: accumulator b<=4, affine addend (X2, Y2) canonical and not
+// the identity; outputs b<=2.  r may alias p.
+__device__ __forceinline__ void g1_add_mixed_lazy_pair(G1& r, const G1& p,
+                                                       const u32 X2[NW],
+                                                       const u32 Y2[NW]) {
+  u32 t0[NW], t1[NW], t2[NW], t3[NW], t4[NW], Y3[NW], Z3[NW], u[NW];
+  mont_mul(t0, p.x, X2);            // 4 -> b<=2
+  mont_mul(t1, p.y, Y2);            // 4 -> b<=2
+  fe_add(t3, X2, Y2);               // b<=2
+  fe_add(t4, p.x, p.y);             // b<=8
+  mont_mul(t3, t3, t4);             // 16 -> b<=2
+  fe_add(t4, t0, t1);               // b<=4
+  fe_sub_kp(t3, t3, t4, MSM_KP4);   // b<=6
+  mont_mul(t4, Y2, p.z);            // 4 -> b<=2
+  fe_add(t4, t4, p.y);              // b<=6
+  mont_mul(Y3, X2, p.z);            // 4 -> b<=2
+  fe_add(Y3, Y3, p.x);              // b<=6
+  fe_scale(t0, t0, 3u);             // b<=6
+  fe_scale(t2, p.z, 3u);            // b<=12
+  fe_add(Z3, t1, t2);               // b<=14
+  fe_sub_kp(t1, t1, t2, MSM_KP12);  // b<=14
+  fe_scale(Y3, Y3, 3u);             // b<=18
+  fe_neg_kp(u, t4, MSM_KP6);        // 6p - t4; b<=6
+  // X3 = t3*t1 - t4*Y3, Y3 = t1*Z3 + Y3*t0, Z3 = Z3*t4 + t0*t3
+  mont_mul_pair(r.x, t3, t1, u, Y3);   // 6*14 + 6*18 = 192 -> b<=2
+  mont_mul_pair(r.y, t1, Z3, Y3, t0);  // 14*14 + 18*6 = 304 -> b<=2
+  mont_mul_pair(r.z, Z3, t4, t0, t3);  // 14*6 + 6*6 = 120 -> b<=2
 }
 
 // Full projective add, inputs b<=4, outputs b<=2 (closed under chaining).
@@ -111,6 +143,108 @@ __device__ __forceinline__ void g1_double_lazy(G1& r, const G1& p) {
   fe_copy(r.z, Z3);
 }
 
+// -- canonical domain: coordinates < p in, < p out ------------------------
+
+__device__ __forceinline__ void fe_triple_mod(u32 r[NW], const u32 a[NW]) {
+  u32 t[NW];
+  fe_add_mod(t, a, a);
+  fe_add_mod(r, t, a);
+}
+
+// Complete projective add (RCB Alg. 7): 12 products.  r may alias p or q.
+__device__ __forceinline__ void g1_add(G1& r, const G1& p, const G1& q) {
+  u32 t0[NW], t1[NW], t2[NW], t3[NW], t4[NW], X3[NW], Y3[NW], Z3[NW];
+  mont_mul_mod(t0, p.x, q.x);
+  mont_mul_mod(t1, p.y, q.y);
+  mont_mul_mod(t2, p.z, q.z);
+  fe_add_mod(t3, p.x, p.y);
+  fe_add_mod(t4, q.x, q.y);
+  mont_mul_mod(t3, t3, t4);
+  fe_add_mod(t4, t0, t1);
+  fe_sub_mod(t3, t3, t4);
+  fe_add_mod(t4, p.y, p.z);
+  fe_add_mod(X3, q.y, q.z);
+  mont_mul_mod(t4, t4, X3);
+  fe_add_mod(X3, t1, t2);
+  fe_sub_mod(t4, t4, X3);
+  fe_add_mod(X3, p.x, p.z);
+  fe_add_mod(Y3, q.x, q.z);
+  mont_mul_mod(X3, X3, Y3);
+  fe_add_mod(Y3, t0, t2);
+  fe_sub_mod(Y3, X3, Y3);
+  fe_triple_mod(t0, t0);
+  fe_triple_mod(t2, t2);
+  fe_add_mod(Z3, t1, t2);
+  fe_sub_mod(t1, t1, t2);
+  fe_triple_mod(Y3, Y3);
+  mont_mul_mod(X3, t4, Y3);
+  mont_mul_mod(t2, t3, t1);
+  fe_sub_mod(r.x, t2, X3);
+  mont_mul_mod(Y3, Y3, t0);
+  mont_mul_mod(t1, t1, Z3);
+  fe_add_mod(r.y, t1, Y3);
+  mont_mul_mod(t0, t0, t3);
+  mont_mul_mod(Z3, Z3, t4);
+  fe_add_mod(r.z, Z3, t0);
+}
+
+// Complete mixed add (RCB Alg. 8): 11 products.  The affine addend
+// (X2, Y2) must not be the identity; the accumulator may be.  r may alias p.
+__device__ __forceinline__ void g1_add_mixed(G1& r, const G1& p,
+                                             const u32 X2[NW],
+                                             const u32 Y2[NW]) {
+  u32 t0[NW], t1[NW], t2[NW], t3[NW], t4[NW], X3[NW], Y3[NW], Z3[NW];
+  mont_mul_mod(t0, p.x, X2);
+  mont_mul_mod(t1, p.y, Y2);
+  fe_add_mod(t3, X2, Y2);
+  fe_add_mod(t4, p.x, p.y);
+  mont_mul_mod(t3, t3, t4);
+  fe_add_mod(t4, t0, t1);
+  fe_sub_mod(t3, t3, t4);
+  mont_mul_mod(t4, Y2, p.z);
+  fe_add_mod(t4, t4, p.y);
+  mont_mul_mod(Y3, X2, p.z);
+  fe_add_mod(Y3, Y3, p.x);
+  fe_triple_mod(t0, t0);
+  fe_triple_mod(t2, p.z);
+  fe_add_mod(Z3, t1, t2);
+  fe_sub_mod(t1, t1, t2);
+  fe_triple_mod(Y3, Y3);
+  mont_mul_mod(X3, t4, Y3);
+  mont_mul_mod(t2, t3, t1);
+  fe_sub_mod(r.x, t2, X3);
+  mont_mul_mod(Y3, Y3, t0);
+  mont_mul_mod(t1, t1, Z3);
+  fe_add_mod(r.y, t1, Y3);
+  mont_mul_mod(t0, t0, t3);
+  mont_mul_mod(Z3, Z3, t4);
+  fe_add_mod(r.z, Z3, t0);
+}
+
+// Complete doubling (RCB Alg. 9): 8 products.  r may alias p.
+__device__ __forceinline__ void g1_double(G1& r, const G1& p) {
+  u32 t0[NW], t1[NW], t2[NW], X3[NW], Y3[NW], Z3[NW];
+  mont_mul_mod(t0, p.y, p.y);
+  fe_add_mod(Z3, t0, t0);
+  fe_add_mod(Z3, Z3, Z3);
+  fe_add_mod(Z3, Z3, Z3);
+  mont_mul_mod(t1, p.y, p.z);
+  mont_mul_mod(t2, p.z, p.z);
+  fe_triple_mod(t2, t2);
+  mont_mul_mod(X3, t2, Z3);
+  fe_add_mod(Y3, t0, t2);
+  mont_mul_mod(Z3, t1, Z3);
+  fe_triple_mod(t2, t2);
+  fe_sub_mod(t0, t0, t2);
+  mont_mul_mod(Y3, t0, Y3);
+  fe_add_mod(Y3, X3, Y3);
+  mont_mul_mod(t1, p.x, p.y);
+  mont_mul_mod(X3, t0, t1);
+  fe_add_mod(r.x, X3, X3);
+  fe_copy(r.y, Y3);
+  fe_copy(r.z, Z3);
+}
+
 __device__ __forceinline__ void g1_canon(G1& r) {
   fe_canon4(r.x);
   fe_canon4(r.y);
@@ -145,4 +279,21 @@ __device__ __forceinline__ void g1_store(int32_t* plane, size_t ncols,
   fe_store(plane, ncols, 0, j, a.x);
   fe_store(plane, ncols, NW, j, a.y);
   fe_store(plane, ncols, 2 * NW, j, a.z);
+}
+
+// Entry i of a sorted entry stream (point index | positive-sign bit 30) ->
+// its affine (x, y), Montgomery, from the (26, 2N) signed table: columns
+// [0, N) hold (x, y), columns [N, 2N) hold (x, -y).
+#define SIGN_BIT 30
+#define IDX_MASK ((1 << SIGN_BIT) - 1)
+
+__device__ __forceinline__ void load_signed(u32 x[NW], u32 y[NW],
+                                            const int32_t* table,
+                                            const int32_t* sorted_vals,
+                                            long long n_points, long long i) {
+  const int32_t v = sorted_vals[i];
+  const long long idx = v & IDX_MASK;
+  const long long col = ((v >> SIGN_BIT) & 1) ? idx : idx + n_points;
+  fe_load(x, table, 2 * n_points, 0, col);
+  fe_load(y, table, 2 * n_points, NW, col);
 }

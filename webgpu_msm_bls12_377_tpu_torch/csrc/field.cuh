@@ -111,6 +111,33 @@ __device__ __forceinline__ void fe_canon4(u32 s[NW]) {
   fe_csub(s, MSM_P);
 }
 
+// (a + b) mod p for canonical a, b (ops/field.py:field_add)
+__device__ __forceinline__ void fe_add_mod(u32 r[NW], const u32 a[NW],
+                                           const u32 b[NW]) {
+  fe_add(r, a, b);
+  fe_csub(r, MSM_P);
+}
+
+// (a - b) mod p for canonical a, b (ops/field.py:field_sub): a + p - b,
+// then one conditional subtract
+__device__ __forceinline__ void fe_sub_mod(u32 r[NW], const u32 a[NW],
+                                           const u32 b[NW]) {
+  fe_sub_kp(r, a, b, MSM_P);
+  fe_csub(r, MSM_P);
+}
+
+// (-a) mod p for canonical a, with 0 -> 0 (ops/field.py:field_neg)
+__device__ __forceinline__ void fe_neg_mod(u32 r[NW], const u32 a[NW]) {
+  u32 any = 0u;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) any |= a[i];
+  if (any) {
+    fe_neg_kp(r, a, MSM_P);
+  } else {
+    fe_zero(r);
+  }
+}
+
 // REDC(a * b) = (a*b + m*p) / 2^416 with m = -a*b*p^-1 mod 2^416: the
 // coarsely integrated operand scanning (CIOS) Montgomery product with
 // 64-bit accumulation.  Exact for any a, b < 2^416; the output is below
@@ -145,6 +172,14 @@ __device__ __forceinline__ void mont_mul(u32 r[NW], const u32 a[NW],
     t[NW] = t[NW + 1] + (u32)(c >> 32);
   }
   fe_copy(r, t);
+}
+
+// REDC(a * b) mod p for canonical a, b (REDC(a * b) < 2p): the product of
+// the canonical-domain formulas (ops/field.py:mont_mul_canon)
+__device__ __forceinline__ void mont_mul_mod(u32 r[NW], const u32 a[NW],
+                                             const u32 b[NW]) {
+  mont_mul(r, a, b);
+  fe_csub(r, MSM_P);
 }
 
 // REDC(a*b + c*d): one reduction for a sum of two products (the paired

@@ -1,0 +1,74 @@
+// Kernel 5: the stream SMVP.  Per bucket, the lazy sum of its signed table
+// points in sorted-stream order, canonicalized once.
+//
+// Replaces ops/smvp_stream.py:accumulate_buckets_streamed of the JAX package
+// (kernel body _stream_kernel_body_build).  On the TPU that kernel is a
+// sequential grid over 256-lane slabs of pre-gathered 64-word rows (the
+// addend's coordinates, padding and a validity word), whose accumulator
+// block stays resident from a block's first slab to its last.  Hopper
+// blocks run in no order, so, as in the hybrid finish (packed.cu), the
+// sequential dimension becomes a loop inside one thread: thread r owns
+// bucket rank r of the length-sorted layout
+// (ops/smvp_stream.py:build_stream_layout), walks that bucket's len
+// contiguous entries of sorted_vals from start, reads each addend from the
+// (26, 2N) signed table by its index and sign (curve.cuh:load_signed, as
+// tree level 1 does), and writes column r of the block-ordered output that
+// permute_buckets reads.  No slab gather, slab rows, validity word, slab
+// maps or slab-count size class exist on this path, and so no cap on the
+// slab count: any bucket length runs.
+//
+// The sum starts from the identity and adds every entry with the mixed
+// lazy add, as the TPU kernel does, so both produce the same projective
+// coordinates mod p.
+//
+// Bound on this card: products.  A bucket of c entries needs c - 1 mixed
+// adds (3,211 word products each; the add into the identity is not
+// counted), against 108 bytes read per entry (4 of sorted_vals, 104 of the
+// table) and 164 bytes per bucket.  In practice the table reads are
+// scattered columns of a limb-major plane (26 separate 4-byte reads per
+// entry) and a warp's lanes run different trip counts.
+//
+// The add sits in a __noinline__ helper, as in packed.cu: nvcc 12.8's cicc
+// crashes on a runtime-length loop around an inlined point add.
+#include "curve.cuh"
+
+__device__ __noinline__ void add_entry(G1& acc, const int32_t* table,
+                                       const int32_t* sorted_vals,
+                                       long long n_points, long long i) {
+  u32 x[NW], y[NW];
+  load_signed(x, y, table, sorted_vals, n_points, i);
+  g1_add_mixed_lazy_pair(acc, acc, x, y);
+}
+
+__global__ void __launch_bounds__(128)
+    stream_buckets_kernel(const int32_t* __restrict__ table,
+                          long long n_points,
+                          const int32_t* __restrict__ sorted_vals,
+                          const int32_t* __restrict__ starts_rk,
+                          const int32_t* __restrict__ lens_rk,
+                          int32_t* __restrict__ out, long long nb) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= nb) return;
+  const long long start = starts_rk[r];
+  const int len = lens_rk[r];
+  G1 acc;
+  g1_zero(acc);
+  for (int t = 0; t < len; ++t)
+    add_entry(acc, table, sorted_vals, n_points, start + t);
+  g1_canon(acc);
+  g1_store(out, nb, r, acc);
+}
+
+// table: the (26, 2 * n_points) signed table.
+extern "C" int msm_stream_buckets(const int32_t* table, long long n_points,
+                                  const int32_t* sorted_vals,
+                                  const int32_t* starts_rk,
+                                  const int32_t* lens_rk, int32_t* out,
+                                  long long nb, cudaStream_t stream) {
+  if (nb == 0) return 0;
+  const int threads = 128;
+  const long long blocks = (nb + threads - 1) / threads;
+  stream_buckets_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+      table, n_points, sorted_vals, starts_rk, lens_rk, out, nb);
+  return MSM_LAUNCH_STATUS();
+}

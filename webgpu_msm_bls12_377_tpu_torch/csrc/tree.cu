@@ -33,20 +33,6 @@
 #define FLAG_INVALID (1 << 29)
 #define FLAG_SINGLE (1 << 30)
 #define CHILD_MASK (FLAG_INVALID - 1)
-#define SIGN_BIT 30
-#define IDX_MASK ((1 << SIGN_BIT) - 1)
-
-// Signed-table entry i of the sorted stream -> affine (x, y), Montgomery.
-__device__ __forceinline__ void load_signed(u32 x[NW], u32 y[NW],
-                                            const int32_t* table,
-                                            const int32_t* sorted_vals,
-                                            long long n_points, long long i) {
-  const int32_t v = sorted_vals[i];
-  const long long idx = v & IDX_MASK;
-  const long long row = ((v >> SIGN_BIT) & 1) ? idx : idx + n_points;
-  fe_load(x, table, 2 * n_points, 0, row);
-  fe_load(y, table, 2 * n_points, NW, row);
-}
 
 template <bool AFF, bool LAST>
 __global__ void __launch_bounds__(128)

@@ -1,16 +1,27 @@
-"""The cuZK MSM engine, hybrid-tree path, for BLS12-377 G1.
+"""The cuZK MSM engine for BLS12-377 G1: hybrid tree, stream and legacy
+SMVP paths.
 
 compute_msm(points, scalars) -> {"x": int, "y": int} runs, on one device:
   1. point prep: wire words -> Montgomery table (kernel 1);
   2. plan: signed window digits -> stable per-window sort -> bucket
-     segments -> phantom-extended hybrid plan (plain PyTorch);
-  3. SMVP: tree levels 1..K (kernel 2), then the packed finish (kernel 3);
-  4. permute_buckets in BPR walk order, then BPR (kernel 4 launches);
+     segments (plain PyTorch);
+  3. SMVP, by _select_smvp (the JAX engine's policy):
+     - "tree" (n >= 2^18): the phantom-extended hybrid plan, tree levels
+       1..K (kernel 2), then the packed finish (kernel 3);
+     - "stream" (below 2^18, chunk >= 9): the length-sorted layout, then
+       kernel 5 over the signed table and the sorted entry stream;
+     - "legacy" (otherwise, and PippengerMsmEngine): per window group,
+       lockstep rounds of kernel 6, the group's round count read back
+       once as the per-window maxima;
+  4. BPR (kernel 4): every path gathers its buckets into BPR walk order
+     once (tree and stream compose that into their block permute) and
+     runs reduce_buckets_prearranged;
   5. Montgomery exit (kernel 1) and one readback of num_windows points;
   6. Horner across windows on the host, with Python integers.
 PyTorch runs eagerly, so the JAX package's plan/main program split, its
-size classes and their host readback, and its compile caches have no
-counterpart here.
+size classes and their host readbacks, and its compile caches have no
+counterpart here; the legacy path's readback stays, since it fixes how
+many rounds run.
 """
 
 from __future__ import annotations
@@ -22,7 +33,13 @@ import torch
 
 from ..ops import field as F
 from ..ops.bpr import bpr_order, reduce_buckets_prearranged
-from ..ops.buckets import build_bucket_plan
+from ..ops.buckets import (
+    BucketPlan,
+    accumulate_buckets,
+    build_bucket_plan,
+    round_class,
+    window_slice_indices,
+)
 from ..ops.convert import (
     ints_to_words,
     points_buffer_to_words,
@@ -36,8 +53,14 @@ from ..ops.decompose import (
     num_windows_for,
 )
 from ..ops.kernels import mont_mul_const
-from ..ops.smvp_stream import permute_buckets
-from ..ops.smvp_tree import build_hybrid_plan, build_tree_table, tree_smvp_hybrid
+from ..ops.smvp_stream import (
+    accumulate_buckets_streamed,
+    build_signed_table,
+    build_stream_layout,
+    permute_buckets,
+    stream_supported,
+)
+from ..ops.smvp_tree import build_hybrid_plan, tree_smvp_hybrid
 from ..params import CurveId
 from ..reference import curve as ocurve
 from ..reference import msm as omsm
@@ -46,6 +69,7 @@ from ..reference import msm as omsm
 #: policy, models/cuzk.py:_select_smvp)
 TREE_MIN_N = 1 << 18
 COORD_BYTES = 48
+SMVP_MODES = ("auto", "tree", "stream", "legacy", "fused")
 
 
 def resolve_device(device) -> torch.device:
@@ -82,8 +106,9 @@ class CuzkMsmEngine:
         smvp_mode: str = "auto",
         device=None,
     ):
-        """smvp_mode "auto" runs the hybrid tree from n = 2^18 and raises
-        below; "tree" runs the hybrid tree at any n (tests at small n)."""
+        """smvp_mode "auto" follows the JAX engine's policy (_select_smvp)
+        and answers at every n; "tree", "stream" and "legacy" force that
+        path at any n and chunk size."""
         if curve != CurveId.BLS12_377:
             raise NotImplementedError(
                 "the port runs BLS12-377 G1 only; Edwards is ROADMAP item 1.9"
@@ -94,7 +119,7 @@ class CuzkMsmEngine:
             )
         if tree_finish < 1:
             raise ValueError(f"tree_finish must be >= 1, got {tree_finish}")
-        if smvp_mode not in ("auto", "tree"):
+        if smvp_mode not in SMVP_MODES:
             raise ValueError(f"unknown smvp_mode {smvp_mode!r}")
         self.curve = curve
         self.chunk_size_override = chunk_size
@@ -103,13 +128,24 @@ class CuzkMsmEngine:
         self.smvp_mode = smvp_mode
         self.device = resolve_device(device)
 
-    def _select_smvp(self, n: int) -> str:
-        if self.smvp_mode == "auto" and n < TREE_MIN_N:
+    def _select_smvp(self, chunk_size: int, n: int) -> str:
+        """Resolve smvp_mode to the path for this size.  "auto": the hybrid
+        tree from n = 2^18; below, the stream path wherever the JAX engine
+        takes it on a TPU (stream_supported: chunk_size >= 9), else legacy
+        (the JAX engine tries its fused path before legacy; the port has
+        none yet).  Explicit "stream" and "legacy" run at any n and chunk
+        size: kernel 5 has no lane constraint."""
+        mode = self.smvp_mode
+        if mode == "fused":
             raise NotImplementedError(
-                f"n = {n} < 2^18 takes the stream path, not yet ported "
-                "(ROADMAP item 1.11); smvp_mode='tree' forces the hybrid"
+                "the fused (segment-DMA) SMVP path is not ported yet: "
+                "ROADMAP section 2, kernel row 10"
             )
-        return "tree"
+        if mode != "auto":
+            return mode
+        if n >= TREE_MIN_N:
+            return "tree"
+        return "stream" if stream_supported(chunk_size) else "legacy"
 
     def _chunk_for(self, n: int) -> int:
         return self.chunk_size_override or choose_chunk_size(n)
@@ -154,27 +190,71 @@ class CuzkMsmEngine:
     ) -> torch.Tensor:
         """The device pipeline: returns the (39, num_windows) canonical
         window sums in plain (non-Montgomery) form, on the device."""
-        n = point_words.shape[-1]
-        self._select_smvp(n)
+        path = self._select_smvp(chunk_size, point_words.shape[-1])
         num_windows = num_windows_for(chunk_size)
         pw = words_to_device(point_words, self.device)
         sw = words_to_device(scalar_words, self.device)
         table = mont_point_table(pw)
         digits = decompose_scalars_signed(sw, chunk_size, num_windows)
         plan = build_bucket_plan(digits, chunk_size)
+        smvp = {"tree": self._smvp_tree, "stream": self._smvp_stream,
+                "legacy": self._smvp_legacy}[path]
+        wsums = smvp(table, plan, chunk_size, num_windows)
+        return mont_mul_const(wsums, 1)
+
+    def _reduce_blocks(self, blocks, layout, chunk_size, num_windows):
+        """Block-ordered buckets -> window sums: the permute with the BPR
+        walk order composed in, then the gather-free BPR."""
+        order = bpr_order(num_windows, chunk_size, self.num_bpr_threads)
+        buckets = permute_buckets(blocks, layout, order=order)
+        return reduce_buckets_prearranged(
+            buckets, num_windows, chunk_size, self.num_bpr_threads
+        )
+
+    def _smvp_tree(self, table, plan, chunk_size, num_windows):
         kn = plan.sorted_vals.shape[0]
         tplan = build_hybrid_plan(
             plan.starts, plan.lens, kn, self.tree_finish, num_windows
         )
         blocks = tree_smvp_hybrid(
-            build_tree_table(table), plan.sorted_vals, tplan, self.tree_finish
+            build_signed_table(table), plan.sorted_vals, tplan, self.tree_finish
         )
-        order = bpr_order(num_windows, chunk_size, self.num_bpr_threads)
-        buckets = permute_buckets(blocks, tplan.layout, order=order)
-        wsums = reduce_buckets_prearranged(
-            buckets, num_windows, chunk_size, self.num_bpr_threads
+        return self._reduce_blocks(blocks, tplan.layout, chunk_size, num_windows)
+
+    def _smvp_stream(self, table, plan, chunk_size, num_windows):
+        layout = build_stream_layout(plan.starts, plan.lens, num_windows)
+        blocks = accumulate_buckets_streamed(
+            build_signed_table(table), plan.sorted_vals, layout
         )
-        return mont_mul_const(wsums, 1)
+        return self._reduce_blocks(blocks, layout, chunk_size, num_windows)
+
+    @staticmethod
+    def _window_groups(wmax) -> dict[int, tuple[int, ...]]:
+        """Partition windows by SMVP round class from per-window maxima."""
+        groups: dict[int, list[int]] = {}
+        for w, m in enumerate(wmax):
+            groups.setdefault(round_class(int(m)), []).append(w)
+        return {cls: tuple(ws) for cls, ws in groups.items()}
+
+    def _smvp_legacy(self, table, plan, chunk_size, num_windows):
+        h = 1 << (chunk_size - 1)
+        # the path's one host readback: num_windows maxima pick the rounds
+        wmax = plan.lens.reshape(num_windows, h).max(dim=1).values.tolist()
+        wsums = torch.empty((3 * F.NW, num_windows), dtype=torch.int32,
+                            device=self.device)
+        for rounds, windows in sorted(self._window_groups(wmax).items()):
+            idx = torch.as_tensor(window_slice_indices(windows, h),
+                                  device=self.device)
+            plan_g = BucketPlan(plan.sorted_vals, plan.starts[idx], plan.lens[idx])
+            buckets = accumulate_buckets(table, plan_g, rounds)
+            order = torch.as_tensor(
+                bpr_order(len(windows), chunk_size, self.num_bpr_threads),
+                device=self.device,
+            ).reshape(-1).to(torch.int64)
+            wsums[:, list(windows)] = reduce_buckets_prearranged(
+                buckets[:, order], len(windows), chunk_size, self.num_bpr_threads
+            )
+        return wsums
 
     def _finalize(self, coords: torch.Tensor, chunk_size: int) -> dict[str, int]:
         cols = [F.plane_to_ints(coords[c * F.NW : (c + 1) * F.NW])

@@ -1,0 +1,27 @@
+"""Windowed bucket-method (Pippenger) MSM engine.
+
+The classic method is the legacy path of CuzkMsmEngine: signed digit
+decomposition, per-window-group bucket accumulation in masked lockstep
+rounds (ops/buckets.py:accumulate_buckets, kernel 6), running-sum bucket
+reduction (ops/bpr.py:reduce_buckets_prearranged) and the host Horner
+walk.  This class pins that configuration under its name, as the JAX
+package's models/pippenger.py does.
+"""
+
+from __future__ import annotations
+
+from ..params import CurveId
+from .cuzk import CuzkMsmEngine
+
+
+class PippengerMsmEngine(CuzkMsmEngine):
+    """CuzkMsmEngine pinned to smvp_mode="legacy"; same public surface."""
+
+    def __init__(self, curve: CurveId = CurveId.BLS12_377, **kwargs):
+        kwargs.setdefault("smvp_mode", "legacy")
+        if kwargs["smvp_mode"] != "legacy":
+            raise ValueError(
+                "PippengerMsmEngine is the legacy bucket method; "
+                f"smvp_mode={kwargs['smvp_mode']!r} is not it"
+            )
+        super().__init__(curve, **kwargs)

@@ -8,13 +8,25 @@ Signed-bucket mapping for a stored digit d, h = 2^(s-1):
 One stable sort per window row orders the entries by slot; segment
 bounds then give each bucket's start and length.  The sort is stable, as
 the JAX package's lax.sort is, so the plan matches it entry for entry.
+
+accumulate_buckets is the legacy SMVP over such a plan: every bucket of a
+window group advances in lockstep, round t adding entry t of each bucket
+with kernel 6 (the masked canonical mixed add).  The point table stays the
+limb-major (26, N) plane: a round's column gather yields the (26, B)
+operand the kernel reads, so the JAX package's row-major copy
+(table_to_rows) is not needed, and neither is its batching of several
+rounds' gathers into one (GATHER_BATCH, a TPU gather-latency device).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from . import curve as C
+from .kernels import masked_add_mixed
 
 SIGN_BIT = 30
 IDX_MASK = (1 << SIGN_BIT) - 1
@@ -55,3 +67,40 @@ def segment_bounds(sorted_keys: torch.Tensor, num_buckets: int) -> torch.Tensor:
     q = torch.arange(num_buckets + 1, device=sorted_keys.device)
     q = q.expand(sorted_keys.shape[0], -1).contiguous()
     return torch.searchsorted(sorted_keys.contiguous(), q, side="left")
+
+
+def round_class(max_len: int, step: int = 16) -> int:
+    """Legacy SMVP round count: the maximum bucket length rounded up to a
+    multiple of step (the JAX package's classes; used per window group,
+    since the top scalar window has far denser buckets than the rest)."""
+    m = max(int(max_len), 1)
+    return -(-m // step) * step
+
+
+def window_slice_indices(windows, h: int) -> np.ndarray:
+    """Bucket indices of a window subset (window-major layout)."""
+    return np.concatenate(
+        [np.arange(w * h, (w + 1) * h, dtype=np.int64) for w in windows]
+    )
+
+
+def accumulate_buckets(
+    table: torch.Tensor, plan: BucketPlan, num_rounds: int
+) -> torch.Tensor:
+    """Legacy SMVP: per-bucket signed point sums in lockstep rounds.
+
+    table: (26, N) Montgomery affine (x; y) plane; plan.starts / plan.lens
+    may cover a subset of the buckets; num_rounds must be at least the
+    longest of them (round_class).  Returns the (39, B) canonical bucket
+    plane in the order of plan.starts (empty buckets: the identity)."""
+    num_buckets = plan.starts.shape[0]
+    total = plan.sorted_vals.shape[0]
+    starts = plan.starts.to(torch.int64)
+    acc = C.merge(C.G1Ops().zero(num_buckets, table.device))
+    for t in range(num_rounds):
+        v = plan.sorted_vals[(starts + t).clamp(max=total - 1)]
+        aff = table[:, (v & IDX_MASK).to(torch.int64)]
+        sign_pos = (v >> SIGN_BIT) & 1
+        valid = (t < plan.lens).to(torch.int32)
+        acc = masked_add_mixed(acc, aff, sign_pos, valid)
+    return acc

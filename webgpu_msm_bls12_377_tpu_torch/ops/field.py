@@ -160,6 +160,23 @@ def field_neg(a: torch.Tensor) -> torch.Tensor:
     return _i32(torch.where(zero, w, neg))
 
 
+def field_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod p for canonical a, b: one conditional subtract of p."""
+    return _i32(_cond_sub(_carry(_u64(a) + _u64(b)), _int_words(P, a.device)))
+
+
+def field_sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a - b) mod p for canonical a, b: a + p - b, then one conditional
+    subtract of p."""
+    pw = _int_words(P, a.device)
+    return _i32(_cond_sub(_carry(_u64(a) + pw - _u64(b)), pw))
+
+
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    """(N,) mask of the all-zero columns of a (13, N) plane."""
+    return (a == 0).all(dim=0)
+
+
 # ---------------------------------------------------------------------------
 # Montgomery products (R = 2^416), 16-bit digits
 # ---------------------------------------------------------------------------
@@ -224,6 +241,12 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def mont_mul_pair(a, b, c, d) -> torch.Tensor:
     """REDC(a*b + c*d): one reduction for a sum of two products."""
     return _mont([(a, b), (c, d)], _lanes(a, b, c, d), a.device)
+
+
+def mont_mul_canon(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """REDC(a*b) mod p for canonical a, b (REDC(a*b) < 2p): the product of
+    the canonical-domain point formulas."""
+    return field_canon(mont_mul(a, b), 2)
 
 
 def to_mont(a: torch.Tensor) -> torch.Tensor:

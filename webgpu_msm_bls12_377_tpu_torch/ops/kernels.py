@@ -1,4 +1,6 @@
-"""CUDA kernel build, loading and launch accounting; kernels 1 and 4.
+"""CUDA kernel build, loading and launch accounting; the lane-wise
+kernels: 1 (constant product), 4 (lazy BPR family), 6 (legacy SMVP round)
+and 7 (canonical add, double-and-add step, running-sum step).
 
 Every kernel source under csrc/ is compiled by nvcc for sm_90a into a
 shared library with a plain C interface, loaded with ctypes.  The build
@@ -36,7 +38,7 @@ from .field import NW
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("convert", "tree", "packed", "bpr")
+SOURCES = ("convert", "tree", "packed", "bpr", "stream", "legacy", "canon")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,6 +67,17 @@ _ARGTYPES = {
         "msm_bpr_double": [_P, _P, _I64, _P],
         "msm_bpr_masked_add_double": [_P, _P, _P, _P, _P, _I64, _P],
         "msm_bpr_add": [_P, _P, _P, _I64, _P],
+    },
+    "stream": {
+        "msm_stream_buckets": [_P, _I64, _P, _P, _P, _P, _I64, _P],
+    },
+    "legacy": {
+        "msm_masked_add_mixed": [_P, _P, _P, _P, _P, _I64, _P],
+    },
+    "canon": {
+        "msm_fused_add": [_P, _P, _P, _I64, _P],
+        "msm_masked_add_and_double": [_P, _P, _P, _P, _P, _I64, _P],
+        "msm_fused_running_add": [_P, _P, _P, _P, _P, _I64, _P],
     },
 }
 
@@ -230,6 +243,7 @@ def mont_mul_const(a: torch.Tensor, y: int) -> torch.Tensor:
 
 G1 = C.G1Ops()
 ROWS = C.N_COORDS * NW
+AFF_ROWS = 2 * NW
 
 
 def running_add_plain(m, g, b):
@@ -302,3 +316,97 @@ def bpr_add(a, b):
     launch("bpr", "msm_bpr_add", "bpr_add", n,
            a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel 6: one lockstep round of the legacy SMVP
+# ---------------------------------------------------------------------------
+
+
+def masked_add_mixed_plain(acc, aff, sign_pos, valid):
+    x, y = aff[:NW], aff[NW:]
+    signed = (x, torch.where((sign_pos != 0)[None], y, F.field_neg(y)))
+    new = G1.add_mixed(C.split(acc), signed)
+    return C.merge(G1.select(valid != 0, new, C.split(acc)))
+
+
+def masked_add_mixed(acc, aff, sign_pos, valid):
+    """select(valid, acc + (sign_pos ? aff : -aff), acc), the canonical
+    complete mixed add: acc (39, B) canonical, aff (26, B) canonical
+    affine points (never the identity on a valid lane), sign_pos and valid
+    (B,) int32."""
+    n = check_plane(acc, ROWS)
+    check_plane(aff, AFF_ROWS, n)
+    for t in (sign_pos, valid):
+        if t.shape != (n,):
+            raise ValueError(f"lane flags must be ({n},), got {tuple(t.shape)}")
+    if not on_cuda(acc, aff, sign_pos, valid):
+        return masked_add_mixed_plain(acc, aff, sign_pos, valid)
+    out = torch.empty_like(acc)
+    launch("legacy", "msm_masked_add_mixed", "masked_add_mixed", n,
+           acc.data_ptr(), aff.data_ptr(), sign_pos.data_ptr(),
+           valid.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel 7: the canonical-domain kernels on (39, L) planes below p
+# ---------------------------------------------------------------------------
+
+
+def fused_add_plain(a, b):
+    return C.merge(G1.add(C.split(a), C.split(b)))
+
+
+def masked_add_and_double_plain(r, t, bits):
+    added = G1.add(C.split(r), C.split(t))
+    res = G1.select(bits != 0, added, C.split(r))
+    return C.merge(res), C.merge(G1.double(C.split(t)))
+
+
+def fused_running_add_plain(m, g, b):
+    m2 = G1.add(C.split(m), C.split(b))
+    g2 = G1.add(C.split(g), m2)
+    return C.merge(m2), C.merge(g2)
+
+
+def fused_add(a, b):
+    """Canonical complete add of every lane."""
+    n = check_plane(a, ROWS)
+    check_plane(b, ROWS, n)
+    if not on_cuda(a, b):
+        return fused_add_plain(a, b)
+    out = torch.empty_like(a)
+    launch("canon", "msm_fused_add", "fused_add", n,
+           a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+def masked_add_and_double(r, t, bits):
+    """One canonical double-and-add step: (bit ? r + t : r, 2t); bits (L,)
+    int32."""
+    n = check_plane(r, ROWS)
+    check_plane(t, ROWS, n)
+    if bits.shape != (n,):
+        raise ValueError(f"bits must be ({n},), got {tuple(bits.shape)}")
+    if not on_cuda(r, t, bits):
+        return masked_add_and_double_plain(r, t, bits)
+    r2, t2 = torch.empty_like(r), torch.empty_like(t)
+    launch("canon", "msm_masked_add_and_double", "masked_add_and_double", n,
+           r.data_ptr(), t.data_ptr(), bits.data_ptr(), r2.data_ptr(),
+           t2.data_ptr(), n)
+    return r2, t2
+
+
+def fused_running_add(m, g, b):
+    """One canonical running-sum step: (m + b, g + (m + b))."""
+    n = check_plane(m, ROWS)
+    for t in (g, b):
+        check_plane(t, ROWS, n)
+    if not on_cuda(m, g, b):
+        return fused_running_add_plain(m, g, b)
+    m2, g2 = torch.empty_like(m), torch.empty_like(g)
+    launch("canon", "msm_fused_running_add", "fused_running_add", n,
+           m.data_ptr(), g.data_ptr(), b.data_ptr(), m2.data_ptr(),
+           g2.data_ptr(), n)
+    return m2, g2

@@ -26,11 +26,15 @@ from typing import NamedTuple
 import torch
 
 from . import curve as C
-from . import field as F
-from .buckets import IDX_MASK, SIGN_BIT
 from .field import NW
 from .kernels import check_plane, launch, on_cuda
-from .smvp_stream import StreamLayout, build_stream_layout, packed_finish
+from .smvp_stream import (
+    AFF_ROWS,
+    StreamLayout,
+    build_stream_layout,
+    packed_finish,
+    signed_rows,
+)
 
 FLAG_INVALID = 1 << 29
 FLAG_SINGLE = 1 << 30
@@ -38,17 +42,6 @@ CHILD_MASK = FLAG_INVALID - 1
 
 G1 = C.G1Ops()
 ROWS = C.N_COORDS * NW
-AFF_ROWS = 2 * NW
-
-
-def build_tree_table(table: torch.Tensor) -> torch.Tensor:
-    """(26, N) Montgomery affine (x; y) plane -> (26, 2N) signed table:
-    columns [0, N) hold (x, y), columns [N, 2N) hold (x, -y)."""
-    check_plane(table, AFF_ROWS)
-    x, y = table[:NW], table[NW:]
-    return torch.cat(
-        [table, torch.cat([x, F.field_neg(y)], dim=0)], dim=1
-    ).contiguous()
 
 
 def extend_with_phantom(
@@ -153,15 +146,6 @@ def build_hybrid_plan(
 # ---------------------------------------------------------------------------
 
 
-def _signed_rows(table: torch.Tensor, sorted_vals: torch.Tensor, i):
-    """Affine (x, y) of sorted-stream entries i from the signed table."""
-    n = table.shape[1] // 2
-    v = sorted_vals[i].to(torch.int64)
-    row = (v & IDX_MASK) + torch.where(((v >> SIGN_BIT) & 1) == 1, 0, n)
-    rows = table[:, row]
-    return rows[:NW], rows[NW:]
-
-
 def tree_level_plain(
     arr_in, level_map, mode: str, last: bool, sorted_vals=None
 ) -> torch.Tensor:
@@ -173,8 +157,8 @@ def tree_level_plain(
     # a pair's second child exists; for others read A twice (unused)
     b = torch.where(invalid | single, a, a + 1)
     if mode == "aff":
-        aff_a = _signed_rows(arr_in, sorted_vals, a)
-        aff_b = _signed_rows(arr_in, sorted_vals, b)
+        aff_a = signed_rows(arr_in, sorted_vals, a)
+        aff_b = signed_rows(arr_in, sorted_vals, b)
         res = G1.add_affine_lazy_pair(aff_a, aff_b)
         alt = G1.from_affine(aff_a)
     else:
