@@ -1,7 +1,8 @@
 """Port CUDA kernels against their plain PyTorch versions, on the card.
 
 Every kernel entry point (csrc/convert.cu, tree.cu, packed.cu, bpr.cu,
-stream.cu, legacy.cu, canon.cu) runs on CUDA tensors and must equal its plain version word for word: both
+stream.cu, legacy.cu, canon.cu, fused.cu) runs on CUDA tensors and must
+equal its plain version word for word: both
 compute the same exact integers (no tolerance).  Marked ``cuda``; without
 a CUDA device every test skips.  On a GPU machine:
 
@@ -21,6 +22,7 @@ from webgpu_msm_bls12_377_tpu_torch.models import (
 )
 from webgpu_msm_bls12_377_tpu_torch.ops import field as F
 from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
+from webgpu_msm_bls12_377_tpu_torch.ops import smvp_kernel as SK
 from webgpu_msm_bls12_377_tpu_torch.ops import smvp_stream as S
 from webgpu_msm_bls12_377_tpu_torch.ops import smvp_tree as T
 from webgpu_msm_bls12_377_tpu_torch.ops.buckets import build_bucket_plan
@@ -129,6 +131,46 @@ def test_stream_duplicate_heavy_bucket(dev):
                                              layout.starts_rk, layout.lens_rk))
 
 
+def test_fused_buckets_random_and_real_plan(dev):
+    """Kernel 8 on random rows with hand-made segments (empty, length 1,
+    long, overlapping) and on a real plan, single dispatch and windowed."""
+    rng = random.Random("k8")
+    count = 600
+    rows = torch.zeros((count, SK.ROW_WORDS), dtype=torch.int32, device=dev)
+    rows[:, :26] = rand_plane(rng, 26, count, P, dev).T
+    lens = [0, 1, 2, 65, 0, 33, 1, 100] + [rng.randrange(0, 9) for _ in range(LANES - 8)]
+    starts = [rng.randrange(0, count - l + 1) for l in lens]
+    starts, lens = (torch.tensor(v, dtype=torch.int32, device=dev)
+                    for v in (starts, lens))
+    K.reset_launches()
+    same(SK.accumulate_buckets_fused(rows, starts, lens),
+         SK.accumulate_buckets_fused_plain(rows, starts, lens))
+    assert K.launches["fused_buckets"] == 1
+    # the kernel reads raw int32 pointers: other operands are refused
+    for bad in ((rows, starts.to(torch.int64), lens),
+                (rows, starts, lens.repeat_interleave(2)[::2]),
+                (rows.T.contiguous().T, starts, lens)):
+        with pytest.raises(ValueError, match="contiguous int32"):
+            SK.accumulate_buckets_fused(*bad)
+    assert K.launches["fused_buckets"] == 1
+
+    npts, chunk = 300, 9
+    windows = num_windows_for(chunk)
+    wide = SK.make_wide_rows(rand_plane(rng, 26, npts, P, dev))
+    sw = torch.tensor([[rng.randrange(1 << 32) for _ in range(npts)]
+                       for _ in range(8)], dtype=torch.int64)
+    sw[7] &= (1 << 29) - 1
+    plan = build_bucket_plan(decompose_scalars_signed(sw.to(dev), chunk, windows),
+                             chunk)
+    gathered = SK.pregather_signed(wide, plan.sorted_vals)
+    want = SK.accumulate_buckets_fused_plain(gathered, plan.starts, plan.lens)
+    same(SK.accumulate_buckets_fused(gathered, plan.starts, plan.lens), want)
+    K.reset_launches()
+    same(SK.accumulate_buckets_windowed(wide, plan.sorted_vals, plan.starts,
+                                        plan.lens, windows), want)
+    assert K.launches["fused_buckets"] == windows
+
+
 def test_canonical_family_and_masked_add_mixed(dev):
     rng = random.Random("k67")
     a, g, b = (rand_plane(rng, 39, LANES, P, dev) for _ in range(3))
@@ -170,6 +212,57 @@ def test_stream_and_legacy_engines_on_the_card(dev, msm_case, mode, kernel):
     assert K.launches[kernel] > 0 and K.launches["bpr_add"] > 0
 
 
+@pytest.mark.parametrize("chunk", [4, 9])
+def test_fused_engine_on_the_card(dev, msm_case, chunk):
+    """One launch of kernel 8 at chunk 4, one per window at chunk 9."""
+    aff, scalars, want = msm_case
+    eng = CuzkMsmEngine(chunk_size=chunk, num_bpr_threads=4, smvp_mode="fused")
+    K.reset_launches()
+    got = eng.compute_msm(aff, scalars)
+    assert (got["x"], got["y"]) == want
+    assert K.launches["fused_buckets"] == (
+        1 if chunk == 4 else num_windows_for(chunk))
+    assert K.launches["masked_add_mixed"] == K.launches["stream_buckets"] == 0
+
+
+def test_pure_tree_engine_on_the_card(dev, msm_case):
+    aff, scalars, want = msm_case
+    eng = CuzkMsmEngine(chunk_size=4, num_bpr_threads=4, smvp_mode="tree")
+    K.reset_launches()
+    got = eng.compute_msm(aff, scalars)
+    assert (got["x"], got["y"]) == want
+    assert K.launches["tree_level_aff"] == 1 and K.launches["tree_level_full"] > 1
+    assert K.launches["packed_finish"] == 0
+
+
+@pytest.mark.parametrize("mode", ["tree", "stream"])
+def test_batch_on_the_card(dev, msm_case, mode, monkeypatch):
+    """Three sets over one point set: one table conversion for the batch
+    (kernel 1 launches = 1 + one exit per set), results equal to
+    compute_msm per set, and the per-set stage makes no call that waits
+    for the device (PyTorch's sync debug mode raises on one)."""
+    aff, scalars, want = msm_case
+    rng = random.Random("k-batch")
+    sets = [scalars] + [[rng.randrange(0, 1 << 253) for _ in range(96)]
+                        for _ in range(2)]
+    eng = CuzkMsmEngine(chunk_size=4, num_bpr_threads=4, smvp_mode=mode,
+                        tree_finish=2 if mode == "tree" else None)
+    singles = [eng.compute_msm(aff, s) for s in sets]  # also warms the caches
+    assert (singles[0]["x"], singles[0]["y"]) == want
+    real = CuzkMsmEngine._batch_sets
+
+    def strict(self, *a):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(self, *a)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    monkeypatch.setattr(CuzkMsmEngine, "_batch_sets", strict)
+    K.reset_launches()
+    assert eng.compute_msm_batch(aff, sets) == singles
+    assert K.launches["mont_mul_const"] == 1 + len(sets)
+
+
 def test_naive_engine_on_the_card(dev, msm_case):
     aff, scalars, _ = msm_case
     aff, scalars = aff[:64], scalars[:64]
@@ -190,7 +283,8 @@ def test_engine_on_the_card_matches_oracle(dev):
     pts = [crv.g1_scalar_mult(crv.G1_GENERATOR, rng.randrange(1, 1 << 60))
            for _ in range(96)]
     scalars = [rng.randrange(0, 1 << 253) for _ in range(96)]
-    eng = CuzkMsmEngine(chunk_size=4, num_bpr_threads=4, smvp_mode="tree")
+    eng = CuzkMsmEngine(chunk_size=4, num_bpr_threads=4, smvp_mode="tree",
+                        tree_finish=2)
     K.reset_launches()
     got = eng.compute_msm([crv.g1_to_affine(p) for p in pts], scalars)
     assert (got["x"], got["y"]) == crv.g1_to_affine(naive_msm(pts, scalars, G1))

@@ -1,7 +1,8 @@
 """Port engine end to end (CPU, plain PyTorch versions of every kernel).
 
-compute_msm on the hybrid tree at the JAX package's small test shapes
-(tests/test_smvp_tree.py: N = 96, chunk 4, 4 BPR threads) equals the
+compute_msm on the hybrid tree (smvp_mode="tree" with tree_finish = K) at
+the JAX package's small test shapes (tests/test_smvp_tree.py: N = 96,
+chunk 4, 4 BPR threads) equals the
 bigint oracle, for K = 1 and 2 and a duplicate-heavy scalar set; a slow
 test holds it against the JAX engine in tree-interpret mode.  Guards: the
 port imports no JAX and nothing of the JAX package, the public entry point
@@ -47,7 +48,7 @@ def case():
 
 def engine(**kw):
     opts = dict(chunk_size=CHUNK, num_bpr_threads=4,
-                smvp_mode="tree", device="cpu")
+                smvp_mode="tree", tree_finish=2, device="cpu")
     opts.update(kw)
     return CuzkMsmEngine(**opts)
 
@@ -87,9 +88,13 @@ def test_input_validation():
         eng.compute_msm([(1, 2)], [1 << 253])
     with pytest.raises(ValueError, match="mismatch"):
         eng.compute_msm([(1, 2)], [1, 2])
-    with pytest.raises(NotImplementedError, match="fused"):
-        CuzkMsmEngine(device="cpu", smvp_mode="fused").compute_msm(
-            [(1, 2)] * 4, [1] * 4)
+    # "fused" is a mode like the others; the JAX package's interpret modes
+    # are not
+    assert engine(smvp_mode="fused")._select_smvp(CHUNK, 4) == "fused"
+    with pytest.raises(ValueError, match="unknown smvp_mode"):
+        engine(smvp_mode="tree-interpret")
+    with pytest.raises(ValueError, match="tree_finish"):
+        engine(tree_finish=0)
     with pytest.raises(NotImplementedError, match="Edwards"):
         CuzkMsmEngine(CurveId.EDWARDS_BLS12, device="cpu")
     with pytest.raises(ValueError, match="power of two"):
@@ -98,8 +103,10 @@ def test_input_validation():
 
 def test_default_options_answer_below_2_18(case):
     """smvp_mode="auto" with the default chunk policy raises for no valid
-    input: a small n takes chunk 4 and the legacy path."""
+    input: a small n takes chunk 4 and the fused path."""
     pts, aff, scalars = case
+    eng = CuzkMsmEngine(device="cpu")
+    assert eng._select_smvp(eng._chunk_for(8), 8) == "fused"
     got = port.compute_msm(aff[:8], scalars[:8], device="cpu")
     assert (got["x"], got["y"]) == crv.g1_to_affine(
         naive_msm(pts[:8], scalars[:8], G1))
@@ -155,7 +162,7 @@ from webgpu_msm_bls12_377_tpu_torch.reference import curve as crv
 pts = [crv.g1_scalar_mult(crv.G1_GENERATOR, k) for k in range(1, 9)]
 aff = [crv.g1_to_affine(p) for p in pts]
 eng = CuzkMsmEngine(chunk_size=4, num_bpr_threads=4, smvp_mode="tree",
-                    device="cpu")
+                    tree_finish=2, device="cpu")
 got = eng.compute_msm(aff, list(range(1, 9)))
 want = crv.g1_to_affine(crv.g1_scalar_mult(crv.G1_GENERATOR, 204))
 assert (got["x"], got["y"]) == want, got

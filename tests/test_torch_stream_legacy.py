@@ -189,22 +189,26 @@ def test_naive_engine_matches_jax_pippenger_and_oracle(case, small_case):
 
 
 @pytest.mark.parametrize("n,chunk,path", [
-    (8, 4, "legacy"), ((1 << 16) - 1, 4, "legacy"), (1 << 16, 15, "stream"),
+    (8, 4, "fused"), ((1 << 16) - 1, 4, "fused"), (1 << 16, 15, "stream"),
     ((1 << 18) - 1, 15, "stream"), (1 << 18, 15, "tree"), (1 << 20, 16, "tree"),
 ])
 def test_select_smvp_auto_policy(n, chunk, path):
     """Policy only (no MSM): "auto" answers at every n, as the JAX engine
-    does on a TPU (tree from 2^18, stream where chunk >= 9, else legacy)."""
+    does on a TPU (where chunk >= 9 the tree from 2^18 and the stream path
+    below, else the fused path where its buckets fill whole blocks, else
+    legacy; tests/test_torch_fused_batch.py holds every chunk and n against
+    the JAX engine's own policy)."""
     eng = CuzkMsmEngine(device="cpu")
     assert choose_chunk_size(n) == chunk == eng._chunk_for(n)
     assert eng._select_smvp(chunk, n) == path
 
 
 def test_select_smvp_explicit_modes():
-    for mode in ("tree", "stream", "legacy"):
+    for mode in ("tree", "stream", "fused", "legacy"):
         assert engine(smvp_mode=mode)._select_smvp(CHUNK, 8) == mode
+        assert engine(smvp_mode=mode)._select_smvp(5, 1 << 20) == mode
     assert smvp_stream.stream_supported(9) and not smvp_stream.stream_supported(8)
-    with pytest.raises(NotImplementedError, match="row 10"):
-        engine(smvp_mode="fused").compute_msm([(1, 2)], [1])
+    # chunk 5..7 fill no whole 256-lane block: "auto" falls to legacy there
+    assert engine()._select_smvp(5, 8) == "legacy"
     with pytest.raises(ValueError, match="unknown smvp_mode"):
         engine(smvp_mode="interpret")

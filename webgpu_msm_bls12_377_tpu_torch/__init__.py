@@ -1,5 +1,6 @@
 """PyTorch and CUDA port of the MSM engines (BLS12-377 G1: the cuZK engine's
-hybrid-tree, stream and legacy paths, Pippenger and the naive baseline).
+tree (hybrid and pure), stream, fused and legacy paths and its batch mode
+over a fixed point set, Pippenger and the naive baseline).
 
 The JAX package webgpu_msm_bls12_377_tpu is the reference this port is
 tested against; the port imports nothing of it and no JAX.  Kernels are

@@ -14,6 +14,8 @@ num_windows results once.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -41,6 +43,17 @@ def bpr_order(num_windows: int, chunk_size: int, num_threads: int) -> np.ndarray
     return np.stack([idx0] + [base - st for st in range(1, bpt)])
 
 
+@functools.lru_cache(maxsize=8)
+def bpr_order_on(
+    num_windows: int, chunk_size: int, num_threads: int, device
+) -> torch.Tensor:
+    """bpr_order flattened to a (bpt*lanes,) int64 tensor on device.
+    Cached and read-only: the walk is static, and a copy from host memory
+    makes the host wait for the device's stream."""
+    order = bpr_order(num_windows, chunk_size, num_threads)
+    return torch.as_tensor(order.reshape(-1), device=device).to(torch.int64)
+
+
 def reduce_buckets_prearranged(
     buckets_bpr: torch.Tensor,
     num_windows: int,
@@ -64,32 +77,42 @@ def reduce_buckets_prearranged(
     return _bpr_stage2_and_fold(m, g, num_windows, t_count, bpt)
 
 
-def _bpr_stage2_and_fold(m, g, num_windows, t_count, bpt):
-    """Stage 2 (g += m * s) and the per-window shift-reduce fold."""
-    dev = m.device
+@functools.lru_cache(maxsize=8)
+def _stage2_consts(num_windows: int, t_count: int, device):
+    """Static per-lane tables of stage 2 and the fold, on device (cached
+    and read-only, as bpr_order_on): the (nbits, lanes) bits of each
+    lane's k, the fold's partner lanes per step, and lane 0 of each
+    window."""
     wi = np.repeat(np.arange(num_windows, dtype=np.int64), t_count)
     tf = np.tile(np.arange(t_count, dtype=np.int64), num_windows)
-    b_shift = max(bpt.bit_length() - 1, 0)
     k_lane = t_count - 1 - tf
     nbits = max(int(k_lane.max()).bit_length(), 1)
     bit_table = torch.as_tensor(
         np.stack([(k_lane >> b) & 1 for b in range(nbits)]).astype(np.int32),
-        device=dev,
+        device=device,
     )
-    temp = m
-    for _ in range(b_shift):
-        temp = bpr_double(temp)
-    for b in range(nbits):
-        g, temp = bpr_masked_add_double(g, temp, bit_table[b])
     # lane i reads partner i + off, in-window for every lane that still
     # feeds lane 0; the other lanes read a clamped partner and compute
     # values nothing reads
+    partners = []
     off = t_count // 2
     while off >= 1:
-        partner = torch.as_tensor(
-            wi * t_count + np.minimum(tf + off, t_count - 1), device=dev
-        )
-        g = bpr_add(g, g[:, partner].contiguous())
+        partners.append(torch.as_tensor(
+            wi * t_count + np.minimum(tf + off, t_count - 1), device=device
+        ))
         off //= 2
-    lane0 = torch.as_tensor(np.arange(num_windows) * t_count, device=dev)
+    lane0 = torch.as_tensor(np.arange(num_windows) * t_count, device=device)
+    return bit_table, partners, lane0
+
+
+def _bpr_stage2_and_fold(m, g, num_windows, t_count, bpt):
+    """Stage 2 (g += m * s) and the per-window shift-reduce fold."""
+    bit_table, partners, lane0 = _stage2_consts(num_windows, t_count, m.device)
+    temp = m
+    for _ in range(max(bpt.bit_length() - 1, 0)):
+        temp = bpr_double(temp)
+    for bits in bit_table:
+        g, temp = bpr_masked_add_double(g, temp, bits)
+    for partner in partners:
+        g = bpr_add(g, g[:, partner].contiguous())
     return C.merge(C.G1Ops().canon(C.split(g[:, lane0])))

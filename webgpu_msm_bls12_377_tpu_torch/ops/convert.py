@@ -64,6 +64,17 @@ def from_jax_limbs(arr, montgomery: bool) -> torch.Tensor:
     return torch.cat(planes, dim=0)
 
 
+def from_jax_rows(rows, num_coords: int, montgomery: bool) -> torch.Tensor:
+    """JAX-package row-major point rows -> the port's row-major words.
+
+    rows: (count, >= num_coords*30) limbs, each row num_coords field
+    elements of 30 limbs and then padding (the fused path's wide rows and
+    pre-gathered rows; trailing pad rows are the caller's to cut).  Returns
+    (count, num_coords*13) int32, values reduced mod p as from_jax_limbs."""
+    a = np.asarray(rows)[:, : num_coords * JAX_NUM_WORDS]
+    return from_jax_limbs(a.T, montgomery).T.contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Host-side wire packing (numpy; the reference's buffer input format)
 # ---------------------------------------------------------------------------

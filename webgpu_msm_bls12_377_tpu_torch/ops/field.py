@@ -16,6 +16,8 @@ equals the kernels' 32-bit CIOS product exactly.
 
 from __future__ import annotations
 
+import functools
+
 from typing import Sequence
 
 import numpy as np
@@ -58,8 +60,11 @@ def plane_to_ints(plane: torch.Tensor) -> list[int]:
     ]
 
 
+@functools.lru_cache(maxsize=None)
 def const_col(v: int, device=None) -> torch.Tensor:
-    """A constant as a broadcastable (13, 1) int32 column."""
+    """A constant as a broadcastable (13, 1) int32 column.  Cached by
+    device and read-only: copying a host constant to a CUDA device makes
+    the host wait for the stream, so each crosses once."""
     return ints_to_plane([v], device)
 
 
@@ -73,7 +78,10 @@ def _i32(w: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= (1 << 31), w - (1 << 32), w).to(torch.int32)
 
 
+@functools.lru_cache(maxsize=None)
 def _int_words(v: int, device) -> torch.Tensor:
+    """(13, 1) int64 words of a constant; cached and read-only, as
+    const_col."""
     return torch.tensor(
         [(v >> (32 * i)) & M32 for i in range(NW)], dtype=torch.int64,
         device=device,
@@ -187,7 +195,9 @@ def _digits(w: torch.Tensor) -> torch.Tensor:
     return torch.stack([w & M16, w >> 16], dim=1).reshape(ND, *w.shape[1:])
 
 
+@functools.lru_cache(maxsize=None)
 def _p_digits(device) -> torch.Tensor:
+    """(26, 1) 16-bit digits of p; cached and read-only, as const_col."""
     return torch.tensor(
         [(P >> (16 * i)) & M16 for i in range(ND)], dtype=torch.int64,
         device=device,

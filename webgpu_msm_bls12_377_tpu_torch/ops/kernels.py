@@ -38,7 +38,8 @@ from .field import NW
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("convert", "tree", "packed", "bpr", "stream", "legacy", "canon")
+SOURCES = ("convert", "tree", "packed", "bpr", "stream", "legacy", "canon",
+           "fused")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -78,6 +79,9 @@ _ARGTYPES = {
         "msm_fused_add": [_P, _P, _P, _I64, _P],
         "msm_masked_add_and_double": [_P, _P, _P, _P, _P, _I64, _P],
         "msm_fused_running_add": [_P, _P, _P, _P, _P, _I64, _P],
+    },
+    "fused": {
+        "msm_fused_buckets": [_P, _P, _P, _P, _I64, _P],
     },
 }
 

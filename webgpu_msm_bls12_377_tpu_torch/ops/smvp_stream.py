@@ -19,7 +19,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from . import curve as C
@@ -171,14 +170,15 @@ def packed_finish(plane: torch.Tensor, layout: StreamLayout) -> torch.Tensor:
 
 
 def permute_buckets(
-    blocks: torch.Tensor, layout: StreamLayout, order: np.ndarray | None = None
+    blocks: torch.Tensor, layout: StreamLayout, order=None
 ) -> torch.Tensor:
     """Block-ordered (39, B) plane -> window-major buckets, or
-    buckets[order.reshape(-1)] when order (e.g. ops/bpr.py:bpr_order) is
-    given: one column gather.  Empty buckets become the identity."""
+    buckets[order.reshape(-1)] when order (an array or tensor, e.g.
+    ops/bpr.py:bpr_order) is given: one column gather.  Empty buckets
+    become the identity."""
     perm = layout.perm.to(torch.int64)
     if order is not None:
-        perm = perm[torch.as_tensor(order.reshape(-1), device=perm.device)
+        perm = perm[torch.as_tensor(order, device=perm.device).reshape(-1)
                     .to(torch.int64)]
     sel = blocks[:, perm]
     nonempty = layout.lens_rk[perm] > 0

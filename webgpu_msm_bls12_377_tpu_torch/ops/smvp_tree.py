@@ -1,5 +1,6 @@
-"""Packed segmented-tree SMVP, hybrid form: tree levels 1..K, then the
-packed finish (ops/smvp_stream.py).
+"""Packed segmented-tree SMVP: the hybrid form (tree levels 1..K, then the
+packed finish of ops/smvp_stream.py) and the pure tree (every level, until
+each bucket is one node).
 
 Level 1 pairs adjacent same-bucket entries of the sorted entry stream
 (both-affine adds) and every later level pairs adjacent nodes of the
@@ -17,12 +18,16 @@ host readback.  Each window ends with a phantom bucket that covers its
 skipped zero-digit tail: with it, off changes by at most one between
 consecutive buckets, window boundaries included, for any input.  Phantom
 nodes are computed and never read.
+
+The pure tree's level count is ceil(log2(longest bucket)): the one value
+its caller reads back from the device (TreePlan.max_len).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import curve as C
@@ -113,6 +118,29 @@ def build_level_map(
     return torch.where(
         iota < t_k, child_a | singles[:t_cap], FLAG_INVALID
     ).to(torch.int32)
+
+
+def num_levels(max_len: int) -> int:
+    """Levels until every bucket is a single node: ceil(log2(max_len))."""
+    return max(1, int(np.ceil(np.log2(max(int(max_len), 2)))))
+
+
+class TreePlan(NamedTuple):
+    level_map1: torch.Tensor  # (T1 cap,) level-1 map into the sorted stream
+    lens: torch.Tensor  # (B_e,) phantom-extended bucket lengths
+    max_len: torch.Tensor  # () longest real bucket, on the device
+
+
+def build_tree_plan(
+    starts: torch.Tensor, lens: torch.Tensor, kn: int, num_windows: int
+) -> TreePlan:
+    """The pure tree's plan: the level-1 map and the longest real bucket,
+    which picks the level count (num_levels)."""
+    starts_e, lens_e = extend_with_phantom(starts, lens, kn, num_windows)
+    c1, s1 = chain_counts(lens_e, 1)
+    (t1_cap,) = level_caps(kn, lens_e.shape[0], 1)
+    map1 = build_level_map(starts_e, lens_e, s1, c1, t1_cap)
+    return TreePlan(level_map1=map1, lens=lens_e, max_len=lens.max())
 
 
 class HybridPlan(NamedTuple):
@@ -208,6 +236,24 @@ def run_tree_level(
     return out
 
 
+def _tree_levels(tree_table, sorted_vals, level_map1, lens, levels, canon):
+    """Tree levels 1..levels over the phantom-extended lens; canon
+    canonicalizes the last level.  Returns (plane, packed offsets S_levels)."""
+    kn = sorted_vals.shape[0]
+    caps = level_caps(kn, lens.shape[0], levels)
+    lvl = run_tree_level(tree_table, level_map1, "aff",
+                         last=canon and levels == 1, sorted_vals=sorted_vals)
+    c_prev, s_prev = chain_counts(lens, 1)
+    for k in range(2, levels + 1):
+        c_k = (c_prev + 1) >> 1
+        s_k = torch.cumsum(c_k, 0) - c_k
+        level_map = build_level_map(s_prev, c_prev, s_k, c_k, caps[k - 1])
+        lvl = run_tree_level(lvl, level_map, "full",
+                             last=canon and k == levels)
+        c_prev, s_prev = c_k, s_k
+    return lvl, s_prev
+
+
 def tree_smvp_hybrid(
     tree_table: torch.Tensor,
     sorted_vals: torch.Tensor,
@@ -217,15 +263,35 @@ def tree_smvp_hybrid(
     """Tree levels 1..k_levels, then the packed finish.  Returns the
     (39, B) block-ordered canonical bucket plane (one column per real
     bucket, length-sorted rank order; see permute_buckets)."""
-    kn = sorted_vals.shape[0]
-    caps = level_caps(kn, plan.lens.shape[0], k_levels)
-    lvl = run_tree_level(tree_table, plan.level_map1, "aff",
-                         sorted_vals=sorted_vals)
-    c_prev, s_prev = chain_counts(plan.lens, 1)
-    for k in range(2, k_levels + 1):
-        c_k = (c_prev + 1) >> 1
-        s_k = torch.cumsum(c_k, 0) - c_k
-        level_map = build_level_map(s_prev, c_prev, s_k, c_k, caps[k - 1])
-        lvl = run_tree_level(lvl, level_map, "full")
-        c_prev, s_prev = c_k, s_k
+    lvl, _ = _tree_levels(tree_table, sorted_vals, plan.level_map1, plan.lens,
+                          k_levels, canon=False)
     return packed_finish(lvl, plan.layout)
+
+
+def tree_smvp(
+    tree_table: torch.Tensor,
+    sorted_vals: torch.Tensor,
+    plan: TreePlan,
+    levels: int,
+):
+    """The pure tree: levels >= num_levels(longest bucket) pairwise levels,
+    the last canonical.  Returns (final, s_fin): the (39, T) packed plane
+    and the (B_e,) column of each bucket's sum in it (valid where the
+    bucket is not empty; phantom-extended, see real_bucket_view)."""
+    return _tree_levels(tree_table, sorted_vals, plan.level_map1, plan.lens,
+                        levels, canon=True)
+
+
+def permute_tree(
+    final: torch.Tensor, s_fin: torch.Tensor, lens: torch.Tensor, order=None
+) -> torch.Tensor:
+    """Packed tree output -> window-major buckets, or buckets[order] when
+    order (e.g. ops/bpr.py:bpr_order) is given: one column gather of the
+    real buckets' s_fin / lens.  Empty buckets become the identity."""
+    mask = lens > 0
+    idx = torch.where(mask, s_fin.to(torch.int64), 0)
+    if order is not None:
+        o = torch.as_tensor(order, device=idx.device).reshape(-1).to(torch.int64)
+        idx, mask = idx[o], mask[o]
+    zero = G1.zero(1, final.device)
+    return C.merge(G1.select(mask, C.split(final[:, idx]), zero))
