@@ -5,10 +5,13 @@
 
 Phases, each of which fails the run on any error:
   1. the card's name and power limit (nvidia-smi), and the build of every
-     kernel source under webgpu_msm_bls12_377_tpu_torch/csrc/ with nvcc;
-  2. every kernel entry point against its plain PyTorch form on random
-     inputs of a few thousand lanes (and a small real plan for the tree,
-     finish, stream and fused kernels): bit-exact equality;
+     kernel library with nvcc: each source under
+     webgpu_msm_bls12_377_tpu_torch/csrc/ for BLS12-377, and the five on
+     Edwards' path (convert, tree, packed, bpr, stream) again with
+     -DMSM_CURVE_ED for Twisted Edwards BLS12;
+  2. every kernel entry point, both curves, against its plain PyTorch form
+     on random inputs of a few thousand lanes (and a small real plan for
+     the tree, finish, stream and fused kernels): bit-exact equality;
   3. every path through the entry points a user calls, on the
      distinct-point bench cases held against the pinned goldens in
      test-data/goldens.json: compute_msm with default options at 2^10 and
@@ -22,23 +25,33 @@ Phases, each of which fails the run on any error:
      against the bigint oracle; compute_msm_batch of 8 scalar sets at
      2^20 (tree) against the pinned batch goldens and of 4 sets at 2^17
      (stream) against compute_msm per set, each with PyTorch's sync debug
-     mode raising on any wait for the device between sets.  Cold time,
+     mode raising on any wait for the device between sets.  Edwards:
+     compute_msm_edwards at 2^16, 2^17 (stream), 2^18 and 2^20 (hybrid
+     tree), the pure tree forced at 2^18 and a batch of 8 sets at 2^20,
+     against the edwards_bls12 goldens.  Cold time,
      median of 3 warm runs, and each kernel's launches in one run (counts
      zeroed just before, read just after); every path must launch the
      kernels it names, and together the paths cover every kernel;
   4. one more run of each path (2^20 tree, 2^17 stream, 2^16 legacy, 2^16
-     naive, the chain, 2^14 and forced 2^16 fused, 2^18 pure tree) in
+     naive, the chain, 2^10 and forced 2^16 fused, 2^18 pure tree, Edwards
+     2^20 tree and 2^17 stream) in
      which every kernel launch is timed with CUDA events and repeated
      with its plain form on the same inputs, which must agree bit for
      bit: per-kernel time, plain time and the bound (least time for the
-     same work on an H100 SXM).  The fused kernel's plain form runs one
-     lockstep round per entry of the longest bucket, 8,188 at the 2^14
-     default shape: here its round is replayed from a CUDA graph;
-  5. one more 2^20, 2^17, 2^16 and 2^14 MSM with every engine stage fenced
+     same work on an H100 SXM).  The plain forms of the lane-wise kernels
+     (1, the BPR and canonical families, the legacy round) are replayed
+     from CUDA graphs, one captured per shape; the fused kernel's plain
+     form runs one lockstep round per entry of the longest bucket
+     (hundreds at the 2^10 default shape, 8,188 at 2^14's), each round
+     replayed from a CUDA graph; phase 2 holds both replays against the
+     plain forms run eagerly;
+  5. one more 2^20, 2^17, 2^16, 2^14 and Edwards 2^20 MSM with every
+     engine stage fenced
      and timed, and one more 2^20 batch fenced as shared prep, per-set
      stages, and readback with Horner; the engine's host-to-device copy
      of the 2^20 words beside one plain .to(device); with --profile, also
-     torch.profiler over one 2^20, 2^17, 2^14, Pippenger and naive run
+     torch.profiler over one 2^20 (both curves), 2^17, 2^14, Pippenger and
+     naive run
      and one batch: the device's busy and idle share and the ops that
      take the most device time.
 Then three lines: the per-kernel JSON record, the card's name and power
@@ -67,19 +80,35 @@ sys.path.insert(0, ROOT)
 PEAK_BYTES = 3.35e12
 PEAK_MULS = 67e12 / 2
 MM, MMP = 2 * 13 * 13, 3 * 13 * 13  # word products: Montgomery product, pair
-ADD_AFF = 4 * MM + 3 * MMP  # add_affine_lazy_pair
-ADD_FULL = 6 * MM + 3 * MMP  # add_lazy_pair
-ADD_MIXED = 5 * MM + 3 * MMP  # add_mixed_lazy_pair
+ADD_AFF = 4 * MM + 3 * MMP  # G1 add_affine_lazy (paired products)
+ADD_FULL = 6 * MM + 3 * MMP  # G1 add_lazy
+ADD_MIXED = 5 * MM + 3 * MMP  # G1 add_mixed_lazy
 DBL = 8 * MM  # double_lazy, and the canonical double
 ADD_CANON, ADD_MIXED_CANON = 12 * MM, 11 * MM  # canonical add, add_mixed
 PT = 39 * 4  # bytes of one projective point
 AFF = 26 * 4  # bytes of one affine point
+MM_ED = 2 * 9 * 9  # an Edwards (9-word) Montgomery product
+#: word products and bytes of the lazy forms, by kernel-name suffix: G1 ""
+#: (RCB with paired products), Edwards "_ed" (hwcd: mixed and affine add 9
+#: products, full add 10, double 8; 4 coordinates a point, 3 an addend).
+#: cw: the words a coordinate must move.  Edwards values stay below 8p <
+#: 2^256, so 8 of the plane's 9 words (the ninth is always zero); G1's 13
+#: are counted as before, though values below 20p < 2^382 need 12
+WORK = {
+    "": dict(mm=MM, add_aff=ADD_AFF, add_full=ADD_FULL, add_mixed=ADD_MIXED,
+             dbl=DBL, pt=PT, aff=AFF, cw=13),
+    "_ed": dict(mm=MM_ED, add_aff=9 * MM_ED, add_full=10 * MM_ED,
+                add_mixed=9 * MM_ED, dbl=8 * MM_ED, pt=4 * 32, aff=3 * 32,
+                cw=8),
+}
 BENCH = ((10, 4), (14, 4), (16, 15), (17, 15), (18, 15), (20, 16))  # (power, chunk)
+ED_BENCH = ((16, 15), (17, 15), (18, 15), (20, 16))  # Edwards: n >= 2^16
 ROW = 32 * 4  # bytes of one pre-gathered row of the fused path
 BATCH_SETS, STREAM_BATCH_SETS = 8, 4
 FORCED_CHUNK = 15  # the forced fused run: the Pippenger row's shapes at 2^16
 FORCED_14 = (9, 13)  # stream chunks forced at 2^14, beside the default's 4
 DEV = "cuda"
+START = time.perf_counter()
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -112,8 +141,17 @@ KERNELS = {
     "fused_buckets": ("webgpu_msm_bls12_377_tpu_torch/csrc/fused.cu",
                       "webgpu_msm_bls12_377_tpu/ops/smvp_kernel.py:223"),
 }
-
 BPR = ("bpr_running_add", "bpr_double", "bpr_masked_add_double", "bpr_add")
+# the Edwards builds (-DMSM_CURVE_ED) of the sources on Edwards' main path,
+# and the lane-wise product of its point prep (t = x*y: an XLA product in
+# the JAX package, outside any Pallas kernel)
+KERNELS.update({f"{k}_ed": KERNELS[k] for k in (
+    "mont_mul_const", "tree_level_aff", "tree_level_full", "packed_finish",
+    *BPR, "stream_buckets")})
+KERNELS["mont_mul_lanes_ed"] = ("webgpu_msm_bls12_377_tpu_torch/csrc/convert.cu",
+                                "webgpu_msm_bls12_377_tpu/models/cuzk.py:166")
+BPR_ED = tuple(k + "_ed" for k in BPR)
+PREP_ED = ("mont_mul_const_ed", "mont_mul_lanes_ed")
 #: the kernels each path must launch; a kernel's row in the JSON record
 #: (launches, times, bound) comes from the first path that names it
 PATHS = {
@@ -125,25 +163,38 @@ PATHS = {
     # no engine of either package calls fused_running_add: the chain
     # drives it, beside the lazy running add it must agree with mod p
     "running_sum": ("fused_running_add", "bpr_running_add"),
-    # default options at 2^14 and 2^10: chunk 4 has 8 buckets a window,
-    # one per BPR lane, so BPR runs no running add and no pre-double
-    "fused": ("fused_buckets", "mont_mul_const", "bpr_masked_add_double",
-              "bpr_add"),
+    # default options at 2^10 and 2^14: chunk 4 has 8 buckets a window,
+    # one per BPR lane, so BPR runs no running add and no pre-double; the
+    # fused kernel's row is the 2^10 run's (phase 4 replays its plain form
+    # once per entry of the longest bucket: hundreds of rounds, not 8,188)
     "fused_10": ("fused_buckets", "mont_mul_const", "bpr_masked_add_double",
                  "bpr_add"),
+    "fused": ("fused_buckets", "mont_mul_const", "bpr_masked_add_double",
+              "bpr_add"),
     # the 2^14 case forced off its default path, for the times alone
     "legacy_14": ("masked_add_mixed", "mont_mul_const",
                   "bpr_masked_add_double", "bpr_add"),
     "stream_14": ("stream_buckets", "mont_mul_const"),
     "fused_forced": ("fused_buckets", "mont_mul_const", *BPR),
     "pure_tree": ("tree_level_aff", "tree_level_full", "mont_mul_const", *BPR),
+    "ed_tree": (*PREP_ED, "tree_level_aff_ed", "tree_level_full_ed",
+                "packed_finish_ed", *BPR_ED),
+    "ed_stream": ("stream_buckets_ed", *PREP_ED, *BPR_ED),
+    "ed_pure_tree": ("tree_level_aff_ed", "tree_level_full_ed", *PREP_ED,
+                     *BPR_ED),
 }
 PATHS["batch_tree"], PATHS["batch_stream"] = PATHS["tree"], PATHS["stream"]
+PATHS["ed_batch_tree"] = PATHS["ed_tree"]
 HOME = {k: path for path in reversed(PATHS) for k in PATHS[path]}
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def elapsed() -> float:
+    """Seconds since the script started."""
+    return time.perf_counter() - START
 
 
 def max_abs_err(a, b) -> int:
@@ -152,58 +203,69 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def rand_plane(rng, rows, n, bound):
+def rand_plane(rng, rows, n, bound, nw=13):
     """(rows, n) plane of random values < bound (a multiple of p)."""
     import torch
 
     from webgpu_msm_bls12_377_tpu_torch.ops import field as F
 
-    planes = [F.ints_to_plane([rng.randrange(bound) for _ in range(n)])
-              for _ in range(rows // 13)]
+    planes = [F.ints_to_plane([rng.randrange(bound) for _ in range(n)], nw=nw)
+              for _ in range(rows // nw)]
     return torch.cat(planes).to(DEV)
 
 
-def check_kernels_random() -> None:
-    """Phase 2: every entry point against its plain form, bit-exact."""
+def lazy_kernel_cases(rng, group, n=4096):
+    """Phase 2 for the kernels both curves build: kernel 1 (entry and
+    exit; for Edwards also the lane-wise product), the BPR family on lazy
+    operands, and on a small real plan (2048 points, chunk 8, K = 2) tree
+    levels 1 and 2, the packed finish and the stream kernel.  Returns
+    (cases, signed table, plan, points, windows)."""
     import torch
 
     from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
-    from webgpu_msm_bls12_377_tpu_torch.ops import smvp_kernel as SK
     from webgpu_msm_bls12_377_tpu_torch.ops import smvp_stream as S
     from webgpu_msm_bls12_377_tpu_torch.ops import smvp_tree as T
     from webgpu_msm_bls12_377_tpu_torch.ops.buckets import build_bucket_plan
     from webgpu_msm_bls12_377_tpu_torch.ops.decompose import (
         decompose_scalars_signed,
     )
-    from webgpu_msm_bls12_377_tpu_torch.ops.field import P
-    from webgpu_msm_bls12_377_tpu_torch.params import BLS12_377_PARAMS
 
-    rng = random.Random("chip-smoke-kernels")
-    n = 4096
+    ctx, tag = group.ctx, group.ctx.tag
+    nw, p, bound = ctx.nw, ctx.p, 2 * ctx.p  # lazy values below 2p
     cases = []
-    a = rand_plane(rng, 26, n, P)
-    for y in (BLS12_377_PARAMS.r2, 1):
-        cases.append(("mont_mul_const", K.mont_mul_const(a, y),
-                      K.mont_mul_const_plain(a, y)))
-    m, g, b = (rand_plane(rng, 39, n, 2 * P) for _ in range(3))
+    a = rand_plane(rng, 2 * nw, n, p, nw)
+    for y in (ctx.params.r2, 1):
+        cases.append(("mont_mul_const" + tag, K.mont_mul_const(a, y, ctx),
+                      K.mont_mul_const_plain(a, y, ctx)))
+    if tag:
+        x, y = a[:nw].contiguous(), a[nw:].contiguous()
+        cases.append(("mont_mul_lanes" + tag, K.mont_mul_lanes(x, y),
+                      K.mont_mul_lanes_plain(x, y)))
+    m, g, b = (rand_plane(rng, group.rows, n, bound, nw) for _ in range(3))
     bits = torch.randint(0, 2, (n,), dtype=torch.int32,
                          generator=torch.Generator().manual_seed(1)).to(DEV)
     pairs = [
-        ("bpr_running_add", K.bpr_running_add(m, g, b),
-         K.running_add_plain(m, g, b)),
-        ("bpr_double", K.bpr_double(m), K.double_plain(m)),
-        ("bpr_masked_add_double", K.bpr_masked_add_double(m, g, bits),
-         K.masked_add_double_plain(m, g, bits)),
-        ("bpr_add", K.bpr_add(m, b), K.add_plain(m, b)),
+        ("bpr_running_add", K.bpr_running_add(m, g, b, group),
+         K.running_add_plain(m, g, b, group)),
+        ("bpr_double", K.bpr_double(m, group), K.double_plain(m, group)),
+        ("bpr_masked_add_double", K.bpr_masked_add_double(m, g, bits, group),
+         K.masked_add_double_plain(m, g, bits, group)),
+        ("bpr_add", K.bpr_add(m, b, group), K.add_plain(m, b, group)),
+        # the plain form as phase 4 runs it (replayed from a CUDA graph)
+        # against the plain form run eagerly
+        ("bpr_masked_add_double",
+         graphed(K.masked_add_double_plain)(m, g, bits, group),
+         K.masked_add_double_plain(m, g, bits, group)),
     ]
     for name, got, want in pairs:
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         for x, y in zip(got, want):
-            cases.append((name, x, y))
+            cases.append((name + tag, x, y))
     # a small real plan: 2048 points, chunk 8, K = 2
     npts, chunk, windows = 2048, 8, 32
-    table = S.build_signed_table(rand_plane(rng, 26, npts, P))
+    table = S.build_signed_table(rand_plane(rng, group.aff_rows, npts, p, nw),
+                                 group)
     sw = torch.tensor(
         [[rng.randrange(1 << 32) for _ in range(npts)] for _ in range(8)],
         dtype=torch.int64,
@@ -215,31 +277,55 @@ def check_kernels_random() -> None:
     hp = T.build_hybrid_plan(plan.starts, plan.lens, kn, 2, windows)
     for last in (False, True):
         cases.append((
-            "tree_level_aff",
-            T.run_tree_level(table, hp.level_map1, "aff", last, plan.sorted_vals),
+            "tree_level_aff" + tag,
+            T.run_tree_level(table, hp.level_map1, "aff", last,
+                             plan.sorted_vals, group),
             T.tree_level_plain(table, hp.level_map1, "aff", last,
-                               plan.sorted_vals),
+                               plan.sorted_vals, group),
         ))
     lvl1 = T.run_tree_level(table, hp.level_map1, "aff",
-                            sorted_vals=plan.sorted_vals)
+                            sorted_vals=plan.sorted_vals, group=group)
     c1, s1 = T.chain_counts(hp.lens, 1)
     c2, s2 = T.chain_counts(hp.lens, 2)
     (_, cap2) = T.level_caps(kn, hp.lens.shape[0], 2)
     map2 = T.build_level_map(s1, c1, s2, c2, cap2)
     for last in (False, True):
-        cases.append(("tree_level_full", T.run_tree_level(lvl1, map2, "full", last),
-                      T.tree_level_plain(lvl1, map2, "full", last)))
-    lvl2 = T.run_tree_level(lvl1, map2, "full")
-    cases.append(("packed_finish", S.packed_finish(lvl2, hp.layout),
+        cases.append(("tree_level_full" + tag,
+                      T.run_tree_level(lvl1, map2, "full", last, group=group),
+                      T.tree_level_plain(lvl1, map2, "full", last,
+                                         group=group)))
+    lvl2 = T.run_tree_level(lvl1, map2, "full", group=group)
+    cases.append(("packed_finish" + tag, S.packed_finish(lvl2, hp.layout, group),
                   S.packed_finish_plain(lvl2, hp.layout.starts_rk,
-                                        hp.layout.lens_rk)))
+                                        hp.layout.lens_rk, group)))
     layout = S.build_stream_layout(plan.starts, plan.lens, windows)
     cases.append((
-        "stream_buckets",
-        S.accumulate_buckets_streamed(table, plan.sorted_vals, layout),
+        "stream_buckets" + tag,
+        S.accumulate_buckets_streamed(table, plan.sorted_vals, layout, group),
         S.accumulate_buckets_streamed_plain(table, plan.sorted_vals,
-                                            layout.starts_rk, layout.lens_rk),
+                                            layout.starts_rk, layout.lens_rk,
+                                            group),
     ))
+    return cases, table, plan, npts, windows
+
+
+def check_kernels_random() -> None:
+    """Phase 2: every entry point against its plain form, bit-exact."""
+    import torch
+
+    from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
+    from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
+    from webgpu_msm_bls12_377_tpu_torch.ops import smvp_kernel as SK
+    from webgpu_msm_bls12_377_tpu_torch.ops.field import P
+
+    rng = random.Random("chip-smoke-kernels")
+    n = 4096
+    cases, table, plan, npts, windows = lazy_kernel_cases(rng, C.G1, n)
+    ed_cases, *_ = lazy_kernel_cases(random.Random("chip-smoke-kernels-ed"),
+                                     C.EDWARDS, n)
+    cases += ed_cases
+    bits = torch.randint(0, 2, (n,), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1)).to(DEV)
     # fused segment SMVP: the same plan (empty, short and long buckets),
     # in one launch and window by window, then hand-made segments over
     # random rows: empty, length 1, long, overlapping
@@ -339,74 +425,208 @@ def fused_plain_graphed(gathered, starts, lens):
     return C.merge(acc)
 
 
-def bench_case(power: int):
+class MTWords:
+    """The 32-bit outputs of a random.Random from its current state on,
+    drawn in bulk by numpy's MT19937 (the same generator, so the same
+    words): peek(n) shows the next n, consume(n) moves past them."""
+
+    def __init__(self, rng: random.Random):
+        import numpy as np
+
+        state = rng.getstate()[1]
+        self.gen = np.random.MT19937()
+        self.gen.state = {"bit_generator": "MT19937", "state": {
+            "key": np.array(state[:624], dtype=np.uint32), "pos": state[624]}}
+        self.buf = np.empty(0, dtype=np.uint32)
+
+    def peek(self, n: int):
+        import numpy as np
+
+        if self.buf.size < n:
+            more = self.gen.random_raw(max(n - self.buf.size, 1 << 20))
+            self.buf = np.concatenate([self.buf, more.astype(np.uint32)])
+        return self.buf[:n]
+
+    def consume(self, n: int) -> None:
+        self.buf = self.buf[n:]
+
+
+def randrange_words(words: MTWords, lo: int, hi: int, count: int):
+    """count draws of random.Random.randrange(lo, hi), in order, as an
+    (8, count) uint32 array (value = sum of word i << 32 i).  CPython's
+    randrange is lo + _randbelow(hi - lo): getrandbits(k), k the bit length
+    of hi - lo, built from ceil(k / 32) outputs, the lowest word first and
+    the top one shifted right to its k bits, drawn again while the value is
+    at least hi - lo.  Here every candidate is one block of outputs; the
+    first count blocks below hi - lo are the draws."""
+    import numpy as np
+
+    n = hi - lo
+    k = n.bit_length()
+    nwd = -(-k // 32)
+    bound = [(n >> (32 * i)) & 0xFFFFFFFF for i in range(nwd)]
+    out = []
+    need = count
+    while need:
+        blocks = words.peek(nwd * (2 * need + 1024)).reshape(-1, nwd).copy()
+        blocks[:, -1] >>= 32 * nwd - k
+        below = np.zeros(len(blocks), dtype=bool)
+        equal = np.ones(len(blocks), dtype=bool)
+        for i in reversed(range(nwd)):
+            below |= equal & (blocks[:, i] < bound[i])
+            equal &= blocks[:, i] == bound[i]
+        idx = np.flatnonzero(below)[:need]
+        words.consume(nwd * (int(idx[-1]) + 1 if idx.size == need else len(blocks)))
+        out.append(blocks[idx])
+        need -= idx.size
+    vals = np.zeros((count, 8), dtype=np.uint64)
+    vals[:, :nwd] = np.concatenate(out)
+    carry = np.full(count, lo, dtype=np.uint64)
+    for i in range(8):
+        s = vals[:, i] + carry
+        vals[:, i], carry = s & 0xFFFFFFFF, s >> 32
+    if carry.any():
+        raise ValueError("randrange_words: values reach 2^256")
+    return np.ascontiguousarray(vals.astype(np.uint32).T)
+
+
+def batch_inverse(z, ctx):
+    """Lane-wise inverses of a (nw, n) plane of nonzero canonical
+    Montgomery values, n a power of two, in Montgomery form: Montgomery's
+    trick as a product tree, up by pairs and down again (2 (n - 1) plain
+    lane-wise products on z's device) around one inversion on the host."""
+    import torch
+
+    from webgpu_msm_bls12_377_tpu_torch.ops import field as F
+
+    if z.shape[1] & (z.shape[1] - 1):
+        raise ValueError("batch_inverse: n must be a power of two")
+    if bool(F.is_zero(z).any()):
+        raise ValueError("batch_inverse: a zero lane")
+    levels = [z]
+    while levels[-1].shape[1] > 1:
+        t = levels[-1]
+        levels.append(F.mont_mul_canon(t[:, 0::2].contiguous(),
+                                       t[:, 1::2].contiguous(), ctx))
+    # root = Z R for the product Z of the lanes: Z^-1 R = R^2 / root
+    root = F.plane_to_ints(levels[-1])[0]
+    inv = ctx.col(ctx.params.r2 * pow(root, -1, ctx.p) % ctx.p, z.device)
+    for t in reversed(levels[:-1]):
+        nxt = torch.empty_like(t)
+        nxt[:, 0::2] = F.mont_mul_canon(inv, t[:, 1::2].contiguous(), ctx)
+        nxt[:, 1::2] = F.mont_mul_canon(inv, t[:, 0::2].contiguous(), ctx)
+        inv = nxt
+    return inv
+
+
+class graphed:
+    """A lane-wise plain form (no host reads, fixed shapes) with one call
+    per argument signature captured in a CUDA graph and replayed for every
+    call: the same plain ops on the same operands, without the host's cost
+    per op (a plain form is thousands of small ops, and the naive path
+    alone makes 256 calls).  prepare(*args) captures outside a timed call;
+    a call copies its tensors into the graph's inputs, replays, and returns
+    clones of the graph's outputs."""
+
+    def __init__(self, plain):
+        self.plain, self.graphs = plain, {}
+
+    @staticmethod
+    def _key(args):
+        import torch
+
+        return tuple((a.shape, a.dtype) if torch.is_tensor(a)
+                     else a if isinstance(a, int) else id(a) for a in args)
+
+    def prepare(self, *args):
+        import torch
+
+        key = self._key(args)
+        if key not in self.graphs:
+            static = [a.clone() if torch.is_tensor(a) else a for a in args]
+            # one eager call on a side stream first (allocator, cached
+            # constants), as graph capture asks
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self.plain(*static)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = self.plain(*static)
+            self.graphs[key] = (graph, static, out)
+        return self.graphs[key]
+
+    def __call__(self, *args):
+        import torch
+
+        graph, static, out = self.prepare(*args)
+        for s, a in zip(static, args):
+            if torch.is_tensor(a):
+                s.copy_(a)
+        graph.replay()
+        return (tuple(o.clone() for o in out) if isinstance(out, tuple)
+                else out.clone())
+
+
+def bench_case(power: int, curve: str = "bls12_377"):
     """The port's copy of the bench case seed scheme
     (harness/testdata.py:make_bench_case): ks and scalars from
-    random.Random(f"bench-{power}-bls12_377"), points k_i * G computed
-    on the card with kernel 4's double-and-add, one host batch inversion."""
+    random.Random(f"bench-{power}-{curve}") (drawn in bulk by
+    randrange_words), ks below the curve's subgroup order, points k_i * G
+    computed on the card with kernel 4's double-and-add (the curve's
+    build) and made affine there by batch_inverse."""
     import numpy as np
     import torch
 
+    from webgpu_msm_bls12_377_tpu_torch import params as PP
     from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
     from webgpu_msm_bls12_377_tpu_torch.ops import field as F
     from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
-    from webgpu_msm_bls12_377_tpu_torch.ops.convert import ints_to_words
-    from webgpu_msm_bls12_377_tpu_torch.params import (
-        BLS12_377_G1_GENERATOR_X as GX,
-        BLS12_377_G1_GENERATOR_Y as GY,
-        BLS12_377_PARAMS as MP,
-        SCALAR_FIELD,
-    )
 
+    group = C.group_ops(PP.CurveId(curve))
+    ctx = group.ctx
+    nw, mp = ctx.nw, ctx.params
+    if group is C.G1:
+        order, gx, gy = (PP.SCALAR_FIELD, PP.BLS12_377_G1_GENERATOR_X,
+                         PP.BLS12_377_G1_GENERATOR_Y)
+        gen_affine = (gx, gy)
+    else:
+        order, gx, gy = (PP.EDWARDS_SUBGROUP_CHARACTERISTIC,
+                         PP.EDWARDS_GENERATOR_X, PP.EDWARDS_GENERATOR_Y)
+        gen_affine = (gx, gy, gx * gy % mp.p)
     n = 1 << power
-    rng = random.Random(f"bench-{power}-bls12_377")
-    ks = [rng.randrange(1, SCALAR_FIELD) for _ in range(n)]
-    scalars = [rng.randrange(0, 1 << 253) for _ in range(n)]
-    kw = torch.from_numpy(ints_to_words(ks, 8).astype(np.int64)).to(DEV)
-    g1 = C.G1Ops()
-    gen = F.ints_to_plane([MP.to_mont(GX), MP.to_mont(GY)]).to(DEV)
-    temp = C.merge(g1.from_affine((gen[:, :1].expand(13, n),
-                                   gen[:, 1:].expand(13, n))))
-    res = C.merge(g1.zero(n, DEV))
+    words = MTWords(random.Random(f"bench-{power}-{curve}"))
+    kw = torch.from_numpy(randrange_words(words, 1, order, n).astype(np.int64))
+    kw = kw.to(DEV)
+    scalars = randrange_words(words, 0, 1 << 253, n)
+    gen = F.ints_to_plane([mp.to_mont(v) for v in gen_affine], nw=nw).to(DEV)
+    temp = C.merge(group.from_affine(tuple(
+        gen[:, i:i + 1].expand(nw, n) for i in range(len(gen_affine)))))
+    res = C.merge(group.zero(n, DEV))
     for bit in range(253):
         bits = ((kw[bit // 32] >> (bit % 32)) & 1).to(torch.int32)
-        res, temp = K.bpr_masked_add_double(res, temp, bits)
-    proj = K.mont_mul_const(C.merge(g1.canon(C.split(res))), 1)
-    xs, ys, zs = (F.plane_to_ints(proj[c * 13:(c + 1) * 13]) for c in range(3))
-    pts = batch_to_affine(F.P, xs, ys, zs)
-    point_words = np.stack([ints_to_words([p[0] for p in pts], 12),
-                            ints_to_words([p[1] for p in pts], 12)])
-    return point_words, ints_to_words(scalars, 8)
+        res, temp = K.bpr_masked_add_double(res, temp, bits, group)
+    # x, y and the last coordinate z (Edwards: (x, y, t, z))
+    proj = group.canon(group.split(res))
+    zinv = batch_inverse(proj[-1], ctx)
+    aff = K.mont_mul_const(C.merge(tuple(F.mont_mul_canon(c, zinv, ctx)
+                                         for c in proj[:2])), 1, ctx)
+    # wire coordinates: 12 words (G1) or 8 (Edwards), the top word of the
+    # plane's 13 or 9 zero below p
+    cw = 12 if group is C.G1 else 8
+    point_words = aff.cpu().numpy().view(np.uint32).reshape(2, nw, n)[:, :cw]
+    return np.ascontiguousarray(point_words), scalars
 
 
-def batch_scalars(power: int, num_sets: int):
+def batch_scalars(power: int, num_sets: int, curve: str = "bls12_377"):
     """The port's copy of the batch case seed scheme
     (harness/testdata.py:make_batch_case): num_sets scalar sets over the
     bench case's points, drawn in order from
-    random.Random(f"bench-{power}-bls12_377-batch")."""
-    from webgpu_msm_bls12_377_tpu_torch.ops.convert import ints_to_words
-
-    rng = random.Random(f"bench-{power}-bls12_377-batch")
-    return [ints_to_words([rng.randrange(0, 1 << 253)
-                           for _ in range(1 << power)], 8)
+    random.Random(f"bench-{power}-{curve}-batch")."""
+    words = MTWords(random.Random(f"bench-{power}-{curve}-batch"))
+    return [randrange_words(words, 0, 1 << 253, 1 << power)
             for _ in range(num_sets)]
-
-
-def batch_to_affine(p, xs, ys, zs):
-    """Projective -> affine with one modular inversion (Montgomery's trick)."""
-    n = len(zs)
-    prefix = [1] * (n + 1)
-    for i, z in enumerate(zs):
-        if z % p == 0:
-            raise ValueError("point at infinity")
-        prefix[i + 1] = prefix[i] * z % p
-    inv = pow(prefix[n], p - 2, p)
-    out = [None] * n
-    for i in range(n - 1, -1, -1):
-        zi = prefix[i] * inv % p
-        inv = inv * zs[i] % p
-        out[i] = (xs[i] * zi % p, ys[i] * zi % p)
-    return out
 
 
 def fenced(fn, *args):
@@ -426,6 +646,12 @@ def run_msm(pw, sw):
     return fenced(compute_msm, pw, sw)
 
 
+def run_ed_msm(pw, sw):
+    from webgpu_msm_bls12_377_tpu_torch import compute_msm_edwards
+
+    return fenced(compute_msm_edwards, pw, sw)
+
+
 def engine_msm(**opts):
     """compute_msm of a CuzkMsmEngine with the given options."""
     def run(pw, sw):
@@ -435,10 +661,10 @@ def engine_msm(**opts):
     return run
 
 
-def batch_msm(pw, sws):
-    """compute_msm_batch with default options; the per-set stage runs with
-    PyTorch's sync debug mode raising on any call that waits for the
-    device."""
+def batch_msm(pw, sws, curve=None):
+    """compute_msm_batch with default options (BLS12-377 unless a curve is
+    given); the per-set stage runs with PyTorch's sync debug mode raising
+    on any call that waits for the device."""
     import torch
 
     from webgpu_msm_bls12_377_tpu_torch.models import CuzkMsmEngine
@@ -452,8 +678,9 @@ def batch_msm(pw, sws):
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
+    eng = CuzkMsmEngine() if curve is None else CuzkMsmEngine(curve)
     with patched([(CuzkMsmEngine, "_batch_sets", strict)]):
-        return CuzkMsmEngine().compute_msm_batch(pw, sws)
+        return eng.compute_msm_batch(pw, sws)
 
 
 def pippenger_msm(pw, sw):
@@ -490,7 +717,7 @@ def running_sum_chain(pw, steps=8):
     from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
     from webgpu_msm_bls12_377_tpu_torch.reference import curve as ocurve
 
-    g1 = C.G1Ops()
+    g1 = C.G1
     table = mont_point_table(words_to_device(pw, torch.device(DEV)))
     pts = C.merge(g1.from_affine((table[:13], table[13:])))
     m = g = lm = lg = C.merge(g1.zero(pts.shape[1], DEV))
@@ -649,7 +876,64 @@ def main_paths(goldens):
     return counts, inputs, sets, medians
 
 
-def timed_paths(inputs):
+def edwards_paths(goldens, counts, medians):
+    """Phase 3 for Twisted Edwards BLS12: compute_msm_edwards at the
+    default policy's stream (2^16, 2^17) and hybrid-tree (2^18, 2^20)
+    sizes, the pure tree forced at 2^18, and compute_msm_batch of 8 sets
+    at 2^20, against the pinned edwards_bls12 goldens.  Returns the inputs
+    by power and the batch's scalar sets; adds to counts and medians by
+    path."""
+    from webgpu_msm_bls12_377_tpu_torch import compute_msm_edwards
+    from webgpu_msm_bls12_377_tpu_torch.models.cuzk import CuzkMsmEngine
+    from webgpu_msm_bls12_377_tpu_torch.ops.decompose import choose_chunk_size
+    from webgpu_msm_bls12_377_tpu_torch.params import CurveId
+
+    ed = CurveId.EDWARDS_BLS12
+
+    def golden(key):
+        x_hex, y_hex = goldens[f"edwards_bls12:{key}"][:2]
+        return {"x": int(x_hex, 16), "y": int(y_hex, 16)}
+
+    def run(path, label, fn, args, want):
+        counts[path], medians[path] = drive(label, path, fn, args, want)
+
+    auto = CuzkMsmEngine(ed)
+    inputs = {}
+    for power, chunk in ED_BENCH:
+        t0 = time.perf_counter()
+        pw, sw = inputs[power] = bench_case(power, ed.value)
+        log(f"  Edwards 2^{power}: bench inputs built on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        path = auto._select_smvp(chunk, 1 << power)
+        if choose_chunk_size(1 << power) != chunk or path != (
+                "tree" if power >= 18 else "stream"):
+            raise SystemExit(f"Edwards 2^{power}: the default policy gives "
+                             f"chunk {choose_chunk_size(1 << power)}, path {path}")
+        run(f"ed_{path}", f"Edwards 2^{power} compute_msm_edwards ({path}, "
+            f"chunk {chunk})", compute_msm_edwards, (pw, sw),
+            golden(f"{power}:bench-{power}"))
+        if power == 18:
+            run("ed_pure_tree", "Edwards 2^18 (pure tree forced, chunk 15)",
+                engine_msm(curve=ed, smvp_mode="tree"), (pw, sw),
+                golden("18:bench-18"))
+    t0 = time.perf_counter()
+    sets = batch_scalars(20, BATCH_SETS, ed.value)
+    log(f"  Edwards batch scalar sets drawn in {time.perf_counter() - t0:.1f} s")
+    run("ed_batch_tree", f"Edwards 2^20 compute_msm_batch ({BATCH_SETS} sets, "
+        "tree)", lambda pw, sws: batch_msm(pw, sws, ed), (inputs[20][0], sets),
+        [golden(f"20:bench-20:batch{i}") for i in range(BATCH_SETS)])
+    # the points converted once: kernel 1 for the table and each set's
+    # exit, the lane-wise product once
+    got = counts["ed_batch_tree"]
+    if (got["mont_mul_const_ed"], got["mont_mul_lanes_ed"]) != (1 + BATCH_SETS, 1):
+        raise SystemExit(f"Edwards batch: point prep ran {got}")
+    log(f"  Edwards 2^20 batch: {medians['ed_batch_tree'] / BATCH_SETS:.4f} s "
+        f"per set beside {medians['ed_tree']:.4f} s for one warm "
+        "compute_msm_edwards")
+    return inputs, sets
+
+
+def timed_paths(inputs, ed_inputs):
     """Phase 4: each kernel launch of one run of every path timed,
     repeated with its plain form, compared, and its work counted.
     Returns stats[path][kernel]."""
@@ -657,13 +941,16 @@ def timed_paths(inputs):
 
     from webgpu_msm_bls12_377_tpu_torch.models import cuzk, naive
     from webgpu_msm_bls12_377_tpu_torch.ops import bpr, buckets, convert
+    from webgpu_msm_bls12_377_tpu_torch.ops import field as F
     from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
+    from webgpu_msm_bls12_377_tpu_torch.ops.curve import G1
     from webgpu_msm_bls12_377_tpu_torch.ops import smvp_kernel as SK
     from webgpu_msm_bls12_377_tpu_torch.ops import smvp_stream as S
     from webgpu_msm_bls12_377_tpu_torch.ops import smvp_tree as T
 
     stats = {}
     current = {}
+    replays = []  # the graphed plain forms
 
     def timed(fn, *args):
         torch.cuda.synchronize()
@@ -675,8 +962,11 @@ def timed_paths(inputs):
         return out, e0.elapsed_time(e1)
 
     def record(name, kern, plain, args, muls, nbytes):
-        """Time kern(*args) and plain(*args) and compare them."""
+        """Time kern(*args) and plain(*args) and compare them (a graphed
+        plain form is captured after the kernel's timed launch)."""
         got, ms = timed(kern, *args)
+        if isinstance(plain, graphed):
+            plain.prepare(*args)
         want, pms = timed(plain, *args)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -689,12 +979,19 @@ def timed_paths(inputs):
         s["bytes"] += nbytes
         return got if len(got) > 1 else got[0]
 
-    def mmc(a, y):
-        n = a.numel() // 13
-        return record("mont_mul_const", K_MMC, K.mont_mul_const_plain,
-                      (a, y), n * MM, 2 * 52 * n)
+    def mmc(a, y, ctx=F.G1_CTX):
+        n, w = a.numel() // ctx.nw, WORK[ctx.tag]
+        return record("mont_mul_const" + ctx.tag, K_MMC, MMC_PLAIN,
+                      (a, y, ctx), n * w["mm"],
+                      2 * 4 * w["cw"] * n)
 
-    def tree(arr_in, level_map, mode, last=False, sorted_vals=None):
+    def mml(a, b):
+        n, w = a.shape[1], WORK["_ed"]
+        return record("mont_mul_lanes_ed", K_MML, MML_PLAIN,
+                      (a, b), n * w["mm"], 3 * 4 * w["cw"] * n)
+
+    def tree(arr_in, level_map, mode, last=False, sorted_vals=None, group=G1):
+        w = WORK[group.ctx.tag]
         m = level_map.to(torch.int64)
         invalid = (m & T.FLAG_INVALID) != 0
         single = ((m & T.FLAG_SINGLE) != 0) & ~invalid
@@ -702,31 +999,39 @@ def timed_paths(inputs):
         reads = 2 * pairs + int(single.sum())
         t = m.shape[0]
         if mode == "aff":
-            muls, nbytes = pairs * ADD_AFF, reads * (4 + AFF) + t * (4 + PT)
+            muls = pairs * w["add_aff"]
+            nbytes = reads * (4 + w["aff"]) + t * (4 + w["pt"])
         else:
-            muls, nbytes = pairs * ADD_FULL, reads * PT + t * (4 + PT)
-        return record(f"tree_level_{mode}", K_TREE, T.tree_level_plain,
-                      (arr_in, level_map, mode, last, sorted_vals), muls, nbytes)
+            muls, nbytes = pairs * w["add_full"], reads * w["pt"] + t * (4 + w["pt"])
+        return record(f"tree_level_{mode}" + group.ctx.tag, K_TREE,
+                      T.tree_level_plain,
+                      (arr_in, level_map, mode, last, sorted_vals, group),
+                      muls, nbytes)
 
-    def bucket_work(lens, add_muls, entry_bytes):
+    def bucket_work(lens, add_muls, entry_bytes, pt):
         # a bucket of c entries needs c - 1 adds (the kernel's first add,
         # into the identity, is not part of the function)
         entries, nb = int(lens.sum()), lens.numel()
         adds = int((lens.to(torch.int64) - 1).clamp(min=0).sum())
-        return adds * add_muls, entries * entry_bytes + nb * (8 + PT)
+        return adds * add_muls, entries * entry_bytes + nb * (8 + pt)
 
-    def finish(plane, layout):
+    def finish(plane, layout, group=G1):
+        w = WORK[group.ctx.tag]
         return record(
-            "packed_finish", lambda p, s, l: K_FINISH(p, layout),
-            S.packed_finish_plain, (plane, layout.starts_rk, layout.lens_rk),
-            *bucket_work(layout.lens_rk, ADD_FULL, PT))
+            "packed_finish" + group.ctx.tag,
+            lambda p, s, l, g: K_FINISH(p, layout, g),
+            S.packed_finish_plain,
+            (plane, layout.starts_rk, layout.lens_rk, group),
+            *bucket_work(layout.lens_rk, w["add_full"], w["pt"], w["pt"]))
 
-    def stream(table, sorted_vals, layout):
+    def stream(table, sorted_vals, layout, group=G1):
+        w = WORK[group.ctx.tag]
         return record(
-            "stream_buckets", lambda t, v, s, l: K_STREAM(t, v, layout),
+            "stream_buckets" + group.ctx.tag,
+            lambda t, v, s, l, g: K_STREAM(t, v, layout, g),
             S.accumulate_buckets_streamed_plain,
-            (table, sorted_vals, layout.starts_rk, layout.lens_rk),
-            *bucket_work(layout.lens_rk, ADD_MIXED, 4 + AFF))
+            (table, sorted_vals, layout.starts_rk, layout.lens_rk, group),
+            *bucket_work(layout.lens_rk, w["add_mixed"], 4 + w["aff"], w["pt"]))
 
     def fusedk(gathered, starts, lens):
         # every entry is one canonical mixed add, the one into the identity
@@ -738,48 +1043,62 @@ def timed_paths(inputs):
                       (gathered, starts, lens), entries * ADD_MIXED_CANON,
                       entries * ROW + lens.numel() * (8 + PT))
 
-    def lanes(fn, plain, name, muls, nbytes):
-        """Recorder for a lane-wise kernel: muls(n, *args), and nbytes per
-        lane or, where the bytes depend on the data, nbytes(n, *args)."""
+    def lanes(fn, plain, name, arity, muls, nbytes):
+        """Recorder for a lane-wise kernel of `arity` plane arguments and,
+        for the kernels both curves build, the group after them:
+        muls(n, w, *args) and nbytes(n, w, *args) with w the curve's WORK.
+        Its plain form is replayed from CUDA graphs."""
+        plain = graphed(plain)
+        replays.append(plain)
+
         def run(*args):
-            n = args[0].shape[1]
-            moved = nbytes(n, *args) if callable(nbytes) else nbytes * n
-            return record(name, fn, plain, args, muls(n, *args), moved)
+            group = args[arity] if len(args) > arity else G1
+            w, n = WORK[group.ctx.tag], args[0].shape[1]
+            planes = args[:arity]
+            return record(name + group.ctx.tag, fn, plain, args,
+                          muls(n, w, *planes), nbytes(n, w, *planes))
         return run
 
     running = lanes(K.bpr_running_add, K.running_add_plain, "bpr_running_add",
-                    lambda n, *a: 2 * n * ADD_FULL, 5 * PT)
-    double = lanes(K.bpr_double, K.double_plain, "bpr_double",
-                   lambda n, *a: n * DBL, 2 * PT)
+                    3, lambda n, w, *a: 2 * n * w["add_full"],
+                    lambda n, w, *a: 5 * w["pt"] * n)
+    double = lanes(K.bpr_double, K.double_plain, "bpr_double", 1,
+                   lambda n, w, *a: n * w["dbl"], lambda n, w, *a: 2 * w["pt"] * n)
     masked = lanes(K.bpr_masked_add_double, K.masked_add_double_plain,
-                   "bpr_masked_add_double",
-                   lambda n, r, t, bits: int(bits.sum()) * ADD_FULL + n * DBL,
-                   4 * PT + 4)
-    add = lanes(K.bpr_add, K.add_plain, "bpr_add",
-                lambda n, *a: n * ADD_FULL, 3 * PT)
+                   "bpr_masked_add_double", 3,
+                   lambda n, w, r, t, bits: int(bits.sum()) * w["add_full"]
+                   + n * w["dbl"],
+                   lambda n, w, *a: (4 * w["pt"] + 4) * n)
+    add = lanes(K.bpr_add, K.add_plain, "bpr_add", 2,
+                lambda n, w, *a: n * w["add_full"], lambda n, w, *a: 3 * w["pt"] * n)
     mixed = lanes(K.masked_add_mixed, K.masked_add_mixed_plain,
-                  "masked_add_mixed",
-                  lambda n, acc, aff, sign, valid:
+                  "masked_add_mixed", 4,
+                  lambda n, w, acc, aff, sign, valid:
                   int(valid.sum()) * ADD_MIXED_CANON,
                   # a masked lane's result is acc: it needs neither its
                   # addend nor its sign
-                  lambda n, acc, aff, sign, valid:
+                  lambda n, w, acc, aff, sign, valid:
                   n * (2 * PT + 4) + int(valid.sum()) * (AFF + 4))
-    cadd = lanes(K.fused_add, K.fused_add_plain, "fused_add",
-                 lambda n, *a: n * ADD_CANON, 3 * PT)
+    cadd = lanes(K.fused_add, K.fused_add_plain, "fused_add", 2,
+                 lambda n, w, *a: n * ADD_CANON, lambda n, w, *a: 3 * PT * n)
     cmasked = lanes(K.masked_add_and_double, K.masked_add_and_double_plain,
-                    "masked_add_and_double",
-                    lambda n, r, t, bits: int(bits.sum()) * ADD_CANON + n * DBL,
-                    4 * PT + 4)
+                    "masked_add_and_double", 3,
+                    lambda n, w, r, t, bits: int(bits.sum()) * ADD_CANON + n * DBL,
+                    lambda n, w, *a: (4 * PT + 4) * n)
     crunning = lanes(K.fused_running_add, K.fused_running_add_plain,
-                     "fused_running_add",
-                     lambda n, *a: 2 * n * ADD_CANON, 5 * PT)
+                     "fused_running_add", 3,
+                     lambda n, w, *a: 2 * n * ADD_CANON,
+                     lambda n, w, *a: 5 * PT * n)
 
-    K_MMC, K_TREE, K_FINISH = K.mont_mul_const, T.run_tree_level, T.packed_finish
+    K_MMC, K_MML, K_TREE = K.mont_mul_const, K.mont_mul_lanes, T.run_tree_level
+    MMC_PLAIN = graphed(K.mont_mul_const_plain)
+    MML_PLAIN = graphed(K.mont_mul_lanes_plain)
+    replays += [MMC_PLAIN, MML_PLAIN]
+    K_FINISH = T.packed_finish
     K_STREAM, K_FUSED = S.accumulate_buckets_streamed, SK.accumulate_buckets_fused
     patches = [
         (convert, "mont_mul_const", mmc), (cuzk, "mont_mul_const", mmc),
-        (naive, "mont_mul_const", mmc),
+        (naive, "mont_mul_const", mmc), (cuzk, "mont_mul_lanes", mml),
         (T, "run_tree_level", tree), (T, "packed_finish", finish),
         (cuzk, "accumulate_buckets_streamed", stream),
         (cuzk, "accumulate_buckets_fused", fusedk),
@@ -794,14 +1113,19 @@ def timed_paths(inputs):
             ("legacy", pippenger_msm, inputs[16]),
             ("naive", naive_msm, inputs[16]),
             ("running_sum", running_sum_chain, inputs[16][:1]),
-            ("fused", run_msm, inputs[14]),
+            ("fused_10", run_msm, inputs[10]),
             ("fused_forced",
              engine_msm(smvp_mode="fused", chunk_size=FORCED_CHUNK), inputs[16]),
-            ("pure_tree", engine_msm(smvp_mode="tree"), inputs[18]))
+            ("pure_tree", engine_msm(smvp_mode="tree"), inputs[18]),
+            ("ed_tree", run_ed_msm, ed_inputs[20]),
+            ("ed_stream", run_ed_msm, ed_inputs[17]))
     for path, fn, args in runs:
         current = stats[path] = {}
         with patched(patches):
             fn(*args)
+        # a path's graphs (and the memory they hold) end with it
+        for plain in replays:
+            plain.graphs.clear()
     return stats
 
 
@@ -829,10 +1153,11 @@ STAGES = ("words_to_device", "mont_point_table", "decompose_scalars_signed",
           "mont_mul_const", "_finalize")
 
 
-def stage_breakdown(pw, sw):
-    """Phase 5: one MSM, after a warm-up call, with every engine stage
-    fenced by torch.cuda.synchronize() and timed on the host clock.
-    "other" is the rest of the call: wire-format checks and chunk choice."""
+def stage_breakdown(pw, sw, run=run_msm):
+    """Phase 5: one MSM (compute_msm, or `run`), after a warm-up call, with
+    every engine stage fenced by torch.cuda.synchronize() and timed on the
+    host clock.  "other" is the rest of the call: wire-format checks and
+    chunk choice."""
     import torch
 
     from webgpu_msm_bls12_377_tpu_torch.models import cuzk
@@ -852,10 +1177,10 @@ def stage_breakdown(pw, sw):
     eng = cuzk.CuzkMsmEngine
     # phase 4's plain forms leave the allocators' caches in pieces: the
     # first call after them pays for that, so one call goes unmeasured
-    run_msm(pw, sw)
+    run(pw, sw)
     with patched([(cuzk, s, fence(s, getattr(cuzk, s))) for s in STAGES[:-1]]
                  + [(eng, "_finalize", fence("_finalize", eng._finalize))]):
-        _, total = run_msm(pw, sw)
+        _, total = run(pw, sw)
     secs = {k: v for k, v in secs.items() if v}
     secs["other"] = total - sum(secs.values())
     return secs, total
@@ -960,21 +1285,24 @@ def main(argv: list[str]) -> int:
     out_dir, build_s = K.build_all()
     log(f"phase 1: kernels built in {build_s:.1f} s "
         f"({time.perf_counter() - t0:.1f} s with checks) into {out_dir}")
-    for name in K.SOURCES:
+    for name, source, _ in K.LIBRARIES:
         for line in (out_dir / f"{name}.log").read_text().splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
-                log(f"  {name}.cu: {line.strip()}")
+                log(f"  {source}.cu ({name}): {line.strip()}")
 
-    log("phase 2: kernels against their plain forms (bit-exact)")
+    log(f"phase 2 at {elapsed():.1f} s: kernels against their plain forms "
+        "(bit-exact)")
     check_kernels_random()
 
-    log("phase 3: every path against the pinned goldens")
+    log(f"phase 3 at {elapsed():.1f} s: every path against the pinned goldens")
     counts, inputs, sets, medians = main_paths(goldens)
+    ed_inputs, _ = edwards_paths(goldens, counts, medians)
 
-    log("phase 4: per-kernel time at each path's shapes (2^20 tree, 2^17 "
-        "stream, 2^16 legacy, naive and chain, 2^14 and forced 2^16 fused, "
-        "2^18 pure tree)")
-    stats = timed_paths(inputs)
+    log(f"phase 4 at {elapsed():.1f} s: per-kernel time at each path's "
+        "shapes (2^20 tree, 2^17 stream, 2^16 legacy, naive and chain, 2^10 "
+        "and forced 2^16 fused, 2^18 pure tree; Edwards 2^20 tree and 2^17 "
+        "stream)")
+    stats = timed_paths(inputs, ed_inputs)
     rows = []
     for path, per_kernel in stats.items():
         for name in PATHS[path]:
@@ -994,16 +1322,18 @@ def main(argv: list[str]) -> int:
             }
             if HOME[name] == path:
                 rows.append(row)
-            log(f"  {path:11s} {name:22s} launches {row['launches']:3d}  "
+            log(f"  {path:12s} {name:25s} launches {row['launches']:3d}  "
                 f"kernel {s['ms']:10.3f} ms  plain {s['plain_ms']:10.1f} ms  "
                 f"bound {row['bound_ms']:8.3f} ms ({row['bound_by']})")
     if {r["name"] for r in rows} != set(KERNELS):
         raise SystemExit("a kernel has no timed row")
 
-    for power in (20, 17, 16, 14):
-        log(f"phase 5: stage breakdown of one warm 2^{power} MSM "
-            "(each stage fenced)")
-        secs, total = stage_breakdown(*inputs[power])
+    for label, run, (pw, sw) in [
+            *((f"2^{p}", run_msm, inputs[p]) for p in (20, 17, 16, 14)),
+            ("Edwards 2^20", run_ed_msm, ed_inputs[20])]:
+        log(f"phase 5 at {elapsed():.1f} s: stage breakdown of one warm "
+            f"{label} MSM (each stage fenced)")
+        secs, total = stage_breakdown(pw, sw, run)
         for name, s in sorted(secs.items(), key=lambda kv: -kv[1]):
             log(f"  {name:28s} {s * 1e3:9.2f} ms  {100 * s / total:5.1f} %")
         log(f"  total (fenced)               {total * 1e3:9.2f} ms")
@@ -1019,9 +1349,14 @@ def main(argv: list[str]) -> int:
     copy_breakdown("points", inputs[20][0])
     copy_breakdown("scalars", inputs[20][1])
     if profile:
-        from webgpu_msm_bls12_377_tpu_torch import compute_msm
+        from webgpu_msm_bls12_377_tpu_torch import (
+            compute_msm,
+            compute_msm_edwards,
+        )
 
         for label, fn, args in (("2^20 tree", compute_msm, inputs[20]),
+                                ("Edwards 2^20 tree", compute_msm_edwards,
+                                 ed_inputs[20]),
                                 ("2^17 stream", compute_msm, inputs[17]),
                                 ("2^14 fused", compute_msm, inputs[14]),
                                 (f"2^20 batch of {BATCH_SETS}", batch_msm,
@@ -1034,6 +1369,7 @@ def main(argv: list[str]) -> int:
                 f"{100 * (1 - busy / wall):.1f} %")
             for key, ms, count in top:
                 log(f"  {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+    log(f"all phases passed in {elapsed():.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

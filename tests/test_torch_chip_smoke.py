@@ -1,0 +1,80 @@
+"""chip_smoke.py's bench inputs, on the CPU: the bulk draws equal
+random.Random's own, word for word and in the generator's state after them;
+the product-tree inversion equals pow(z, -1, p); and a tiny bench case equals
+the seed scheme computed with Python integers and the bigint oracle.  Exact
+equality throughout.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from webgpu_msm_bls12_377_tpu_torch import params as PP
+from webgpu_msm_bls12_377_tpu_torch.ops import field as F
+from webgpu_msm_bls12_377_tpu_torch.reference import curve as crv
+
+torch.set_num_threads(1)
+
+
+def words_to_ints(w: np.ndarray) -> list[int]:
+    return [sum(int(w[i, j]) << (32 * i) for i in range(w.shape[0]))
+            for j in range(w.shape[1])]
+
+
+@pytest.mark.parametrize("lo,hi", [
+    (0, 1 << 253), (1, PP.SCALAR_FIELD), (1, PP.EDWARDS_SUBGROUP_CHARACTERISTIC),
+    (0, 1000), (5, (1 << 32) + 7), (0, 1 << 64), (3, (1 << 96) - 1)])
+def test_randrange_words_equals_random(lo, hi):
+    """Two runs of draws in a row, as bench_case makes them, then the
+    next output: the bulk stream moved exactly as far as random did."""
+    rng = random.Random(f"draws-{lo}-{hi}")
+    words = cs.MTWords(random.Random(f"draws-{lo}-{hi}"))
+    for count in (300, 41):
+        want = [rng.randrange(lo, hi) for _ in range(count)]
+        got = cs.randrange_words(words, lo, hi, count)
+        assert got.shape == (8, count) and got.dtype == np.uint32
+        assert words_to_ints(got) == want
+    assert int(words.peek(1)[0]) == rng.getrandbits(32)
+
+
+@pytest.mark.parametrize("ctx", [F.G1_CTX, F.ED_CTX], ids=["", "ed"])
+def test_batch_inverse_equals_pow(ctx):
+    rng = random.Random(f"inverse{ctx.tag}")
+    p, r = ctx.p, ctx.params.r
+    vals = [rng.randrange(1, p) for _ in range(32)]
+    z = F.ints_to_plane([v * r % p for v in vals], nw=ctx.nw)
+    got = F.plane_to_ints(cs.batch_inverse(z, ctx))
+    assert got == [pow(v, -1, p) * r % p for v in vals]
+    with pytest.raises(ValueError):
+        cs.batch_inverse(z[:, :3], ctx)
+
+
+@pytest.mark.parametrize("curve", ["bls12_377", "edwards_bls12"],
+                         ids=["", "ed"])
+def test_bench_case_equals_the_seed_scheme(curve, monkeypatch):
+    """bench_case at 2^3 on the CPU (plain forms of kernels 1 and 4)
+    against the scheme of harness/testdata.py:make_bench_case with Python
+    integers: ks and scalars from random.Random, points k_i * G from the
+    oracle."""
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    power, n = 3, 8
+    pw, sw = cs.bench_case(power, curve)
+    rng = random.Random(f"bench-{power}-{curve}")
+    if curve == "bls12_377":
+        ks = [rng.randrange(1, PP.SCALAR_FIELD) for _ in range(n)]
+        pts = [crv.g1_to_affine(crv.g1_scalar_mult(crv.G1_GENERATOR, k))
+               for k in ks]
+        cw = 12
+    else:
+        ks = [rng.randrange(1, PP.EDWARDS_SUBGROUP_CHARACTERISTIC)
+              for _ in range(n)]
+        pts = [crv.ed_to_affine(crv.ed_scalar_mult(crv.ED_GENERATOR, k))
+               for k in ks]
+        cw = 8
+    scalars = [rng.randrange(0, 1 << 253) for _ in range(n)]
+    assert pw.shape == (2, cw, n) and sw.shape == (8, n)
+    assert list(zip(words_to_ints(pw[0]), words_to_ints(pw[1]))) == pts
+    assert words_to_ints(sw) == scalars

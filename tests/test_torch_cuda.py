@@ -1,9 +1,9 @@
 """Port CUDA kernels against their plain PyTorch versions, on the card.
 
 Every kernel entry point (csrc/convert.cu, tree.cu, packed.cu, bpr.cu,
-stream.cu, legacy.cu, canon.cu, fused.cu) runs on CUDA tensors and must
-equal its plain version word for word: both
-compute the same exact integers (no tolerance).  Marked ``cuda``; without
+stream.cu, legacy.cu, canon.cu, fused.cu, and the Edwards builds of the
+first five) runs on CUDA tensors and must equal its plain version word
+for word: both compute the same exact integers (no tolerance).  Marked ``cuda``; without
 a CUDA device every test skips.  On a GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -20,6 +20,7 @@ from webgpu_msm_bls12_377_tpu_torch.models import (
     NaiveMsmEngine,
     PippengerMsmEngine,
 )
+from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
 from webgpu_msm_bls12_377_tpu_torch.ops import field as F
 from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
 from webgpu_msm_bls12_377_tpu_torch.ops import smvp_kernel as SK
@@ -31,9 +32,9 @@ from webgpu_msm_bls12_377_tpu_torch.ops.decompose import (
     decompose_scalars_signed,
     num_windows_for,
 )
-from webgpu_msm_bls12_377_tpu_torch.params import BLS12_377_PARAMS
+from webgpu_msm_bls12_377_tpu_torch.params import CurveId
 from webgpu_msm_bls12_377_tpu_torch.reference import curve as crv
-from webgpu_msm_bls12_377_tpu_torch.reference.msm import G1, naive_msm
+from webgpu_msm_bls12_377_tpu_torch.reference.msm import EDWARDS, G1, naive_msm
 
 pytestmark = pytest.mark.cuda
 P = F.P
@@ -47,9 +48,20 @@ def dev():
     return torch.device("cuda")
 
 
-def rand_plane(rng, rows, n, bound, dev):
-    return torch.cat([F.ints_to_plane([rng.randrange(bound) for _ in range(n)])
-                      for _ in range(rows // F.NW)]).to(dev)
+def rand_plane(rng, rows, n, bound, dev, nw=F.NW):
+    return torch.cat([F.ints_to_plane([rng.randrange(bound) for _ in range(n)],
+                                      nw=nw)
+                      for _ in range(rows // nw)]).to(dev)
+
+
+#: the kernels both curves build run once per curve: ids [..] for G1 (as
+#: before the Edwards builds), [ed..] for Edwards
+GROUPS = pytest.mark.parametrize("group", [C.G1, C.EDWARDS], ids=["", "ed"])
+
+
+def lazy_bound(group) -> int:
+    """Lazy coordinates the formulas take: below 4p (G1) or 2p (Edwards)."""
+    return 4 if group is C.G1 else 2
 
 
 def same(got, want):
@@ -60,31 +72,63 @@ def same(got, want):
         assert g.is_cuda and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("y", [BLS12_377_PARAMS.r2, 1], ids=["entry", "exit"])
-def test_mont_mul_const(dev, y):
-    a = rand_plane(random.Random("k1"), 26, LANES, 1 << 416, dev)
-    same(K.mont_mul_const(a, y), K.mont_mul_const_plain(a, y))
+MMC_CASES = [(group, y) for group in (C.G1, C.EDWARDS) for y in ("entry", "exit")]
 
 
-def test_bpr_family(dev):
-    rng = random.Random("k4")
-    m, g, b = (rand_plane(rng, 39, LANES, 4 * P, dev) for _ in range(3))
+@pytest.mark.parametrize("group,y", MMC_CASES, ids=[
+    f"{'ed-' if group is C.EDWARDS else ''}{y}" for group, y in MMC_CASES])
+def test_mont_mul_const(dev, group, y):
+    ctx = group.ctx
+    yv = ctx.params.r2 if y == "entry" else 1
+    rng = random.Random("k1" + ctx.tag)
+    a = rand_plane(rng, 2 * ctx.nw, LANES, 1 << (32 * ctx.nw), dev, ctx.nw)
+    K.reset_launches()
+    same(K.mont_mul_const(a, yv, ctx), K.mont_mul_const_plain(a, yv, ctx))
+    assert K.launches["mont_mul_const" + ctx.tag] == 1
+
+
+@GROUPS
+def test_bpr_family(dev, group):
+    """On lazy operands; each entry point launches the curve's build and
+    not the other's."""
+    ctx, tag = group.ctx, group.ctx.tag
+    rng = random.Random("k4" + tag)
+    m, g, b = (rand_plane(rng, group.rows, LANES, lazy_bound(group) * ctx.p,
+                          dev, ctx.nw) for _ in range(3))
     bits = torch.randint(0, 2, (LANES,), dtype=torch.int32,
                          generator=torch.Generator().manual_seed(0)).to(dev)
     K.reset_launches()
-    same(K.bpr_running_add(m, g, b), K.running_add_plain(m, g, b))
-    same(K.bpr_double(m), K.double_plain(m))
-    same(K.bpr_masked_add_double(m, g, bits), K.masked_add_double_plain(m, g, bits))
-    same(K.bpr_add(m, b), K.add_plain(m, b))
-    assert all(K.launches[k] == 1 for k in
-               ("bpr_running_add", "bpr_double", "bpr_masked_add_double", "bpr_add"))
+    same(K.bpr_running_add(m, g, b, group), K.running_add_plain(m, g, b, group))
+    same(K.bpr_double(m, group), K.double_plain(m, group))
+    same(K.bpr_masked_add_double(m, g, bits, group),
+         K.masked_add_double_plain(m, g, bits, group))
+    same(K.bpr_add(m, b, group), K.add_plain(m, b, group))
+    names = ("bpr_running_add", "bpr_double", "bpr_masked_add_double", "bpr_add")
+    assert all(K.launches[k + tag] == 1 for k in names)
+    other = "_ed" if group is C.G1 else ""
+    assert not any(K.launches[k + other] for k in names)
 
 
-def test_tree_levels_and_finish(dev):
-    rng = random.Random("k23")
+def test_edwards_mont_mul_lanes(dev):
+    """The Edwards point prep's t = x*y (no G1 counterpart)."""
+    ctx = C.EDWARDS.ctx
+    rng = random.Random("k-ed")
+    x, y = (rand_plane(rng, ctx.nw, LANES, ctx.p, dev, ctx.nw) for _ in range(2))
+    K.reset_launches()
+    same(K.mont_mul_lanes(x, y), K.mont_mul_lanes_plain(x, y))
+    assert K.launches["mont_mul_lanes_ed"] == 1
+
+
+@GROUPS
+def test_tree_levels_and_finish(dev, group):
+    """Tree levels 1 and 2 (kernel 2), the packed finish (3) and the
+    stream kernel (5) on one small real plan."""
+    ctx, tag = group.ctx, group.ctx.tag
+    rng = random.Random("k23" + tag)
     npts, chunk = 512, 8
     windows = num_windows_for(chunk)
-    table = S.build_signed_table(rand_plane(rng, 26, npts, P, dev))
+    table = S.build_signed_table(rand_plane(rng, group.aff_rows, npts, ctx.p,
+                                            dev, ctx.nw), group)
     sw = torch.tensor([[rng.randrange(1 << 32) for _ in range(npts)]
                        for _ in range(8)], dtype=torch.int64)
     sw[7] &= (1 << 29) - 1
@@ -92,26 +136,33 @@ def test_tree_levels_and_finish(dev):
                              chunk)
     kn = plan.sorted_vals.shape[0]
     hp = T.build_hybrid_plan(plan.starts, plan.lens, kn, 2, windows)
+    K.reset_launches()
     for last in (False, True):
-        same(T.run_tree_level(table, hp.level_map1, "aff", last, plan.sorted_vals),
-             T.tree_level_plain(table, hp.level_map1, "aff", last, plan.sorted_vals))
-    lvl1 = T.run_tree_level(table, hp.level_map1, "aff", sorted_vals=plan.sorted_vals)
+        same(T.run_tree_level(table, hp.level_map1, "aff", last, plan.sorted_vals,
+                              group),
+             T.tree_level_plain(table, hp.level_map1, "aff", last,
+                                plan.sorted_vals, group))
+    lvl1 = T.run_tree_level(table, hp.level_map1, "aff",
+                            sorted_vals=plan.sorted_vals, group=group)
     c1, s1 = T.chain_counts(hp.lens, 1)
     c2, s2 = T.chain_counts(hp.lens, 2)
     cap2 = T.level_caps(kn, hp.lens.shape[0], 2)[1]
     map2 = T.build_level_map(s1, c1, s2, c2, cap2)
     for last in (False, True):
-        same(T.run_tree_level(lvl1, map2, "full", last),
-             T.tree_level_plain(lvl1, map2, "full", last))
-    lvl2 = T.run_tree_level(lvl1, map2, "full")
-    same(S.packed_finish(lvl2, hp.layout),
-         S.packed_finish_plain(lvl2, hp.layout.starts_rk, hp.layout.lens_rk))
-
-
+        same(T.run_tree_level(lvl1, map2, "full", last, group=group),
+             T.tree_level_plain(lvl1, map2, "full", last, group=group))
+    lvl2 = T.run_tree_level(lvl1, map2, "full", group=group)
+    same(S.packed_finish(lvl2, hp.layout, group),
+         S.packed_finish_plain(lvl2, hp.layout.starts_rk, hp.layout.lens_rk,
+                               group))
     layout = S.build_stream_layout(plan.starts, plan.lens, windows)
-    same(S.accumulate_buckets_streamed(table, plan.sorted_vals, layout),
+    same(S.accumulate_buckets_streamed(table, plan.sorted_vals, layout, group),
          S.accumulate_buckets_streamed_plain(table, plan.sorted_vals,
-                                             layout.starts_rk, layout.lens_rk))
+                                             layout.starts_rk, layout.lens_rk,
+                                             group))
+    assert all(K.launches[k + tag] > 0 for k in
+               ("tree_level_aff", "tree_level_full", "packed_finish",
+                "stream_buckets"))
 
 
 def test_stream_duplicate_heavy_bucket(dev):
@@ -292,3 +343,35 @@ def test_engine_on_the_card_matches_oracle(dev):
                ("mont_mul_const", "tree_level_aff", "tree_level_full",
                 "packed_finish", "bpr_running_add", "bpr_double",
                 "bpr_masked_add_double", "bpr_add"))
+
+
+# -- Edwards engine (-DMSM_CURVE_ED builds) ------------------------------
+
+
+@pytest.fixture(scope="module")
+def ed_case():
+    rng = random.Random("k-ed-e2e")
+    pts = [crv.ed_scalar_mult(crv.ED_GENERATOR, rng.randrange(1, 1 << 60))
+           for _ in range(96)]
+    scalars = [rng.randrange(0, 1 << 253) for _ in range(96)]
+    return ([crv.ed_to_affine(p) for p in pts], scalars,
+            crv.ed_to_affine(naive_msm(pts, scalars, EDWARDS)))
+
+
+@pytest.mark.parametrize("mode,finish", [("tree", 2), ("tree", None),
+                                         ("stream", None)],
+                         ids=["hybrid", "pure-tree", "stream"])
+def test_edwards_engine_on_the_card(dev, ed_case, mode, finish):
+    aff, scalars, want = ed_case
+    eng = CuzkMsmEngine(CurveId.EDWARDS_BLS12, chunk_size=4, num_bpr_threads=4,
+                        smvp_mode=mode, tree_finish=finish)
+    K.reset_launches()
+    got = eng.compute_msm(aff, scalars)
+    assert (got["x"], got["y"]) == want
+    assert K.launches["mont_mul_const_ed"] == 2
+    assert K.launches["mont_mul_lanes_ed"] == 1
+    assert K.launches["bpr_add_ed"] > 0
+    assert not any(v for k, v in K.launches.items() if not k.endswith("_ed"))
+    batch = eng.compute_msm_batch(aff, [scalars, scalars[::-1]])
+    assert batch[0] == got
+    assert batch[1] == eng.compute_msm(aff, scalars[::-1])

@@ -106,7 +106,7 @@ def test_zero_and_from_affine():
 def test_add_lazy_pair_matches_jax_and_oracle():
     rng = random.Random("curve-add")
     a, b = lanes(rng)
-    got = port_ints(G1.canon(G1.add_lazy_pair(port_point(a, rng),
+    got = port_ints(G1.canon(G1.add_lazy(port_point(a, rng),
                                               port_point(b, rng))))
     jgot = jax.jit(lambda p, q: JG1.canon(JG1.add_lazy(p, q)))(
         jax_point(a), jax_point(b)
@@ -130,7 +130,7 @@ def test_add_affine_lazy_pair_matches_jax_and_oracle():
     def jax_aff(affs):
         return tuple(jax_limbs([v[i] * RJ % P for v in affs]) for i in range(2))
 
-    got = port_ints(G1.canon(G1.add_affine_lazy_pair(port_aff(aff_a),
+    got = port_ints(G1.canon(G1.add_affine_lazy(port_aff(aff_a),
                                                      port_aff(aff_b))))
     jgot = jax.jit(lambda p, q: JG1.canon(JG1.add_affine_lazy(p, q)))(
         jax_aff(aff_a), jax_aff(aff_b)
@@ -154,7 +154,7 @@ def test_lazy_chains_stay_closed():
     pa, pb = port_point(a, rng), port_point(b, rng)
     want_a, want_b = list(a), list(b)
     for _ in range(3):
-        pa = G1.add_lazy_pair(pa, pb)
+        pa = G1.add_lazy(pa, pb)
         pb = G1.double_lazy(pb)
         want_a = [crv.g1_add(p, q) for p, q in zip(want_a, want_b)]
         want_b = [crv.g1_double(q) for q in want_b]
@@ -185,7 +185,7 @@ def jax_aff(pts):
 def test_add_mixed_lazy_pair_matches_jax_and_oracle():
     rng = random.Random("curve-mixed-lazy")
     a, b = affine_lanes(rng)
-    out = G1.add_mixed_lazy_pair(port_point(a, rng), port_aff(b))
+    out = G1.add_mixed_lazy(port_point(a, rng), port_aff(b))
     assert all(v < 2 * P for c in out for v in F.plane_to_ints(c))
     jgot = jax.jit(lambda p, q: JG1.canon(JG1.add_mixed_lazy(p, q)))(
         jax_point(a), jax_aff(b)

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import webgpu_msm_bls12_377_tpu_torch as port
+from webgpu_msm_bls12_377_tpu_torch.models import NaiveMsmEngine, PippengerMsmEngine
 from webgpu_msm_bls12_377_tpu_torch.models.cuzk import CuzkMsmEngine
 from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
 from webgpu_msm_bls12_377_tpu_torch.params import CurveId
@@ -95,8 +96,17 @@ def test_input_validation():
         engine(smvp_mode="tree-interpret")
     with pytest.raises(ValueError, match="tree_finish"):
         engine(tree_finish=0)
-    with pytest.raises(NotImplementedError, match="Edwards"):
-        CuzkMsmEngine(CurveId.EDWARDS_BLS12, device="cpu")
+    # Edwards runs the tree and stream paths; its fused and legacy paths,
+    # "auto" below chunk 9 and the baseline engines raise, naming the
+    # ROADMAP entry
+    ed = CurveId.EDWARDS_BLS12
+    for make in (lambda: CuzkMsmEngine(ed, smvp_mode="fused", device="cpu"),
+                 lambda: CuzkMsmEngine(ed, smvp_mode="legacy", device="cpu"),
+                 lambda: PippengerMsmEngine(ed, device="cpu"),
+                 lambda: NaiveMsmEngine(ed, device="cpu"),
+                 lambda: CuzkMsmEngine(ed, device="cpu")._select_smvp(8, 1 << 15)):
+        with pytest.raises(NotImplementedError, match="Edwards.*ROADMAP"):
+            make()
     with pytest.raises(ValueError, match="power of two"):
         engine(num_bpr_threads=6)
 

@@ -220,8 +220,8 @@ def test_pure_tree_engine_matches_oracle(case, heavy, monkeypatch):
     real = smvp_tree.run_tree_level
     monkeypatch.setattr(
         smvp_tree, "run_tree_level",
-        lambda a, m, mode, last=False, sorted_vals=None:
-        levels.append((mode, last)) or real(a, m, mode, last, sorted_vals))
+        lambda a, m, mode, last=False, sorted_vals=None, **kw:
+        levels.append((mode, last)) or real(a, m, mode, last, sorted_vals, **kw))
     monkeypatch.setattr(smvp_tree, "packed_finish", None)
     got = engine(smvp_mode="tree").compute_msm(case["aff"], scalars)
     assert (got["x"], got["y"]) == crv.g1_to_affine(

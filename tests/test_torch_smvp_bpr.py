@@ -1,12 +1,14 @@
-"""Port SMVP stages and BPR against the JAX package, at canonical boundaries.
+"""Port SMVP stages and BPR against the JAX package, at canonical boundaries,
+for both curves: BLS12-377 G1 (test ids ``[]``) and Twisted Edwards BLS12
+(``[ed]``).
 
-The JAX kernels' bodies are jnp point forms (ops/curve.py:G1Ops); on the
-CPU the tier-1 tests run those forms directly, since interpret-mode
-Pallas compiles take minutes.  Each stage gets the same input in both
-packages: JAX-produced state (the Montgomery table, tree level planes,
-bucket arrays) is carried into the port with from_jax_limbs, and the
+The JAX kernels' bodies are jnp point forms (ops/curve.py:G1Ops,
+EdwardsOps); on the CPU the tier-1 tests run those forms directly, since
+interpret-mode Pallas compiles take minutes.  Each stage gets the same input
+in both packages: JAX-produced state (the Montgomery table, tree level
+planes, bucket arrays) is carried into the port with from_jax_limbs, and the
 outputs are compared mod p after canonicalization.  The plain PyTorch
-versions of kernels 2, 3 and 4 run here; the kernels themselves are held
+versions of kernels 2, 3, 4 and 5 run here; the kernels themselves are held
 against those plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
@@ -26,7 +28,9 @@ from webgpu_msm_bls12_377_tpu.ops import curve as jcurve
 from webgpu_msm_bls12_377_tpu.ops import decompose as jdec
 from webgpu_msm_bls12_377_tpu.ops import smvp_stream as jss
 from webgpu_msm_bls12_377_tpu.ops import smvp_tree as jst
+from webgpu_msm_bls12_377_tpu_torch.models.cuzk import mont_point_table
 from webgpu_msm_bls12_377_tpu_torch.ops import bpr, buckets, decompose
+from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
 from webgpu_msm_bls12_377_tpu_torch.ops import field as F
 from webgpu_msm_bls12_377_tpu_torch.ops import smvp_stream, smvp_tree
 from webgpu_msm_bls12_377_tpu_torch.ops.convert import from_jax_limbs, ints_to_words
@@ -40,24 +44,37 @@ N = 96
 CHUNK = 4
 LANES = 8  # the JAX finish layout's lanes (the port's layout is flat)
 THREADS = 4
-P = F.P
-JG1 = jcurve.G1Ops()
 NW = decompose.num_windows_for(CHUNK)
-W = 30  # JAX limbs per field element
 
 
-def carry(pt) -> torch.Tensor:
-    """JAX ProjG1 (or merged (k*30, T) plane) -> port canonical plane."""
-    arr = np.concatenate([np.asarray(c) for c in pt]) if isinstance(
-        pt, tuple) else np.asarray(pt)
-    return from_jax_limbs(arr, montgomery=True)
+class Curve:
+    """One curve's port group, JAX group and oracle, as the tests need
+    them: W JAX limbs per element, K affine coordinates in the table."""
+
+    def __init__(self, group, jgroup, w, k, cw, point):
+        self.group, self.jgroup, self.w, self.k, self.cw = group, jgroup, w, k, cw
+        self.point = point  # rng -> an affine point of the oracle
+        self.p, self.nw = group.ctx.p, group.ctx.nw
+
+    def carry(self, pt) -> torch.Tensor:
+        """JAX point (a tuple, or a merged (k*W, T) plane) -> the port's
+        canonical plane."""
+        arr = np.concatenate([np.asarray(c) for c in pt]) if isinstance(
+            pt, tuple) else np.asarray(pt)
+        return from_jax_limbs(arr, montgomery=True, curve=self.group.CURVE)
+
+    def mod_p(self, plane: torch.Tensor) -> np.ndarray:
+        """Port plane -> object array of its values mod p, one row per
+        coordinate."""
+        rows = [F.plane_to_ints(plane[c * self.nw:(c + 1) * self.nw])
+                for c in range(plane.shape[0] // self.nw)]
+        return np.array([[v % self.p for v in r] for r in rows], dtype=object)
 
 
-def mod_p(plane: torch.Tensor) -> np.ndarray:
-    """Port plane -> object array of its values mod p, one row per coord."""
-    rows = [F.plane_to_ints(plane[c * F.NW:(c + 1) * F.NW])
-            for c in range(plane.shape[0] // F.NW)]
-    return np.array([[v % P for v in r] for r in rows], dtype=object)
+G1 = Curve(C.G1, jcurve.G1Ops(), 30, 2, 12, lambda rng: crv.g1_to_affine(
+    crv.g1_scalar_mult(crv.G1_GENERATOR, rng.randrange(1, 1 << 60))))
+ED = Curve(C.EDWARDS, jcurve.EdwardsOps(), 20, 3, 8, lambda rng: crv.ed_to_affine(
+    crv.ed_scalar_mult(crv.ED_GENERATOR, rng.randrange(1, 1 << 60))))
 
 
 def take(pt, idx):
@@ -65,17 +82,17 @@ def take(pt, idx):
     return type(pt)(*(jnp.take(c, idx, axis=1) for c in pt))
 
 
-@pytest.fixture(scope="module")
-def stage():
-    """JAX plan state at N = 96, chunk 4, K = 2, plus the port's plans."""
-    rng = random.Random("smvp-bpr")
-    aff = [crv.g1_to_affine(crv.g1_scalar_mult(crv.G1_GENERATOR,
-                                               rng.randrange(1, 1 << 60)))
-           for _ in range(N)]
-    pw = np.stack([ints_to_words([a[0] for a in aff], 12),
-                   ints_to_words([a[1] for a in aff], 12)])
+@pytest.fixture(scope="module", params=[G1, ED], ids=["", "ed"])
+def stage(request):
+    """JAX plan state at N = 96, chunk 4, K = 2, plus the port's plans and
+    signed table, for one curve."""
+    cv = request.param
+    rng = random.Random("smvp-bpr" if cv is G1 else "ed-smvp-bpr")
+    aff = [cv.point(rng) for _ in range(N)]
+    pw = np.stack([ints_to_words([a[0] for a in aff], cv.cw),
+                   ints_to_words([a[1] for a in aff], cv.cw)])
     sw = ints_to_words([rng.randrange(0, 1 << 253) for _ in range(N)], 8)
-    table = jcuzk.mont_point_table(JG1.ctx, JG1, jnp.asarray(pw))
+    table = jcuzk.mont_point_table(cv.jgroup.ctx, cv.jgroup, jnp.asarray(pw))
     jplan = jbuck.build_bucket_plan(
         jdec.decompose_scalars_signed(jnp.asarray(sw), CHUNK, NW), CHUNK)
     kn = N * NW
@@ -84,7 +101,10 @@ def stage():
         decompose.decompose_scalars_signed(torch.from_numpy(sw.view(np.int32)),
                                            CHUNK, NW), CHUNK)
     ph = smvp_tree.build_hybrid_plan(pplan.starts, pplan.lens, kn, 2, NW)
-    return dict(table=table, jplan=jplan, jh=jh, pplan=pplan, ph=ph, kn=kn)
+    ptab = smvp_stream.build_signed_table(
+        cv.carry(np.asarray(table).reshape(cv.k * cv.w, N)), cv.group)
+    return dict(cv=cv, pw=pw, table=table, jplan=jplan, jh=jh, pplan=pplan,
+                ph=ph, kn=kn, ptab=ptab)
 
 
 def decode(level_map: torch.Tensor, t_real: int):
@@ -96,16 +116,17 @@ def decode(level_map: torch.Tensor, t_real: int):
 
 def jax_level1(s):
     """Level 1 in jnp: both-affine adds of sorted-stream children."""
-    ph = s["ph"]
+    cv, ph = s["cv"], s["ph"]
     c1, s1 = smvp_tree.chain_counts(ph.lens, 1)
     t1 = int(s1[-1] + c1[-1])
     ca, cb, single = decode(ph.level_map1, t1)
-    ttab = jst.build_tree_table(JG1, s["table"])
+    ttab = jst.build_tree_table(cv.jgroup, s["table"])
     arr0 = jst.gather_level0(ttab, s["jplan"].sorted_vals, 3)
-    ax, ay = arr0[:W][:, ca], arr0[W:2 * W][:, ca]
-    bx, by = arr0[:W][:, cb], arr0[W:2 * W][:, cb]
-    added = jax.jit(JG1.add_affine_lazy)((ax, ay), (bx, by))
-    promoted = JG1.from_affine((ax, ay))
+    coords = [arr0[c * cv.w:(c + 1) * cv.w] for c in range(cv.k)]
+    aa = tuple(c[:, ca] for c in coords)
+    ab = tuple(c[:, cb] for c in coords)
+    added = jax.jit(cv.jgroup.add_affine_lazy)(aa, ab)
+    promoted = cv.jgroup.from_affine(aa)
     return jcurve.select(jnp.asarray(single), promoted, added), t1
 
 
@@ -118,7 +139,7 @@ def jax_level2(s, lvl1):
     map2 = smvp_tree.build_level_map(s1, c1, s2, c2, caps[1])
     ca, cb, single = decode(map2, t2)
     pa, pb = take(lvl1, ca), take(lvl1, cb)
-    added = jax.jit(JG1.add_lazy)(pa, pb)
+    added = jax.jit(s["cv"].jgroup.add_lazy)(pa, pb)
     return jcurve.select(jnp.asarray(single), pa, added), map2, t2
 
 
@@ -131,75 +152,126 @@ def levels(stage):
 
 
 def test_tree_table_matches_jax(stage):
-    ptab = carry(np.asarray(stage["table"]).reshape(2 * W, N))
-    got = smvp_stream.build_signed_table(ptab)
-    jt = np.asarray(jst.build_tree_table(JG1, stage["table"]))[:2 * N, :2 * W].T
-    assert torch.equal(got, carry(jt))
+    """mont_point_table (kernel 1; for Edwards also t = x*y through the
+    lane-wise product) and the signed table (G1: (x, y), then (x, -y);
+    Edwards: (x, y, t), then (-x, y, -t)) against the JAX package's."""
+    cv = stage["cv"]
+    want = cv.carry(np.asarray(stage["table"]).reshape(cv.k * cv.w, N))
+    got = mont_point_table(torch.from_numpy(stage["pw"].view(np.int32)), cv.group)
+    assert got.shape == (cv.group.aff_rows, N)
+    assert torch.equal(got, want)
+    jt = np.asarray(jst.build_tree_table(cv.jgroup, stage["table"]))
+    assert torch.equal(stage["ptab"], cv.carry(jt[:2 * N, :cv.k * cv.w].T))
 
 
 @pytest.mark.parametrize("last", [False, True])
 def test_tree_level_aff_matches_jax(stage, levels, last):
+    cv = stage["cv"]
     lvl1, t1 = levels["lvl1"], levels["t1"]
-    want = mod_p(carry(jax.jit(JG1.canon)(lvl1)))
-    ptab = smvp_stream.build_signed_table(
-        carry(np.asarray(stage["table"]).reshape(2 * W, N)))
-    got = smvp_tree.run_tree_level(ptab, stage["ph"].level_map1, "aff", last,
-                                   stage["pplan"].sorted_vals)
-    assert got.shape == (39, stage["ph"].level_map1.shape[0])
-    assert (mod_p(got[:, :t1]) == want).all()
+    want = cv.mod_p(cv.carry(jax.jit(cv.jgroup.canon)(lvl1)))
+    got = smvp_tree.run_tree_level(stage["ptab"], stage["ph"].level_map1,
+                                   "aff", last, stage["pplan"].sorted_vals,
+                                   cv.group)
+    assert got.shape == (cv.group.rows, stage["ph"].level_map1.shape[0])
+    assert (cv.mod_p(got[:, :t1]) == want).all()
     if last:
-        assert (np.array(F.plane_to_ints(got[:13])) < P).all()
-    # slots past the real node count hold the identity
-    tail = F.plane_to_ints(got[26:, t1:])
-    assert all(v == 0 for v in tail)
+        assert (np.array(F.plane_to_ints(got[:cv.nw])) < cv.p).all()
+    # slots past the real node count hold the group's identity
+    tail = got.shape[1] - t1
+    assert (cv.mod_p(got[:, t1:])
+            == cv.mod_p(C.merge(cv.group.zero(tail)))).all()
 
 
 @pytest.mark.parametrize("last", [False, True])
-def test_tree_level_full_matches_jax(levels, last):
+def test_tree_level_full_matches_jax(stage, levels, last):
+    cv = stage["cv"]
     lvl2, t2 = levels["lvl2"], levels["t2"]
-    want = mod_p(carry(jax.jit(JG1.canon)(lvl2)))
-    got = smvp_tree.run_tree_level(carry(levels["lvl1"]), levels["map2"],
-                                   "full", last)
-    assert (mod_p(got[:, :t2]) == want).all()
+    want = cv.mod_p(cv.carry(jax.jit(cv.jgroup.canon)(lvl2)))
+    got = smvp_tree.run_tree_level(cv.carry(levels["lvl1"]), levels["map2"],
+                                   "full", last, group=cv.group)
+    assert (cv.mod_p(got[:, :t2]) == want).all()
+    if last:
+        assert all(v < cv.p for c in cv.group.split(got)
+                   for v in F.plane_to_ints(c))
 
 
 def test_packed_finish_and_permute_match_jax(stage, levels):
+    cv, jg = stage["cv"], stage["cv"].jgroup
     lvl2 = levels["lvl2"]
     layout = stage["jh"].layout
     starts = np.asarray(layout.starts_rk).reshape(-1)
     lens = np.asarray(layout.lens_rk).reshape(-1)
-    add = jax.jit(JG1.add_lazy)
-    acc = JG1.zero((starts.shape[0],))
+    add = jax.jit(jg.add_lazy)
+    acc = jg.zero((starts.shape[0],))
     for t in range(int(lens.max())):
         live = jnp.asarray(t < lens)
         node = take(lvl2, np.where(t < lens, starts + t, 0))
         acc = jcurve.select(live, add(acc, node), acc)
-    jblocks = jax.jit(JG1.canon)(acc)
-    blocks = smvp_stream.packed_finish(carry(lvl2), stage["ph"].layout)
-    assert (mod_p(blocks) == mod_p(carry(jblocks))).all()
+    jblocks = jax.jit(jg.canon)(acc)
+    blocks = smvp_stream.packed_finish(cv.carry(lvl2), stage["ph"].layout,
+                                       cv.group)
+    assert (cv.mod_p(blocks) == cv.mod_p(cv.carry(jblocks))).all()
     order = bpr.bpr_order(NW, CHUNK, THREADS)
-    jperm = jss.permute_buckets(JG1, jnp.concatenate(list(jblocks)), layout,
+    jperm = jss.permute_buckets(jg, jnp.concatenate(list(jblocks)), layout,
                                 order=order)
-    got = smvp_stream.permute_buckets(blocks, stage["ph"].layout, order=order)
-    assert torch.equal(got, carry(jperm))
+    got = smvp_stream.permute_buckets(blocks, stage["ph"].layout, order=order,
+                                      group=cv.group)
+    assert torch.equal(got, cv.carry(jperm))
 
 
 def test_bpr_matches_jax(stage):
     """reduce_buckets_prearranged on JAX-produced canonical buckets
     (random multiples of table points, with empty buckets)."""
+    cv, jg = stage["cv"], stage["cv"].jgroup
     rng = np.random.default_rng(4)
-    threads = THREADS
     h = 1 << (CHUNK - 1)
     jtab = stage["table"]
     idx = rng.integers(0, N, size=NW * h)
-    pts = JG1.from_affine((jnp.take(jtab[0], idx, axis=1),
-                           jnp.take(jtab[1], idx, axis=1)))
-    pts = jax.jit(lambda p: JG1.canon(JG1.double_lazy(p)))(pts)
+    pts = jg.from_affine(tuple(jnp.take(jtab[c], idx, axis=1)
+                               for c in range(cv.k)))
+    pts = jax.jit(lambda p: jg.canon(jg.double_lazy(p)))(pts)
     empty = jnp.asarray(rng.random(NW * h) < 0.2)
-    pts = jcurve.select(empty, JG1.zero((NW * h,)), pts)
-    order = bpr.bpr_order(NW, CHUNK, threads)
+    pts = jcurve.select(empty, jg.zero((NW * h,)), pts)
+    order = bpr.bpr_order(NW, CHUNK, THREADS)
     jb = take(pts, order.reshape(-1))
-    want = jbpr.reduce_buckets_prearranged(JG1, jb, NW, CHUNK, threads)
-    got = bpr.reduce_buckets_prearranged(carry(jb), NW, CHUNK, threads)
-    assert got.shape == (39, NW)
-    assert torch.equal(got, carry(want))
+    want = jbpr.reduce_buckets_prearranged(jg, jb, NW, CHUNK, THREADS)
+    got = bpr.reduce_buckets_prearranged(cv.carry(jb), NW, CHUNK, THREADS,
+                                         cv.group)
+    assert got.shape == (cv.group.rows, NW)
+    assert torch.equal(got, cv.carry(want))
+
+
+@pytest.mark.parametrize("stage", [ED], ids=["ed"], indirect=True)
+def test_stream_and_tree_bucket_sums_match_jax_legacy(stage):
+    """Edwards (G1's: tests/test_torch_stream_legacy.py and
+    tests/test_torch_fused_batch.py): the stream kernel's bucket sums
+    (plain form), permuted to window-major order, equal the JAX legacy
+    sums word for word: canonical hwcd coordinates of the same adds in the
+    same order.  The hybrid tree's (K = 1, 2) add in another order: the
+    same points."""
+    s, cv = stage, stage["cv"]
+    jg = cv.jgroup
+    rounds = jbuck.round_class(int(np.asarray(s["jplan"].lens).max()))
+    legacy = jax.jit(lambda t, p: jbuck.accumulate_buckets(
+        jg, jbuck.table_to_rows(t), p, rounds))(s["table"], s["jplan"])
+    want = cv.carry(tuple(legacy))
+    layout = smvp_stream.build_stream_layout(s["pplan"].starts, s["pplan"].lens,
+                                             NW)
+    blocks = smvp_stream.accumulate_buckets_streamed(
+        s["ptab"], s["pplan"].sorted_vals, layout, cv.group)
+    assert torch.equal(smvp_stream.permute_buckets(blocks, layout,
+                                                   group=cv.group), want)
+
+    def affine(pl):
+        rinv = pow(cv.group.ctx.params.r, -1, cv.p)
+        cols = [[v * rinv % cv.p for v in F.plane_to_ints(c)]
+                for c in cv.group.split(pl)]
+        return [crv.ed_to_affine(crv.ExtendedPoint(*v)) for v in zip(*cols)]
+
+    for k in (1, 2):
+        hp = smvp_tree.build_hybrid_plan(s["pplan"].starts, s["pplan"].lens,
+                                         s["kn"], k, NW)
+        tb = smvp_tree.tree_smvp_hybrid(s["ptab"], s["pplan"].sorted_vals, hp,
+                                        k, cv.group)
+        got = smvp_stream.permute_buckets(tb, hp.layout, group=cv.group)
+        assert affine(got) == affine(want)

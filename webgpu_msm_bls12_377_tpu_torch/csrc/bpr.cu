@@ -10,10 +10,13 @@
 //   msm_bpr_add           <- fused_add_lazy               a' = a + b
 // Every operand is a (39, L) lazy projective plane (coords < 4p); outputs
 // stay below 4p, so chains of these steps need no reduction in between.
+// Built for G1 and, with -DMSM_CURVE_ED, for Edwards (curve.cuh's
+// vocabulary): (36, L) extended planes, coords < 2p.
 //
-// Bound on this card: 3,549 word products per add and 2,704 per double
-// against 156 bytes per point moved, bytes and products within 1.5x of
-// each other at the HBM and float32 multiply-add rates.  But BPR runs only
+// Bound on this card: G1 3,549 word products per add and 2,704 per double
+// against 156 bytes per point moved (Edwards 1,620 and 1,296 against
+// 128, 32 bytes a coordinate), bytes and products within 1.5x of each other at the HBM and
+// float32 multiply-add rates.  But BPR runs only
 // num_windows * num_threads lanes (8,192 at 2^20), so one launch fills a
 // fraction of the card's 132 SMs and launch latency dominates; the design
 // here is one thread per lane, simple and right, and the low occupancy is
@@ -30,14 +33,14 @@ __global__ void __launch_bounds__(THREADS)
                        int32_t* __restrict__ g_out, long long n) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  G1 x, y;
-  g1_load(x, m, n, j);
-  g1_load(y, b, n, j);
-  g1_add_lazy_pair(x, x, y);
-  g1_store(m_out, n, j, x);
-  g1_load(y, g, n, j);
-  g1_add_lazy_pair(y, y, x);
-  g1_store(g_out, n, j, y);
+  Point x, y;
+  pt_load(x, m, n, j);
+  pt_load(y, b, n, j);
+  pt_add_lazy(x, x, y);
+  pt_store(m_out, n, j, x);
+  pt_load(y, g, n, j);
+  pt_add_lazy(y, y, x);
+  pt_store(g_out, n, j, y);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -45,10 +48,10 @@ __global__ void __launch_bounds__(THREADS)
                   long long n) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  G1 x;
-  g1_load(x, a, n, j);
-  g1_double_lazy(x, x);
-  g1_store(out, n, j, x);
+  Point x;
+  pt_load(x, a, n, j);
+  pt_double_lazy(x, x);
+  pt_store(out, n, j, x);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -59,13 +62,13 @@ __global__ void __launch_bounds__(THREADS)
                              int32_t* __restrict__ t_out, long long n) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  G1 x, y;
-  g1_load(x, r, n, j);
-  g1_load(y, t, n, j);
-  if (bits[j]) g1_add_lazy_pair(x, x, y);
-  g1_store(r_out, n, j, x);
-  g1_double_lazy(y, y);
-  g1_store(t_out, n, j, y);
+  Point x, y;
+  pt_load(x, r, n, j);
+  pt_load(y, t, n, j);
+  if (bits[j]) pt_add_lazy(x, x, y);
+  pt_store(r_out, n, j, x);
+  pt_double_lazy(y, y);
+  pt_store(t_out, n, j, y);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -73,11 +76,11 @@ __global__ void __launch_bounds__(THREADS)
                int32_t* __restrict__ out, long long n) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  G1 x, y;
-  g1_load(x, a, n, j);
-  g1_load(y, b, n, j);
-  g1_add_lazy_pair(x, x, y);
-  g1_store(out, n, j, x);
+  Point x, y;
+  pt_load(x, a, n, j);
+  pt_load(y, b, n, j);
+  pt_add_lazy(x, x, y);
+  pt_store(out, n, j, x);
 }
 
 static inline unsigned blocks_for(long long n) {

@@ -27,10 +27,10 @@ __global__ void __launch_bounds__(THREADS)
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   G1 x, y;
-  g1_load(x, a, n, j);
-  g1_load(y, b, n, j);
+  pt_load(x, a, n, j);
+  pt_load(y, b, n, j);
   g1_add(x, x, y);
-  g1_store(out, n, j, x);
+  pt_store(out, n, j, x);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -42,12 +42,12 @@ __global__ void __launch_bounds__(THREADS)
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   G1 x, y;
-  g1_load(x, r, n, j);
-  g1_load(y, t, n, j);
+  pt_load(x, r, n, j);
+  pt_load(y, t, n, j);
   if (bits[j]) g1_add(x, x, y);
-  g1_store(r_out, n, j, x);
+  pt_store(r_out, n, j, x);
   g1_double(y, y);
-  g1_store(t_out, n, j, y);
+  pt_store(t_out, n, j, y);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -59,13 +59,13 @@ __global__ void __launch_bounds__(THREADS)
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   G1 x, y;
-  g1_load(x, m, n, j);
-  g1_load(y, b, n, j);
+  pt_load(x, m, n, j);
+  pt_load(y, b, n, j);
   g1_add(x, x, y);
-  g1_store(m_out, n, j, x);
-  g1_load(y, g, n, j);
+  pt_store(m_out, n, j, x);
+  pt_load(y, g, n, j);
   g1_add(y, y, x);
-  g1_store(g_out, n, j, y);
+  pt_store(g_out, n, j, y);
 }
 
 static inline unsigned blocks_for(long long n) {

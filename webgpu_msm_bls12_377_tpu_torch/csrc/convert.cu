@@ -1,13 +1,16 @@
 // Kernel 1: REDC(a * y) lane-wise for a constant y < p, reduced to the
 // canonical residue: Montgomery entry (y = R^2 mod p) and exit (y = 1).
-// For any a < 2^416 and y < p, REDC(a * y) < y + p < 2p, so one
-// conditional subtract of p makes the output canonical.
+// For any a < R and y < p, REDC(a * y) < y + p < 2p, so one conditional
+// subtract of p makes the output canonical.  Built for G1 (13 words) and,
+// with -DMSM_CURVE_ED, for Edwards (9 words); the Edwards build adds the
+// lane-wise product below.
 //
 // Replaces ops/pallas_kernels.py:mont_mul_const of the JAX package.
-// Work per element: one 13-word CIOS product, 338 32x32->64 word
-// products, for 104 bytes moved (13 words in, 13 out): bound by bytes at
-// the HBM rate, about 3x above the time its products need even at the
-// float32 multiply-add rate.  Design: one thread per element, y in __constant__ memory (every thread
+// Work per element: one CIOS product, 338 32x32->64 word products at 13
+// words (162 at 9), for 104 bytes moved (Edwards 64: values below 2^256
+// need 8 of the 9 words): bound by bytes at the HBM rate, about 3x above
+// the time its products need even at the float32 multiply-add rate.
+// Design: one thread per element, y in __constant__ memory (every thread
 // reads the same word: a broadcast), limb-major planes so that word w of
 // neighbouring elements sits at neighbouring addresses and every load and
 // store is coalesced.
@@ -50,3 +53,39 @@ extern "C" int msm_mont_mul_const(const int32_t* a, int32_t* out,
                                                                  n);
   return MSM_LAUNCH_STATUS();
 }
+
+#ifdef MSM_CURVE_ED
+// The Edwards table's t = x*y at point prep: REDC(a * b) lane-wise over
+// two canonical (NW, n) planes, canonical out (REDC(a * b) < p^2/R + p <
+// 2p: one conditional subtract).  Replaces the XLA mont_mul of the JAX
+// package's models/cuzk.py:mont_point_table, which runs outside any
+// Pallas kernel.  162 word products for 96 bytes moved: bound by bytes,
+// as kernel 1.  One thread per element, coalesced limb-major loads.
+__global__ void mont_mul_lanes_kernel(const int32_t* __restrict__ a,
+                                      const int32_t* __restrict__ b,
+                                      int32_t* __restrict__ out,
+                                      long long n) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  u32 x[NW], y[NW], r[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    x[w] = (u32)a[w * n + j];
+    y[w] = (u32)b[w * n + j];
+  }
+  mont_mul(r, x, y);
+  fe_csub(r, MSM_P);
+#pragma unroll
+  for (int w = 0; w < NW; ++w) out[w * n + j] = (int32_t)r[w];
+}
+
+extern "C" int msm_mont_mul_lanes(const int32_t* a, const int32_t* b,
+                                  int32_t* out, long long n,
+                                  cudaStream_t stream) {
+  if (n == 0) return 0;
+  const int threads = 128;
+  const long long blocks = (n + threads - 1) / threads;
+  mont_mul_lanes_kernel<<<(unsigned)blocks, threads, 0, stream>>>(a, b, out, n);
+  return MSM_LAUNCH_STATUS();
+}
+#endif  // MSM_CURVE_ED

@@ -1,40 +1,87 @@
-// BLS12-377 G1 point formulas, lazy and canonical domain, shared by every
-// kernel.
+// Point formulas shared by every kernel, for the curve a source is built
+// for: BLS12-377 G1 by default, Twisted Edwards BLS12 with -DMSM_CURVE_ED
+// (params.cuh picks the field to match).
 //
-// Complete projective formulas of Renes-Costello-Batina 2016 (a = 0,
+// G1: complete projective formulas of Renes-Costello-Batina 2016 (a = 0,
 // b3 = 3), Montgomery form, in the exact operation order of
 // ops/curve.py:G1Ops (the plain PyTorch forms).  Lazy forms: comments give
 // value bounds in units of p ("b<=k": value < k*p); REDC outputs stay
 // below 2p because R/p ~ 2^39 dwarfs every bound product used here (at
-// most 304).  Canonical forms (g1_add, g1_add_mixed, g1_double) take and
-// return coordinates below p and reduce after every field operation.
+// most 304).  Canonical forms (g1_add, g1_add_mixed, g1_double; G1
+// only) take and return coordinates below p and reduce after every field
+// operation.
+//
+// Edwards (a = -1, d = 3021): the unified extended hwcd formulas, lazy
+// domain only, in the exact operation order of ops/curve.py:EdwardsOps:
+// coordinates handed on stay below 2p, REDC inputs reach bound products
+// of 48 at most against R/p ~ 5.9e10.  No paired-product form.
+//
+// Every path kernel (tree.cu, packed.cu, bpr.cu, stream.cu) is written
+// against one vocabulary that both curves define: Point, Affine, pt_zero,
+// pt_from_affine, pt_add_affine_lazy, pt_add_mixed_lazy, pt_add_lazy,
+// pt_double_lazy, pt_canon, pt_load, pt_store and load_signed_aff.  The
+// G1-only kernels (canon.cu, legacy.cu, fused.cu) use the same names for
+// G1 points (Point is G1) beside the canonical g1_* forms.
 #pragma once
 #include "field.cuh"
+
+// Column j of a merged (k*NW, ncols) limb-major plane: coordinate c, word
+// w at row c*NW + w.  Neighbouring threads read neighbouring columns, so
+// every row load is coalesced.
+__device__ __forceinline__ void fe_load(u32 r[NW], const int32_t* plane,
+                                        size_t ncols, int row0, size_t j) {
+#pragma unroll
+  for (int w = 0; w < NW; ++w) r[w] = (u32)plane[(size_t)(row0 + w) * ncols + j];
+}
+
+__device__ __forceinline__ void fe_store(int32_t* plane, size_t ncols,
+                                         int row0, size_t j,
+                                         const u32 a[NW]) {
+#pragma unroll
+  for (int w = 0; w < NW; ++w) plane[(size_t)(row0 + w) * ncols + j] = (int32_t)a[w];
+}
+
+// A sorted entry stream holds point index | positive-sign bit 30; the
+// signed table's columns [0, N) hold the points, [N, 2N) their negatives.
+#define SIGN_BIT 30
+#define IDX_MASK ((1 << SIGN_BIT) - 1)
+
+__device__ __forceinline__ long long signed_col(const int32_t* sorted_vals,
+                                                long long n_points,
+                                                long long i) {
+  const int32_t v = sorted_vals[i];
+  const long long idx = v & IDX_MASK;
+  return ((v >> SIGN_BIT) & 1) ? idx : idx + n_points;
+}
+
+#ifndef MSM_CURVE_ED
 
 struct G1 {
   u32 x[NW], y[NW], z[NW];
 };
+typedef G1 Point;
+// affine addend (x, y), canonical; z = 1 implicit
+struct Affine {
+  u32 x[NW], y[NW];
+};
 
 // Identity (0 : 1 : 0), Montgomery form.
-__device__ __forceinline__ void g1_zero(G1& r) {
+__device__ __forceinline__ void pt_zero(Point& r) {
   fe_zero(r.x);
   fe_set_const(r.y, MSM_ONE_MONT);
   fe_zero(r.z);
 }
 
-__device__ __forceinline__ void g1_from_affine(G1& r, const u32 x[NW],
-                                               const u32 y[NW]) {
-  fe_copy(r.x, x);
-  fe_copy(r.y, y);
+__device__ __forceinline__ void pt_from_affine(Point& r, const Affine& a) {
+  fe_copy(r.x, a.x);
+  fe_copy(r.y, a.y);
   fe_set_const(r.z, MSM_ONE_MONT);
 }
 
 // Both-affine add (Z1 = Z2 = 1), canonical inputs, outputs b<=2.
-__device__ __forceinline__ void g1_add_affine_lazy_pair(G1& r,
-                                                        const u32 X1[NW],
-                                                        const u32 Y1[NW],
-                                                        const u32 X2[NW],
-                                                        const u32 Y2[NW]) {
+__device__ __forceinline__ void pt_add_affine_lazy(Point& r, const Affine& a,
+                                                   const Affine& b) {
+  const u32 *X1 = a.x, *Y1 = a.y, *X2 = b.x, *Y2 = b.y;
   u32 t0[NW], t1[NW], t3[NW], t4[NW], Y3[NW], Z3[NW], u[NW];
   mont_mul(t0, X1, X2);             // b<=2
   mont_mul(t1, Y1, Y2);             // b<=2
@@ -58,9 +105,9 @@ __device__ __forceinline__ void g1_add_affine_lazy_pair(G1& r,
 
 // Mixed add: accumulator b<=4, affine addend (X2, Y2) canonical and not
 // the identity; outputs b<=2.  r may alias p.
-__device__ __forceinline__ void g1_add_mixed_lazy_pair(G1& r, const G1& p,
-                                                       const u32 X2[NW],
-                                                       const u32 Y2[NW]) {
+__device__ __forceinline__ void pt_add_mixed_lazy(Point& r, const Point& p,
+                                                  const Affine& a) {
+  const u32 *X2 = a.x, *Y2 = a.y;
   u32 t0[NW], t1[NW], t2[NW], t3[NW], t4[NW], Y3[NW], Z3[NW], u[NW];
   mont_mul(t0, p.x, X2);            // 4 -> b<=2
   mont_mul(t1, p.y, Y2);            // 4 -> b<=2
@@ -87,8 +134,8 @@ __device__ __forceinline__ void g1_add_mixed_lazy_pair(G1& r, const G1& p,
 
 // Full projective add, inputs b<=4, outputs b<=2 (closed under chaining).
 // r may alias p or q.
-__device__ __forceinline__ void g1_add_lazy_pair(G1& r, const G1& p,
-                                                 const G1& q) {
+__device__ __forceinline__ void pt_add_lazy(Point& r, const Point& p,
+                                            const Point& q) {
   u32 t0[NW], t1[NW], t2[NW], t3[NW], t4[NW], X3[NW], Y3[NW], Z3[NW];
   mont_mul(t0, p.x, q.x);           // 16 -> b<=2
   mont_mul(t1, p.y, q.y);           // 16 -> b<=2
@@ -122,7 +169,7 @@ __device__ __forceinline__ void g1_add_lazy_pair(G1& r, const G1& p,
 }
 
 // Complete doubling, input b<=4, outputs b<=4.  r may alias p.
-__device__ __forceinline__ void g1_double_lazy(G1& r, const G1& p) {
+__device__ __forceinline__ void pt_double_lazy(Point& r, const Point& p) {
   u32 t0[NW], t1[NW], t2[NW], X3[NW], Y3[NW], Z3[NW];
   mont_mul(t0, p.y, p.y);           // 16 -> b<=2
   fe_scale(Z3, t0, 8u);             // b<=16
@@ -245,55 +292,179 @@ __device__ __forceinline__ void g1_double(G1& r, const G1& p) {
   fe_copy(r.z, Z3);
 }
 
-__device__ __forceinline__ void g1_canon(G1& r) {
+__device__ __forceinline__ void pt_canon(Point& r) {
   fe_canon4(r.x);
   fe_canon4(r.y);
   fe_canon4(r.z);
 }
 
-// Column j of a merged (3*NW, ncols) limb-major plane: coordinate c, word
-// w at row c*NW + w.  Neighbouring threads read neighbouring columns, so
-// every row load is coalesced.
-__device__ __forceinline__ void fe_load(u32 r[NW], const int32_t* plane,
-                                        size_t ncols, int row0, size_t j) {
-#pragma unroll
-  for (int w = 0; w < NW; ++w) r[w] = (u32)plane[(size_t)(row0 + w) * ncols + j];
-}
-
-__device__ __forceinline__ void fe_store(int32_t* plane, size_t ncols,
-                                         int row0, size_t j,
-                                         const u32 a[NW]) {
-#pragma unroll
-  for (int w = 0; w < NW; ++w) plane[(size_t)(row0 + w) * ncols + j] = (int32_t)a[w];
-}
-
-__device__ __forceinline__ void g1_load(G1& r, const int32_t* plane,
+__device__ __forceinline__ void pt_load(Point& r, const int32_t* plane,
                                         size_t ncols, size_t j) {
   fe_load(r.x, plane, ncols, 0, j);
   fe_load(r.y, plane, ncols, NW, j);
   fe_load(r.z, plane, ncols, 2 * NW, j);
 }
 
-__device__ __forceinline__ void g1_store(int32_t* plane, size_t ncols,
-                                         size_t j, const G1& a) {
+__device__ __forceinline__ void pt_store(int32_t* plane, size_t ncols,
+                                         size_t j, const Point& a) {
   fe_store(plane, ncols, 0, j, a.x);
   fe_store(plane, ncols, NW, j, a.y);
   fe_store(plane, ncols, 2 * NW, j, a.z);
 }
 
-// Entry i of a sorted entry stream (point index | positive-sign bit 30) ->
-// its affine (x, y), Montgomery, from the (26, 2N) signed table: columns
-// [0, N) hold (x, y), columns [N, 2N) hold (x, -y).
-#define SIGN_BIT 30
-#define IDX_MASK ((1 << SIGN_BIT) - 1)
-
-__device__ __forceinline__ void load_signed(u32 x[NW], u32 y[NW],
-                                            const int32_t* table,
-                                            const int32_t* sorted_vals,
-                                            long long n_points, long long i) {
-  const int32_t v = sorted_vals[i];
-  const long long idx = v & IDX_MASK;
-  const long long col = ((v >> SIGN_BIT) & 1) ? idx : idx + n_points;
-  fe_load(x, table, 2 * n_points, 0, col);
-  fe_load(y, table, 2 * n_points, NW, col);
+// Entry i of a sorted entry stream -> its affine (x, y), Montgomery, from
+// the (26, 2N) signed table: columns [0, N) hold (x, y), [N, 2N) (x, -y).
+__device__ __forceinline__ void load_signed_aff(Affine& a,
+                                                const int32_t* table,
+                                                const int32_t* sorted_vals,
+                                                long long n_points,
+                                                long long i) {
+  const long long col = signed_col(sorted_vals, n_points, i);
+  fe_load(a.x, table, 2 * n_points, 0, col);
+  fe_load(a.y, table, 2 * n_points, NW, col);
 }
+
+#else  // MSM_CURVE_ED
+
+// -- Twisted Edwards BLS12, extended coordinates ---------------------------
+
+struct Point {
+  u32 x[NW], y[NW], t[NW], z[NW];
+};
+// affine addend (x, y, t = x*y), canonical; z = 1 implicit
+struct Affine {
+  u32 x[NW], y[NW], t[NW];
+};
+
+// Identity (0 : 1 : 0 : 1), Montgomery form.
+__device__ __forceinline__ void pt_zero(Point& r) {
+  fe_zero(r.x);
+  fe_set_const(r.y, MSM_ONE_MONT);
+  fe_zero(r.t);
+  fe_set_const(r.z, MSM_ONE_MONT);
+}
+
+__device__ __forceinline__ void pt_from_affine(Point& r, const Affine& a) {
+  fe_copy(r.x, a.x);
+  fe_copy(r.y, a.y);
+  fe_copy(r.t, a.t);
+  fe_set_const(r.z, MSM_ONE_MONT);
+}
+
+// Unified mixed add: accumulator b<=2, affine addend canonical; outputs
+// b<=2.  r may alias p.
+__device__ __forceinline__ void pt_add_mixed_lazy(Point& r, const Point& p,
+                                                  const Affine& q) {
+  u32 a[NW], b[NW], c[NW], e[NW], f[NW], g[NW], h[NW], u[NW];
+  mont_mul(a, p.x, q.x);            // 2 -> b<=2
+  mont_mul(b, p.y, q.y);            // 2 -> b<=2
+  mont_mul(u, p.t, q.t);            // 2 -> b<=2
+  mont_mul(c, MSM_D_MONT, u);       // 2 -> b<=2
+  fe_add(e, p.x, p.y);              // b<=4
+  fe_add(f, q.x, q.y);              // b<=2
+  mont_mul(e, e, f);                // 8 -> b<=2
+  fe_add(u, a, b);                  // b<=4
+  fe_sub_kp(e, e, u, MSM_KP4);      // b<=6
+  fe_sub_kp(f, p.z, c, MSM_KP2);    // b<=4 (z2 = 1: the d-term is z1)
+  fe_add(g, p.z, c);                // b<=4
+  fe_add(h, b, a);                  // b<=4
+  mont_mul(r.x, e, f);              // 24 -> b<=2
+  mont_mul(r.y, g, h);              // 16 -> b<=2
+  mont_mul(r.t, e, h);              // 24 -> b<=2
+  mont_mul(r.z, f, g);              // 16 -> b<=2
+}
+
+// Both-affine add (tree level 1): the mixed add seeded with the promoted
+// first addend, as ops/curve.py:EdwardsOps.add_affine_lazy.
+__device__ __forceinline__ void pt_add_affine_lazy(Point& r, const Affine& a,
+                                                   const Affine& b) {
+  Point p;
+  pt_from_affine(p, a);
+  pt_add_mixed_lazy(r, p, b);
+}
+
+// Unified full add: inputs b<=2, outputs b<=2 (closed).  r may alias p
+// or q.
+__device__ __forceinline__ void pt_add_lazy(Point& r, const Point& p,
+                                            const Point& q) {
+  u32 a[NW], b[NW], c[NW], e[NW], f[NW], g[NW], h[NW], u[NW];
+  mont_mul(a, p.x, q.x);            // 4 -> b<=2
+  mont_mul(b, p.y, q.y);            // 4 -> b<=2
+  mont_mul(u, p.t, q.t);            // 4 -> b<=2
+  mont_mul(c, MSM_D_MONT, u);       // 2 -> b<=2
+  fe_add(e, p.x, p.y);              // b<=4
+  fe_add(f, q.x, q.y);              // b<=4
+  mont_mul(e, e, f);                // 16 -> b<=2
+  fe_add(u, a, b);                  // b<=4
+  fe_sub_kp(e, e, u, MSM_KP4);      // b<=6
+  mont_mul(u, p.z, q.z);            // 4 -> b<=2
+  fe_sub_kp(f, u, c, MSM_KP2);      // b<=4
+  fe_add(g, u, c);                  // b<=4
+  fe_add(h, b, a);                  // b<=4
+  mont_mul(r.x, e, f);              // 24 -> b<=2
+  mont_mul(r.y, g, h);              // 16 -> b<=2
+  mont_mul(r.t, e, h);              // 24 -> b<=2
+  mont_mul(r.z, f, g);              // 16 -> b<=2
+}
+
+// dbl-2008-hwcd (a = -1): input b<=2, outputs b<=2.  r may alias p.
+__device__ __forceinline__ void pt_double_lazy(Point& r, const Point& p) {
+  u32 a[NW], b[NW], c[NW], d[NW], e[NW], f[NW], g[NW], h[NW];
+  mont_mul(a, p.x, p.x);            // 4 -> b<=2
+  mont_mul(b, p.y, p.y);            // 4 -> b<=2
+  mont_mul(c, p.z, p.z);            // 4 -> b<=2
+  fe_add(c, c, c);                  // b<=4
+  fe_neg_kp(d, a, MSM_KP2);         // 2p - a; b<=2
+  fe_add(e, p.x, p.y);              // b<=4
+  mont_mul(e, e, e);                // 16 -> b<=2
+  fe_add(f, a, b);                  // b<=4
+  fe_sub_kp(e, e, f, MSM_KP4);      // b<=6
+  fe_add(g, d, b);                  // b<=4
+  fe_sub_kp(f, g, c, MSM_KP4);      // b<=8
+  fe_sub_kp(h, d, b, MSM_KP2);      // b<=4
+  mont_mul(r.x, e, f);              // 48 -> b<=2
+  mont_mul(r.y, g, h);              // 16 -> b<=2
+  mont_mul(r.t, e, h);              // 24 -> b<=2
+  mont_mul(r.z, f, g);              // 32 -> b<=2
+}
+
+// coordinates below 2p (LAZY_BOUND 2) -> canonical: one conditional
+// subtract of p each
+__device__ __forceinline__ void pt_canon(Point& r) {
+  fe_csub(r.x, MSM_P);
+  fe_csub(r.y, MSM_P);
+  fe_csub(r.t, MSM_P);
+  fe_csub(r.z, MSM_P);
+}
+
+__device__ __forceinline__ void pt_load(Point& r, const int32_t* plane,
+                                        size_t ncols, size_t j) {
+  fe_load(r.x, plane, ncols, 0, j);
+  fe_load(r.y, plane, ncols, NW, j);
+  fe_load(r.t, plane, ncols, 2 * NW, j);
+  fe_load(r.z, plane, ncols, 3 * NW, j);
+}
+
+__device__ __forceinline__ void pt_store(int32_t* plane, size_t ncols,
+                                         size_t j, const Point& a) {
+  fe_store(plane, ncols, 0, j, a.x);
+  fe_store(plane, ncols, NW, j, a.y);
+  fe_store(plane, ncols, 2 * NW, j, a.t);
+  fe_store(plane, ncols, 3 * NW, j, a.z);
+}
+
+// Entry i of a sorted entry stream -> its affine (x, y, t), Montgomery,
+// from the (27, 2N) signed table: columns [0, N) hold (x, y, t), [N, 2N)
+// (-x, y, -t).
+__device__ __forceinline__ void load_signed_aff(Affine& a,
+                                                const int32_t* table,
+                                                const int32_t* sorted_vals,
+                                                long long n_points,
+                                                long long i) {
+  const long long col = signed_col(sorted_vals, n_points, i);
+  fe_load(a.x, table, 2 * n_points, 0, col);
+  fe_load(a.y, table, 2 * n_points, NW, col);
+  fe_load(a.t, table, 2 * n_points, 2 * NW, col);
+}
+
+#endif  // MSM_CURVE_ED

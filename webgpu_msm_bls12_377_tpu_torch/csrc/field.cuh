@@ -1,9 +1,11 @@
-// BLS12-377 base-field arithmetic on 13 x 32-bit words, shared by every
-// kernel of the port.  The same functions, in the same order, are the
-// plain PyTorch forms in ops/field.py; both compute exact integers, so a
-// kernel and its plain form agree word for word, lazy values included.
+// Base-field arithmetic on NW x 32-bit words, shared by every kernel of
+// the port: NW = 13 for BLS12-377, 9 for Twisted Edwards BLS12 (built with
+// -DMSM_CURVE_ED; params.cuh), R = 2^(32 NW).  The same functions, in the
+// same order, are the plain PyTorch forms in ops/field.py; both compute
+// exact integers, so a kernel and its plain form agree word for word, lazy
+// values included.
 //
-// Values are little-endian u32[13] held in registers.  "Lazy" values are
+// Values are little-endian u32[NW] held in registers.  "Lazy" values are
 // exact integers below k*p for a bound k tracked by the point formulas
 // (curve.cuh); they are reduced to [0, p) once, by fe_canon.
 #pragma once
@@ -43,7 +45,7 @@ __device__ __forceinline__ void fe_zero(u32 r[NW]) {
   for (int i = 0; i < NW; ++i) r[i] = 0u;
 }
 
-// r = a + b (exact; callers keep the sum below 2^416)
+// r = a + b (exact; callers keep the sum below R)
 __device__ __forceinline__ void fe_add(u32 r[NW], const u32 a[NW],
                                        const u32 b[NW]) {
   u64 c = 0;
@@ -138,10 +140,10 @@ __device__ __forceinline__ void fe_neg_mod(u32 r[NW], const u32 a[NW]) {
   }
 }
 
-// REDC(a * b) = (a*b + m*p) / 2^416 with m = -a*b*p^-1 mod 2^416: the
+// REDC(a * b) = (a*b + m*p) / R with m = -a*b*p^-1 mod R: the
 // coarsely integrated operand scanning (CIOS) Montgomery product with
-// 64-bit accumulation.  Exact for any a, b < 2^416; the output is below
-// a*b/2^416 + p, i.e. < 2p for every bound product the formulas use.
+// 64-bit accumulation.  Exact for any a, b < R; the output is below
+// a*b/R + p, i.e. < 2p for every bound product the formulas use.
 __device__ __forceinline__ void mont_mul(u32 r[NW], const u32 a[NW],
                                          const u32 b[NW]) {
   u32 t[NW + 2];

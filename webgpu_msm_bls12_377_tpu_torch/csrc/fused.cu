@@ -64,9 +64,9 @@ __global__ void __launch_bounds__(THREADS)
   const int32_t* row = rows + (long long)starts[b] * ROW_WORDS;
   const int len = lens[b];
   G1 acc;
-  g1_zero(acc);
+  pt_zero(acc);
   for (int t = 0; t < len; ++t, row += ROW_WORDS) add_row(acc, row);
-  g1_store(out, nb, b, acc);
+  pt_store(out, nb, b, acc);
 }
 
 // rows: (count, 32) row-major signed rows; starts/lens: (nb,) segments of

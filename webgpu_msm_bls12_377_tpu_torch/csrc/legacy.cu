@@ -29,7 +29,7 @@ __global__ void __launch_bounds__(THREADS)
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
   G1 a;
-  g1_load(a, acc, n, j);
+  pt_load(a, acc, n, j);
   if (valid[j]) {
     u32 x[NW], y[NW];
     fe_load(x, aff, n, 0, j);
@@ -37,7 +37,7 @@ __global__ void __launch_bounds__(THREADS)
     if (!sign_pos[j]) fe_neg_mod(y, y);
     g1_add_mixed(a, a, x, y);
   }
-  g1_store(out, n, j, a);
+  pt_store(out, n, j, a);
 }
 
 extern "C" int msm_masked_add_mixed(const int32_t* acc, const int32_t* aff,

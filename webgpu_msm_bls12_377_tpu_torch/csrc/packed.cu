@@ -14,23 +14,25 @@
 // slab flags or slab-count size class exist on this path.
 //
 // The sum starts from the identity and adds every node, as the TPU kernel
-// does, so both produce the same projective coordinates mod p.
+// does, so both produce the same projective coordinates mod p.  Built for
+// G1 and, with -DMSM_CURVE_ED, for Edwards (curve.cuh's vocabulary).
 //
 // Bound on this card: products.  A bucket of c nodes needs c - 1 full adds
-// (3,549 word products each; the add into the identity is not counted),
-// against 156 bytes read per node.
+// (G1 3,549 word products each, Edwards 1,620; the add into the identity
+// is not counted), against 156 (G1) or 128 (Edwards, 32 bytes a
+// coordinate) bytes read per node.
 //
 // The add sits in a __noinline__ helper: with the full add inlined into
 // the runtime-length loop, nvcc 12.8's cicc crashes (segmentation fault)
 // on this file.  The accumulator then lives in the thread's local memory
-// (L1-cached), one 156-byte round trip per node added.
+// (L1-cached), one point-sized round trip per node added.
 #include "curve.cuh"
 
-__device__ __noinline__ void add_node(G1& acc, const int32_t* plane,
+__device__ __noinline__ void add_node(Point& acc, const int32_t* plane,
                                       long long t_cols, long long j) {
-  G1 node;
-  g1_load(node, plane, t_cols, j);
-  g1_add_lazy_pair(acc, acc, node);
+  Point node;
+  pt_load(node, plane, t_cols, j);
+  pt_add_lazy(acc, acc, node);
 }
 
 __global__ void __launch_bounds__(128)
@@ -42,11 +44,11 @@ __global__ void __launch_bounds__(128)
   if (r >= nb) return;
   const long long start = starts_rk[r];
   const int len = lens_rk[r];
-  G1 acc;
-  g1_zero(acc);
+  Point acc;
+  pt_zero(acc);
   for (int t = 0; t < len; ++t) add_node(acc, plane, t_cols, start + t);
-  g1_canon(acc);
-  g1_store(out, nb, r, acc);
+  pt_canon(acc);
+  pt_store(out, nb, r, acc);
 }
 
 extern "C" int msm_packed_finish(const int32_t* plane, long long t_cols,

@@ -11,33 +11,35 @@
 // bucket rank r of the length-sorted layout
 // (ops/smvp_stream.py:build_stream_layout), walks that bucket's len
 // contiguous entries of sorted_vals from start, reads each addend from the
-// (26, 2N) signed table by its index and sign (curve.cuh:load_signed, as
-// tree level 1 does), and writes column r of the block-ordered output that
+// signed table by its index and sign (curve.cuh:load_signed_aff, as tree
+// level 1 does), and writes column r of the block-ordered output that
 // permute_buckets reads.  No slab gather, slab rows, validity word, slab
 // maps or slab-count size class exist on this path, and so no cap on the
 // slab count: any bucket length runs.
 //
 // The sum starts from the identity and adds every entry with the mixed
 // lazy add, as the TPU kernel does, so both produce the same projective
-// coordinates mod p.
+// coordinates mod p.  Built for G1 and, with -DMSM_CURVE_ED, for Edwards
+// (curve.cuh's vocabulary; table (27, 2N) of (x, y, t) and (-x, y, -t)).
 //
 // Bound on this card: products.  A bucket of c entries needs c - 1 mixed
-// adds (3,211 word products each; the add into the identity is not
-// counted), against 108 bytes read per entry (4 of sorted_vals, 104 of the
-// table) and 164 bytes per bucket.  In practice the table reads are
-// scattered columns of a limb-major plane (26 separate 4-byte reads per
-// entry) and a warp's lanes run different trip counts.
+// adds (G1 3,211 word products each, Edwards 1,458; the add into the
+// identity is not counted), against 108 (G1) or 100 (Edwards, 32 bytes a
+// coordinate) bytes read per entry (4 of sorted_vals, the rest of the
+// table) and 164 (G1) or 136 (Edwards) bytes per bucket.  In practice the table reads are scattered
+// columns of a limb-major plane (one 4-byte read per word) and a warp's
+// lanes run different trip counts.
 //
 // The add sits in a __noinline__ helper, as in packed.cu: nvcc 12.8's cicc
 // crashes on a runtime-length loop around an inlined point add.
 #include "curve.cuh"
 
-__device__ __noinline__ void add_entry(G1& acc, const int32_t* table,
+__device__ __noinline__ void add_entry(Point& acc, const int32_t* table,
                                        const int32_t* sorted_vals,
                                        long long n_points, long long i) {
-  u32 x[NW], y[NW];
-  load_signed(x, y, table, sorted_vals, n_points, i);
-  g1_add_mixed_lazy_pair(acc, acc, x, y);
+  Affine a;
+  load_signed_aff(a, table, sorted_vals, n_points, i);
+  pt_add_mixed_lazy(acc, acc, a);
 }
 
 __global__ void __launch_bounds__(128)
@@ -51,15 +53,15 @@ __global__ void __launch_bounds__(128)
   if (r >= nb) return;
   const long long start = starts_rk[r];
   const int len = lens_rk[r];
-  G1 acc;
-  g1_zero(acc);
+  Point acc;
+  pt_zero(acc);
   for (int t = 0; t < len; ++t)
     add_entry(acc, table, sorted_vals, n_points, start + t);
-  g1_canon(acc);
-  g1_store(out, nb, r, acc);
+  pt_canon(acc);
+  pt_store(out, nb, r, acc);
 }
 
-// table: the (26, 2 * n_points) signed table.
+// table: the (26|27, 2 * n_points) signed table.
 extern "C" int msm_stream_buckets(const int32_t* table, long long n_points,
                                   const int32_t* sorted_vals,
                                   const int32_t* starts_rk,

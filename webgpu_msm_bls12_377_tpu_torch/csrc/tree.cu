@@ -13,12 +13,17 @@
 //   full: the previous level is a packed (39, T) plane of lazy projective
 //         nodes.  Full lazy RCB add; a single child is copied.
 // FLAG_INVALID slots (past the level's real node count) write the
-// identity; LAST canonicalizes every output.
+// identity; LAST canonicalizes every output.  Built for G1 and, with
+// -DMSM_CURVE_ED, for Edwards (curve.cuh's vocabulary): the signed table
+// is then (27, 2N) of (x, y, t) and (-x, y, -t), nodes (36, T) extended
+// points, and the adds the hwcd forms.
 //
-// Bound on this card: an aff node costs 2,873 word products (4 Montgomery
-// products, 3 paired) for ~316 bytes moved (two 4-byte sorted_vals, two
-// 104-byte table rows, one 156-byte node); a full node 3,549 for 468
-// bytes.  At the HBM rate and the float32 multiply-add rate the two
+// Bound on this card: a G1 aff node costs 2,873 word products (4
+// Montgomery products, 3 paired) for ~316 bytes moved (two 4-byte
+// sorted_vals, two 104-byte table rows, one 156-byte node); a full node
+// 3,549 for 468 bytes.  Edwards: 1,458 word products (9 products of 162)
+// for ~328 bytes (two 96-byte rows, one 128-byte node: values below 8p <
+// 2^256 need 8 of a coordinate's 9 words), a full node 1,620 for 384.  At the HBM rate and the float32 multiply-add rate the two
 // limits are within 1.5x, bytes the larger.  In practice the kernel runs
 // far above both: every word product with its carries is several integer
 // instructions, and a thread's points hold ~230 registers, so few warps
@@ -43,33 +48,33 @@ __global__ void __launch_bounds__(128)
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= t_out) return;
   const int32_t e = level_map[p];
-  G1 r;
+  Point r;
   if (e & FLAG_INVALID) {
-    g1_zero(r);
+    pt_zero(r);
   } else {
     const long long a = e & CHILD_MASK;
     const bool single = (e & FLAG_SINGLE) != 0;
     if (AFF) {
-      u32 x1[NW], y1[NW];
-      load_signed(x1, y1, in, sorted_vals, in_cols, a);
+      Affine a1;
+      load_signed_aff(a1, in, sorted_vals, in_cols, a);
       if (single) {
-        g1_from_affine(r, x1, y1);
+        pt_from_affine(r, a1);
       } else {
-        u32 x2[NW], y2[NW];
-        load_signed(x2, y2, in, sorted_vals, in_cols, a + 1);
-        g1_add_affine_lazy_pair(r, x1, y1, x2, y2);
+        Affine a2;
+        load_signed_aff(a2, in, sorted_vals, in_cols, a + 1);
+        pt_add_affine_lazy(r, a1, a2);
       }
     } else {
-      g1_load(r, in, in_cols, a);
+      pt_load(r, in, in_cols, a);
       if (!single) {
-        G1 b;
-        g1_load(b, in, in_cols, a + 1);
-        g1_add_lazy_pair(r, r, b);
+        Point b;
+        pt_load(b, in, in_cols, a + 1);
+        pt_add_lazy(r, r, b);
       }
     }
   }
-  if (LAST) g1_canon(r);
-  g1_store(out, t_out, p, r);
+  if (LAST) pt_canon(r);
+  pt_store(out, t_out, p, r);
 }
 
 template <bool AFF, bool LAST>
@@ -84,7 +89,7 @@ static int launch(const int32_t* in, long long in_cols,
   return MSM_LAUNCH_STATUS();
 }
 
-// aff: in is the (26, 2N) signed table, in_cols = N (points per sign).
+// aff: in is the (26|27, 2N) signed table, in_cols = N (points per sign).
 extern "C" int msm_tree_level_aff(const int32_t* table, long long n_points,
                                   const int32_t* sorted_vals,
                                   const int32_t* level_map, int32_t* out,
@@ -96,7 +101,7 @@ extern "C" int msm_tree_level_aff(const int32_t* table, long long n_points,
                                     out, t_out, stream);
 }
 
-// full: in is the (39, in_cols) packed plane of the previous level.
+// full: in is the (39|36, in_cols) packed plane of the previous level.
 extern "C" int msm_tree_level_full(const int32_t* in, long long in_cols,
                                    const int32_t* level_map, int32_t* out,
                                    long long t_out, int last,

@@ -1,9 +1,11 @@
-"""The cuZK MSM engine for BLS12-377 G1: tree (hybrid and pure), stream,
-fused and legacy SMVP paths, and batch mode over a fixed point set.
+"""The cuZK MSM engine: tree (hybrid and pure), stream, fused and legacy
+SMVP paths, and batch mode over a fixed point set, for BLS12-377 G1; the
+tree and stream paths and batch mode for Twisted Edwards BLS12.
 
 compute_msm(points, scalars) -> {"x": int, "y": int} runs, on one device:
-  1. point prep: wire words -> Montgomery table (kernel 1), then the form
-     the path reads (signed table, wide rows, or the table itself);
+  1. point prep: wire words -> Montgomery table (kernel 1; for Edwards
+     also t = x*y, kernel 1's lane-wise product), then the form the path
+     reads (signed table, wide rows, or the table itself);
   2. plan: signed window digits -> stable per-window sort -> bucket
      segments (plain PyTorch);
   3. SMVP, by _select_smvp (the JAX engine's policy on a TPU):
@@ -29,6 +31,10 @@ compute_msm(points, scalars) -> {"x": int, "y": int} runs, on one device:
 compute_msm_batch(points, [scalars, ...]) runs step 1 once and steps 2-5
 per scalar set without the host waiting for the device between sets, then
 reads every set's window sums back in one copy.
+For Edwards (the curve's group and field picked once per engine), the
+fused and legacy paths, and so "auto" below chunk 9 (by default below
+2^16), raise NotImplementedError: their Edwards kernels are not ported
+(ROADMAP "Next slices" item 1).
 PyTorch runs eagerly, so the JAX package's plan/main program split, its
 size classes and their host readbacks, and its compile caches have no
 counterpart here; the legacy path's readback stays, since it fixes how
@@ -43,6 +49,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from ..ops import curve as C
 from ..ops import field as F
 from ..ops.bpr import bpr_order_on, reduce_buckets_prearranged
 from ..ops.buckets import (
@@ -64,7 +71,7 @@ from ..ops.decompose import (
     decompose_scalars_signed,
     num_windows_for,
 )
-from ..ops.kernels import mont_mul_const
+from ..ops.kernels import mont_mul_const, mont_mul_lanes
 from ..ops.smvp_kernel import (
     accumulate_buckets_fused,
     accumulate_buckets_windowed,
@@ -96,8 +103,19 @@ from ..reference import msm as omsm
 #: n from which "auto" takes the hybrid tree (the JAX package's static
 #: policy, models/cuzk.py:_select_smvp)
 TREE_MIN_N = 1 << 18
-COORD_BYTES = 48
+#: bytes of one wire coordinate
+COORD_BYTES = {CurveId.BLS12_377: 48, CurveId.EDWARDS_BLS12: 32}
 SMVP_MODES = ("auto", "tree", "stream", "legacy", "fused")
+#: paths with no Edwards kernels yet
+ED_NOT_PORTED = ("fused", "legacy")
+
+
+def _edwards_not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported for Edwards: the Edwards fused and legacy "
+        "paths, the baseline engines and compute_msm_edwards below 2^16 are "
+        'ROADMAP "Next slices" item 1'
+    )
 
 
 def resolve_device(device) -> torch.device:
@@ -129,13 +147,19 @@ def words_to_device(words: np.ndarray, device: torch.device) -> torch.Tensor:
     return staged.to(device, non_blocking=True)
 
 
-def mont_point_table(point_words: torch.Tensor) -> torch.Tensor:
-    """(2, 12, N) wire words -> (26, N) Montgomery (x; y) plane."""
-    return u32_words_to_limbs_mont(point_words)
+def mont_point_table(point_words: torch.Tensor, group=C.G1) -> torch.Tensor:
+    """Wire words -> Montgomery affine table: G1 (2, 12, N) -> (26, N)
+    (x; y); Edwards (2, 8, N) -> (27, N) (x; y; t = x*y)."""
+    table = u32_words_to_limbs_mont(point_words, group.ctx)
+    if group is C.G1:
+        return table
+    nw = group.ctx.nw
+    t = mont_mul_lanes(table[:nw], table[nw:])
+    return torch.cat([table, t], dim=0)
 
 
 class CuzkMsmEngine:
-    """End-to-end MSM engine for BLS12-377 G1 on one device."""
+    """End-to-end MSM engine for one curve on one device."""
 
     def __init__(
         self,
@@ -151,11 +175,10 @@ class CuzkMsmEngine:
         and answers at every n; "tree", "stream", "fused" and "legacy"
         force that path at any n and chunk size.  tree_finish is K of the
         hybrid tree; None means 2 under "auto" and the pure tree under an
-        explicit "tree"."""
-        if curve != CurveId.BLS12_377:
-            raise NotImplementedError(
-                "the port runs BLS12-377 G1 only; Edwards is ROADMAP item 1.9"
-            )
+        explicit "tree".  For Edwards, "fused" and "legacy" raise
+        NotImplementedError."""
+        if curve == CurveId.EDWARDS_BLS12 and smvp_mode in ED_NOT_PORTED:
+            raise _edwards_not_ported(f'smvp_mode="{smvp_mode}"')
         if num_bpr_threads < 1 or num_bpr_threads & (num_bpr_threads - 1):
             raise ValueError(
                 f"num_bpr_threads must be a power of two, got {num_bpr_threads}"
@@ -165,6 +188,8 @@ class CuzkMsmEngine:
         if smvp_mode not in SMVP_MODES:
             raise ValueError(f"unknown smvp_mode {smvp_mode!r}")
         self.curve = curve
+        self.group = C.group_ops(curve)
+        self.coord_bytes = COORD_BYTES[curve]
         self.chunk_size_override = chunk_size
         self.num_bpr_threads = num_bpr_threads
         self.tree_finish = tree_finish
@@ -183,7 +208,11 @@ class CuzkMsmEngine:
             return self.smvp_mode
         if stream_supported(chunk_size):
             return "tree" if n >= TREE_MIN_N else "stream"
-        return "fused" if self._fused_ok(chunk_size, n) else "legacy"
+        path = "fused" if self._fused_ok(chunk_size, n) else "legacy"
+        if self.curve == CurveId.EDWARDS_BLS12:
+            raise _edwards_not_ported(
+                f'smvp_mode="auto" at chunk {chunk_size} (the {path} path)')
+        return path
 
     @staticmethod
     def _fused_ok(chunk_size: int, n: int) -> bool:
@@ -207,13 +236,12 @@ class CuzkMsmEngine:
 
     # -- input normalization (reference wire formats) -----------------------
 
-    @staticmethod
-    def _prepare_points(points: Any) -> np.ndarray:
+    def _prepare_points(self, points: Any) -> np.ndarray:
         if isinstance(points, (bytes, bytearray, memoryview)):
-            return points_buffer_to_words(bytes(points), COORD_BYTES)
+            return points_buffer_to_words(bytes(points), self.coord_bytes)
         if isinstance(points, np.ndarray) and points.dtype == np.uint32:
-            return points  # already (2, 12, N)
-        num_u32 = COORD_BYTES // 4
+            return points  # already (2, coord_bytes // 4, N)
+        num_u32 = self.coord_bytes // 4
         xs = ints_to_words([p[0] for p in points], num_u32)
         ys = ints_to_words([p[1] for p in points], num_u32)
         return np.stack([xs, ys])
@@ -243,7 +271,7 @@ class CuzkMsmEngine:
     def msm_device(
         self, point_words: np.ndarray, scalar_words: np.ndarray, chunk_size: int
     ) -> torch.Tensor:
-        """The device pipeline: returns the (39, num_windows) canonical
+        """The device pipeline: returns the (39|36, num_windows) canonical
         window sums in plain (non-Montgomery) form, on the device."""
         path = self._select_smvp(chunk_size, point_words.shape[-1])
         points = self._point_prep(path, point_words)
@@ -253,9 +281,10 @@ class CuzkMsmEngine:
     def _point_prep(self, path: str, point_words: np.ndarray) -> torch.Tensor:
         """Everything that depends on the points alone: the copy, the
         Montgomery table, and the form of it that the path's SMVP reads."""
-        table = mont_point_table(words_to_device(point_words, self.device))
+        table = mont_point_table(words_to_device(point_words, self.device),
+                                 self.group)
         if path in ("tree", "stream"):
-            return build_signed_table(table)
+            return build_signed_table(table, self.group)
         return make_wide_rows(table) if path == "fused" else table
 
     def _smvp_fn(self, path: str, batch: bool = False):
@@ -270,7 +299,8 @@ class CuzkMsmEngine:
         num_windows = num_windows_for(chunk_size)
         digits = decompose_scalars_signed(sw, chunk_size, num_windows)
         plan = build_bucket_plan(digits, chunk_size)
-        return mont_mul_const(smvp(points, plan, chunk_size, num_windows), 1)
+        return mont_mul_const(smvp(points, plan, chunk_size, num_windows), 1,
+                              self.group.ctx)
 
     def _bpr_order(self, num_windows: int, chunk_size: int) -> torch.Tensor:
         return bpr_order_on(num_windows, chunk_size, self.num_bpr_threads,
@@ -280,9 +310,9 @@ class CuzkMsmEngine:
         """Block-ordered buckets -> window sums: the permute with the BPR
         walk order composed in, then the gather-free BPR."""
         order = self._bpr_order(num_windows, chunk_size)
-        buckets = permute_buckets(blocks, layout, order=order)
+        buckets = permute_buckets(blocks, layout, order=order, group=self.group)
         return reduce_buckets_prearranged(
-            buckets, num_windows, chunk_size, self.num_bpr_threads
+            buckets, num_windows, chunk_size, self.num_bpr_threads, self.group
         )
 
     def _smvp_tree(self, signed_table, plan, chunk_size, num_windows, tree_k):
@@ -292,7 +322,7 @@ class CuzkMsmEngine:
                 plan.starts, plan.lens, kn, tree_k, num_windows
             )
             blocks = tree_smvp_hybrid(
-                signed_table, plan.sorted_vals, tplan, tree_k
+                signed_table, plan.sorted_vals, tplan, tree_k, self.group
             )
             return self._reduce_blocks(
                 blocks, tplan.layout, chunk_size, num_windows
@@ -301,21 +331,23 @@ class CuzkMsmEngine:
         # the pure tree's one host readback: the longest bucket picks the
         # level count
         levels = num_levels(int(tplan.max_len))
-        final, s_fin = tree_smvp(signed_table, plan.sorted_vals, tplan, levels)
+        final, s_fin = tree_smvp(signed_table, plan.sorted_vals, tplan, levels,
+                                 self.group)
         buckets = permute_tree(
             final,
             real_bucket_view(s_fin, num_windows),
             real_bucket_view(tplan.lens, num_windows),
             order=self._bpr_order(num_windows, chunk_size),
+            group=self.group,
         )
         return reduce_buckets_prearranged(
-            buckets, num_windows, chunk_size, self.num_bpr_threads
+            buckets, num_windows, chunk_size, self.num_bpr_threads, self.group
         )
 
     def _smvp_stream(self, signed_table, plan, chunk_size, num_windows):
         layout = build_stream_layout(plan.starts, plan.lens, num_windows)
         blocks = accumulate_buckets_streamed(
-            signed_table, plan.sorted_vals, layout
+            signed_table, plan.sorted_vals, layout, self.group
         )
         return self._reduce_blocks(blocks, layout, chunk_size, num_windows)
 
@@ -346,7 +378,7 @@ class CuzkMsmEngine:
         h = 1 << (chunk_size - 1)
         # the path's one host readback: num_windows maxima pick the rounds
         wmax = plan.lens.reshape(num_windows, h).max(dim=1).values.tolist()
-        wsums = torch.empty((3 * F.NW, num_windows), dtype=torch.int32,
+        wsums = torch.empty((self.group.rows, num_windows), dtype=torch.int32,
                             device=self.device)
         for rounds, windows in sorted(self._window_groups(wmax).items()):
             idx = torch.as_tensor(window_slice_indices(windows, h),
@@ -360,11 +392,17 @@ class CuzkMsmEngine:
         return wsums
 
     def _finalize(self, coords: torch.Tensor, chunk_size: int) -> dict[str, int]:
-        cols = [F.plane_to_ints(coords[c * F.NW : (c + 1) * F.NW])
-                for c in range(3)]
-        window_pts = [ocurve.ProjectivePoint(*v) for v in zip(*cols)]
-        result = omsm.horner(window_pts, chunk_size, omsm.G1)
-        x, y = ocurve.g1_to_affine(result)
+        nw = self.group.ctx.nw
+        cols = [F.plane_to_ints(coords[c * nw : (c + 1) * nw])
+                for c in range(coords.shape[0] // nw)]
+        if self.curve == CurveId.BLS12_377:
+            point, ogroup, to_affine = (ocurve.ProjectivePoint, omsm.G1,
+                                        ocurve.g1_to_affine)
+        else:
+            point, ogroup, to_affine = (ocurve.ExtendedPoint, omsm.EDWARDS,
+                                        ocurve.ed_to_affine)
+        window_pts = [point(*v) for v in zip(*cols)]
+        x, y = to_affine(omsm.horner(window_pts, chunk_size, ogroup))
         return {"x": x, "y": y}
 
     def compute_msm(self, points: Any, scalars: Any) -> dict[str, int]:

@@ -18,10 +18,15 @@ import torch
 from ..ops import curve as C
 from ..ops.kernels import fused_add, masked_add_and_double, mont_mul_const
 from ..params import CurveId
-from .cuzk import mont_point_table, resolve_device, words_to_device
+from .cuzk import (
+    _edwards_not_ported,
+    mont_point_table,
+    resolve_device,
+    words_to_device,
+)
 
 SCALAR_BITS = 256
-G1 = C.G1Ops()
+G1 = C.G1
 
 
 def batched_scalar_mult(table: torch.Tensor, scalar_words: torch.Tensor):
@@ -53,13 +58,12 @@ def tree_sum(points: torch.Tensor) -> torch.Tensor:
 
 class NaiveMsmEngine:
     """Baseline MSM engine: build_fn() gives the device function, as the
-    JAX class does."""
+    JAX class does.  BLS12-377 only: the Edwards canonical kernels are not
+    ported."""
 
     def __init__(self, curve: CurveId = CurveId.BLS12_377, *, device=None):
         if curve != CurveId.BLS12_377:
-            raise NotImplementedError(
-                "the port runs BLS12-377 G1 only; Edwards is ROADMAP item 1.9"
-            )
+            raise _edwards_not_ported("NaiveMsmEngine")
         self.curve = curve
         self.device = resolve_device(device)
 

@@ -11,13 +11,16 @@ package's models/pippenger.py does.
 from __future__ import annotations
 
 from ..params import CurveId
-from .cuzk import CuzkMsmEngine
+from .cuzk import CuzkMsmEngine, _edwards_not_ported
 
 
 class PippengerMsmEngine(CuzkMsmEngine):
-    """CuzkMsmEngine pinned to smvp_mode="legacy"; same public surface."""
+    """CuzkMsmEngine pinned to smvp_mode="legacy"; same public surface.
+    BLS12-377 only: the Edwards legacy kernel is not ported."""
 
     def __init__(self, curve: CurveId = CurveId.BLS12_377, **kwargs):
+        if curve == CurveId.EDWARDS_BLS12:
+            raise _edwards_not_ported("PippengerMsmEngine")
         kwargs.setdefault("smvp_mode", "legacy")
         if kwargs["smvp_mode"] != "legacy":
             raise ValueError(

@@ -9,7 +9,8 @@
 - window fold: log2(num_threads) shift-reduce adds at a fixed lane shape,
   after which lane 0 of each window holds the window sum.
 The whole reduction stays in the lazy domain and canonicalizes the
-num_windows results once.
+num_windows results once.  It serves both curves: the group (ops/curve.py:
+G1, the default, or EDWARDS) picks the planes and the kernels.
 """
 
 from __future__ import annotations
@@ -20,10 +21,8 @@ import numpy as np
 import torch
 
 from . import curve as C
-from .field import NW
+from .curve import G1
 from .kernels import bpr_add, bpr_double, bpr_masked_add_double, bpr_running_add
-
-ROWS = C.N_COORDS * NW
 
 
 def bpr_order(num_windows: int, chunk_size: int, num_threads: int) -> np.ndarray:
@@ -59,22 +58,24 @@ def reduce_buckets_prearranged(
     num_windows: int,
     chunk_size: int,
     num_threads: int = 256,
+    group=G1,
 ) -> torch.Tensor:
     """Window sums from buckets gathered in bpr_order.
 
-    buckets_bpr: (39, bpt*lanes) canonical plane, column st*lanes + lane =
-    buckets[bpr_order[st, lane]].  Returns the (39, num_windows)
+    buckets_bpr: (39|36, bpt*lanes) canonical plane, column st*lanes +
+    lane = buckets[bpr_order[st, lane]].  Returns the (39|36, num_windows)
     canonical window sums."""
     h = 1 << (chunk_size - 1)
     t_count = min(num_threads, h)
     bpt = h // t_count
     lanes = num_windows * t_count
-    # step-major (bpt, 39, lanes): every step's operand is contiguous
-    steps = buckets_bpr.reshape(ROWS, bpt, lanes).permute(1, 0, 2).contiguous()
+    # step-major (bpt, rows, lanes): every step's operand is contiguous
+    steps = buckets_bpr.reshape(group.rows, bpt, lanes).permute(1, 0, 2)
+    steps = steps.contiguous()
     m = g = steps[0]
     for st in range(1, bpt):
-        m, g = bpr_running_add(m, g, steps[st])
-    return _bpr_stage2_and_fold(m, g, num_windows, t_count, bpt)
+        m, g = bpr_running_add(m, g, steps[st], group)
+    return _bpr_stage2_and_fold(m, g, num_windows, t_count, bpt, group)
 
 
 @functools.lru_cache(maxsize=8)
@@ -105,14 +106,14 @@ def _stage2_consts(num_windows: int, t_count: int, device):
     return bit_table, partners, lane0
 
 
-def _bpr_stage2_and_fold(m, g, num_windows, t_count, bpt):
+def _bpr_stage2_and_fold(m, g, num_windows, t_count, bpt, group):
     """Stage 2 (g += m * s) and the per-window shift-reduce fold."""
     bit_table, partners, lane0 = _stage2_consts(num_windows, t_count, m.device)
     temp = m
     for _ in range(max(bpt.bit_length() - 1, 0)):
-        temp = bpr_double(temp)
+        temp = bpr_double(temp, group)
     for bits in bit_table:
-        g, temp = bpr_masked_add_double(g, temp, bits)
+        g, temp = bpr_masked_add_double(g, temp, bits, group)
     for partner in partners:
-        g = bpr_add(g, g[:, partner].contiguous())
-    return C.merge(C.G1Ops().canon(C.split(g[:, lane0])))
+        g = bpr_add(g, g[:, partner].contiguous(), group)
+    return C.merge(group.canon(group.split(g[:, lane0])))

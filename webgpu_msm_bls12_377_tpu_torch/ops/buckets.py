@@ -96,7 +96,7 @@ def accumulate_buckets(
     num_buckets = plan.starts.shape[0]
     total = plan.sorted_vals.shape[0]
     starts = plan.starts.to(torch.int64)
-    acc = C.merge(C.G1Ops().zero(num_buckets, table.device))
+    acc = C.merge(C.G1.zero(num_buckets, table.device))
     for t in range(num_rounds):
         v = plan.sorted_vals[(starts + t).clamp(max=total - 1)]
         aff = table[:, (v & IDX_MASK).to(torch.int64)]

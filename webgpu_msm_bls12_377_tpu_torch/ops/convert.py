@@ -1,9 +1,10 @@
 """Point coordinate conversion (wire words -> Montgomery words) and packing.
 
-Wire coordinates are little-endian 32-bit words (12 per BLS12-377
-coordinate).  The port's field element is 13 such words (params.py), so
-the repack of the JAX package's limbs_from_u32_words becomes "append one
-zero word", and the Montgomery entry is kernel 1 with y = R^2 mod p.
+Wire coordinates are little-endian 32-bit words: 12 per BLS12-377
+coordinate, 8 per Edwards BLS12 coordinate.  The port's field elements
+are 13 and 9 such words (params.py), so the repack of the JAX package's
+limbs_from_u32_words becomes "append one zero word", and the Montgomery
+entry is kernel 1 with y = R^2 mod p.
 """
 
 from __future__ import annotations
@@ -11,68 +12,76 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..params import BLS12_377_PARAMS
-from .field import NW, P, ints_to_plane
+from ..params import CurveId
+from .field import G1_CTX, NW, FieldCtx, field_ctx, ints_to_plane
 from .kernels import mont_mul_const
 
-#: R_port / R_jax = 2^416 / 2^390: a JAX Montgomery value x*2^390 times
-#: this (mod p) is the port's x*2^416
-_JAX_TO_PORT = pow(2, 26, P)
 JAX_WORD_BITS = 13
-JAX_NUM_WORDS = 30
+#: 13-bit limbs per field element in the JAX package: BLS12-377 30
+#: (R = 2^390), Edwards BLS12 20 (R = 2^260)
+JAX_NUM_WORDS = {CurveId.BLS12_377: 30, CurveId.EDWARDS_BLS12: 20}
 
 
-def limbs_from_u32_words(words: torch.Tensor) -> torch.Tensor:
-    """(..., k, N) LE u32 words (k <= 13, held as int32) -> (..., 13, N)."""
+def limbs_from_u32_words(words: torch.Tensor, nw: int = NW) -> torch.Tensor:
+    """(..., k, N) LE u32 words (k <= nw, held as int32) -> (..., nw, N)."""
     k = words.shape[-2]
     pad = torch.zeros(
-        (*words.shape[:-2], NW - k, words.shape[-1]),
+        (*words.shape[:-2], nw - k, words.shape[-1]),
         dtype=torch.int32, device=words.device,
     )
     return torch.cat([words.to(torch.int32), pad], dim=-2)
 
 
-def u32_words_to_limbs_mont(words: torch.Tensor) -> torch.Tensor:
-    """(g, k, N) wire words of g coordinates -> (g*13, N) Montgomery plane
+def u32_words_to_limbs_mont(words: torch.Tensor,
+                            ctx: FieldCtx = G1_CTX) -> torch.Tensor:
+    """(g, k, N) wire words of g coordinates -> (g*nw, N) Montgomery plane
     (one kernel-1 launch for all g coordinates)."""
-    limbs = limbs_from_u32_words(words)
-    return mont_mul_const(limbs.reshape(-1, limbs.shape[-1]), BLS12_377_PARAMS.r2)
+    limbs = limbs_from_u32_words(words, ctx.nw)
+    return mont_mul_const(limbs.reshape(-1, limbs.shape[-1]), ctx.params.r2,
+                          ctx)
 
 
-def from_jax_limbs(arr, montgomery: bool) -> torch.Tensor:
-    """A JAX-package plane of 30 x 13-bit limbs per field element ->
-    the port's canonical 13 x 32-bit plane.
+def from_jax_limbs(arr, montgomery: bool,
+                   curve: CurveId = CurveId.BLS12_377) -> torch.Tensor:
+    """A JAX-package plane of 13-bit limbs (30 per BLS12-377 element, 20
+    per Edwards element) -> the port's canonical plane (13 or 9 words).
 
-    arr: (k*30, N) unsigned limbs (soft limbs allowed), k field elements
+    arr: (k*w, N) unsigned limbs (soft limbs allowed), k field elements
     stacked per column.  Values are reduced mod p; a Montgomery value
-    x*2^390 becomes x*2^416.  Returns a (k*13, N) int32 plane on the CPU.
+    x*2^(13 w) becomes x*R (R = 2^416 or 2^288).  Returns a (k*nw, N)
+    int32 plane on the CPU.
     """
+    ctx = field_ctx(curve)
+    w, p = JAX_NUM_WORDS[curve], ctx.p
+    # R_port / R_jax: a JAX Montgomery value times this (mod p) is the
+    # port's
+    to_port = pow(2, 32 * ctx.nw - JAX_WORD_BITS * w, p)
     a = np.asarray(arr).astype(np.uint64)
-    k = a.shape[0] // JAX_NUM_WORDS
-    if a.shape[0] != k * JAX_NUM_WORDS:
-        raise ValueError(f"rows {a.shape[0]} not a multiple of {JAX_NUM_WORDS}")
+    k = a.shape[0] // w
+    if a.shape[0] != k * w:
+        raise ValueError(f"rows {a.shape[0]} not a multiple of {w}")
     planes = []
     for c in range(k):
         vals = []
         for j in range(a.shape[1]):
             v = sum(
-                int(a[c * JAX_NUM_WORDS + i, j]) << (JAX_WORD_BITS * i)
-                for i in range(JAX_NUM_WORDS)
-            ) % P
-            vals.append(v * _JAX_TO_PORT % P if montgomery else v)
-        planes.append(ints_to_plane(vals))
+                int(a[c * w + i, j]) << (JAX_WORD_BITS * i) for i in range(w)
+            ) % p
+            vals.append(v * to_port % p if montgomery else v)
+        planes.append(ints_to_plane(vals, nw=ctx.nw))
     return torch.cat(planes, dim=0)
 
 
-def from_jax_rows(rows, num_coords: int, montgomery: bool) -> torch.Tensor:
+def from_jax_rows(rows, num_coords: int, montgomery: bool,
+                  curve: CurveId = CurveId.BLS12_377) -> torch.Tensor:
     """JAX-package row-major point rows -> the port's row-major words.
 
-    rows: (count, >= num_coords*30) limbs, each row num_coords field
-    elements of 30 limbs and then padding (the fused path's wide rows and
+    rows: (count, >= num_coords*w) limbs, each row num_coords field
+    elements of w limbs and then padding (the fused path's wide rows and
     pre-gathered rows; trailing pad rows are the caller's to cut).  Returns
-    (count, num_coords*13) int32, values reduced mod p as from_jax_limbs."""
-    a = np.asarray(rows)[:, : num_coords * JAX_NUM_WORDS]
-    return from_jax_limbs(a.T, montgomery).T.contiguous()
+    (count, num_coords*nw) int32, values reduced mod p as from_jax_limbs."""
+    a = np.asarray(rows)[:, : num_coords * JAX_NUM_WORDS[curve]]
+    return from_jax_limbs(a.T, montgomery, curve).T.contiguous()
 
 
 # ---------------------------------------------------------------------------

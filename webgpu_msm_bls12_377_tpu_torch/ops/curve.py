@@ -1,4 +1,5 @@
-"""BLS12-377 G1 point formulas, lazy and canonical domain, plain PyTorch.
+"""Point formulas, plain PyTorch: BLS12-377 G1 (lazy and canonical
+domain) and Twisted Edwards BLS12 (lazy domain).
 
 Complete projective formulas of Renes-Costello-Batina 2016 (a = 0,
 b3 = 3) in Montgomery form, in the exact operation order of the JAX
@@ -14,6 +15,16 @@ below p and reduce after every field operation.
 
 A point batch is a ProjG1 of three (13, N) int32 planes; kernels take the
 merged (39, N) plane (coordinate c at rows [13c, 13c + 13)).
+
+EdwardsOps: the extended twisted-Edwards hwcd formulas (a = -1, d =
+3021) over the 9-word Edwards field, in the exact operation order of the
+JAX package's ops/curve.py:EdwardsOps lazy forms; a point batch is an
+ExtEd of four (9, N) planes (merged: (36, N)), an affine addend the triple
+(x, y, t = x*y) (merged: (27, N)).  hwcd has no paired-product form.
+
+Both classes carry the vocabulary the kernels' plain forms use: ctx,
+rows / aff_rows, split / split_aff, zero, from_affine, neg_affine,
+add_affine_lazy, add_mixed_lazy, add_lazy, double_lazy, canon, select.
 """
 
 from __future__ import annotations
@@ -22,8 +33,9 @@ from typing import NamedTuple
 
 import torch
 
+from ..params import EDWARDS_D, CurveId
 from . import field as F
-from .field import NW, PARAMS
+from .field import ED_CTX, G1_CTX, NW, PARAMS
 
 #: lazy-domain bound of every point coordinate the formulas hand on
 LAZY_BOUND = 4
@@ -44,13 +56,28 @@ def split(plane: torch.Tensor) -> ProjG1:
 
 
 def merge(pt) -> torch.Tensor:
-    """ProjG1 (or any coordinate tuple) -> merged (k*13, N) plane."""
+    """ProjG1 (or any coordinate tuple) -> merged (k*nw, N) plane."""
     n = max(c.shape[-1] for c in pt)
-    return torch.cat([c.expand(NW, n) for c in pt], dim=0).contiguous()
+    return torch.cat([c.expand(c.shape[0], n) for c in pt],
+                     dim=0).contiguous()
 
 
 class G1Ops:
     """Batched lazy-domain G1 group ops over Montgomery word planes."""
+
+    CURVE = CurveId.BLS12_377
+    ctx = G1_CTX
+    rows = N_COORDS * NW
+    aff_rows = 2 * NW
+
+    @staticmethod
+    def split(plane: torch.Tensor) -> ProjG1:
+        return split(plane)
+
+    @staticmethod
+    def split_aff(plane: torch.Tensor):
+        """Merged (26, N) affine plane -> (x, y)."""
+        return plane[:NW], plane[NW:]
 
     def zero(self, n: int, device=None) -> ProjG1:
         """The point at infinity (0 : 1 : 0), Montgomery form."""
@@ -74,7 +101,7 @@ class G1Ops:
         x, y = aff
         return (x, F.field_neg(y))
 
-    def add_mixed_lazy_pair(self, p1: ProjG1, aff) -> ProjG1:
+    def add_mixed_lazy(self, p1: ProjG1, aff) -> ProjG1:
         """Mixed add: accumulator < 4p, affine addend canonical and not the
         identity; outputs < 2p."""
         mm, mmp, fa = F.mont_mul, F.mont_mul_pair, F.lazy_add
@@ -103,7 +130,7 @@ class G1Ops:
         Z3 = mmp(Z3, t4, t0, t3)              # 14*6 + 6*6 = 120 -> b<=2
         return ProjG1(X3, Y3n, Z3)
 
-    def add_affine_lazy_pair(self, aff1, aff2) -> ProjG1:
+    def add_affine_lazy(self, aff1, aff2) -> ProjG1:
         """Both-affine add (Z1 = Z2 = 1): canonical inputs, outputs < 2p."""
         mm, mmp, fa = F.mont_mul, F.mont_mul_pair, F.lazy_add
         X1, Y1 = aff1  # b<=1
@@ -129,7 +156,7 @@ class G1Ops:
         Z3 = mmp(Z3, t4, t0, t3)              # 42 -> b<=2
         return ProjG1(X3, Y3n, Z3)
 
-    def add_lazy_pair(self, p1: ProjG1, p2: ProjG1) -> ProjG1:
+    def add_lazy(self, p1: ProjG1, p2: ProjG1) -> ProjG1:
         """Full projective add: inputs < 4p, outputs < 2p (closed)."""
         mm, mmp, fa = F.mont_mul, F.mont_mul_pair, F.lazy_add
         X1, Y1, Z1 = p1  # b<=4 each
@@ -246,3 +273,160 @@ class G1Ops:
     def select(mask: torch.Tensor, a, b) -> ProjG1:
         """Lane-wise a where mask (N,) else b."""
         return ProjG1(*(torch.where(mask[None], ca, cb) for ca, cb in zip(a, b)))
+
+
+# ---------------------------------------------------------------------------
+# Twisted Edwards BLS12 (a = -1, d = 3021): unified hwcd formulas
+# ---------------------------------------------------------------------------
+
+
+class ExtEd(NamedTuple):
+    """Extended (X : Y : T : Z) point batch, T = XY/Z; zero is (0 : 1 : 0 : 1)."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    t: torch.Tensor
+    z: torch.Tensor
+
+
+class EdwardsOps:
+    """Batched lazy-domain Edwards group ops over Montgomery word planes.
+
+    Lazy forms (comments: "b<=k", value < k*p): every coordinate handed on
+    is below 2p (LAZY_BOUND), affine addends are canonical.  REDC outputs
+    stay below 2p because R/p ~ 5.9e10 dwarfs every bound product here (at
+    most 48); the largest raw value is 8p < 2^256.  lazy_sub(a, b, k) is
+    a + k*p - b, the same as the JAX package's lazy_sub with its k*p
+    column mod p."""
+
+    CURVE = CurveId.EDWARDS_BLS12
+    ctx = ED_CTX
+    N_COORDS = 4
+    LAZY_BOUND = 2
+    rows = 4 * ED_CTX.nw
+    aff_rows = 3 * ED_CTX.nw
+
+    @staticmethod
+    def split(plane: torch.Tensor) -> ExtEd:
+        """Merged (36, N) plane -> ExtEd of (9, N) views."""
+        nw = ED_CTX.nw
+        return ExtEd(*(plane[c * nw:(c + 1) * nw] for c in range(4)))
+
+    @staticmethod
+    def split_aff(plane: torch.Tensor):
+        """Merged (27, N) affine plane -> (x, y, t)."""
+        nw = ED_CTX.nw
+        return tuple(plane[c * nw:(c + 1) * nw] for c in range(3))
+
+    def _d(self, device) -> torch.Tensor:
+        return ED_CTX.col(EDWARDS_D * ED_CTX.params.r % ED_CTX.p, device)
+
+    def zero(self, n: int, device=None) -> ExtEd:
+        """The identity (0 : 1 : 0 : 1), Montgomery form."""
+        z = torch.zeros((ED_CTX.nw, n), dtype=torch.int32, device=device)
+        one = ED_CTX.col(ED_CTX.params.r, device).expand(ED_CTX.nw, n)
+        return ExtEd(z, one.contiguous(), z.clone(), one.contiguous())
+
+    def from_affine(self, aff) -> ExtEd:
+        x, y, t = aff
+        one = ED_CTX.col(ED_CTX.params.r, x.device).expand_as(x).contiguous()
+        return ExtEd(x, y, t, one)
+
+    @staticmethod
+    def neg_affine(aff):
+        """(x, y, t) -> (-x, y, -t) for canonical x, t."""
+        x, y, t = aff
+        return (F.field_neg(x, ED_CTX), y, F.field_neg(t, ED_CTX))
+
+    def add_mixed_lazy(self, p1: ExtEd, aff) -> ExtEd:
+        """Unified mixed add: accumulator < 2p, affine addend canonical;
+        outputs < 2p."""
+        ctx = ED_CTX
+        mm = lambda u, v: F.mont_mul(u, v, ctx)  # noqa: E731
+        fa = F.lazy_add
+        x2, y2, t2 = aff                      # b<=1
+        a = mm(p1.x, x2)                      # 2 -> b<=2
+        b = mm(p1.y, y2)                      # 2 -> b<=2
+        t1t2 = mm(p1.t, t2)                   # 2 -> b<=2
+        c = mm(self._d(x2.device), t1t2)      # 2 -> b<=2
+        x1y1 = fa(p1.x, p1.y)                 # b<=4
+        x2y2 = fa(x2, y2)                     # b<=2
+        em = mm(x1y1, x2y2)                   # 8 -> b<=2
+        ab = fa(a, b)                         # b<=4
+        e = F.lazy_sub(em, ab, 4, ctx)        # b<=6
+        dd = p1.z                             # b<=2 (z2 = 1)
+        f = F.lazy_sub(dd, c, 2, ctx)         # b<=4
+        g = fa(dd, c)                         # b<=4
+        h = fa(b, a)                          # b<=4
+        return ExtEd(mm(e, f),                # 24 -> b<=2
+                     mm(g, h),                # 16 -> b<=2
+                     mm(e, h),                # 24 -> b<=2
+                     mm(f, g))                # 16 -> b<=2
+
+    def add_affine_lazy(self, aff1, aff2) -> ExtEd:
+        """Both-affine add (tree level 1): add_mixed_lazy seeded with the
+        promoted first addend, as the JAX package's add_affine_lazy."""
+        return self.add_mixed_lazy(self.from_affine(aff1), aff2)
+
+    def add_lazy(self, p1: ExtEd, p2: ExtEd) -> ExtEd:
+        """Unified full add: inputs < 2p, outputs < 2p (closed)."""
+        ctx = ED_CTX
+        mm = lambda u, v: F.mont_mul(u, v, ctx)  # noqa: E731
+        fa = F.lazy_add
+        a = mm(p1.x, p2.x)                    # 4 -> b<=2
+        b = mm(p1.y, p2.y)                    # 4 -> b<=2
+        t1t2 = mm(p1.t, p2.t)                 # 4 -> b<=2
+        c = mm(self._d(a.device), t1t2)       # 2 -> b<=2
+        x1y1 = fa(p1.x, p1.y)                 # b<=4
+        x2y2 = fa(p2.x, p2.y)                 # b<=4
+        em = mm(x1y1, x2y2)                   # 16 -> b<=2
+        ab = fa(a, b)                         # b<=4
+        e = F.lazy_sub(em, ab, 4, ctx)        # b<=6
+        dd = mm(p1.z, p2.z)                   # 4 -> b<=2
+        f = F.lazy_sub(dd, c, 2, ctx)         # b<=4
+        g = fa(dd, c)                         # b<=4
+        h = fa(b, a)                          # b<=4
+        return ExtEd(mm(e, f),                # 24 -> b<=2
+                     mm(g, h),                # 16 -> b<=2
+                     mm(e, h),                # 24 -> b<=2
+                     mm(f, g))                # 16 -> b<=2
+
+    def double_lazy(self, p1: ExtEd) -> ExtEd:
+        """dbl-2008-hwcd (a = -1): input < 2p, outputs < 2p (closed)."""
+        ctx = ED_CTX
+        mm = lambda u, v: F.mont_mul(u, v, ctx)  # noqa: E731
+        fa = F.lazy_add
+        a = mm(p1.x, p1.x)                    # 4 -> b<=2
+        b = mm(p1.y, p1.y)                    # 4 -> b<=2
+        zz = mm(p1.z, p1.z)                   # 4 -> b<=2
+        c = fa(zz, zz)                        # b<=4
+        d = F.lazy_neg(a, 2, ctx)             # 2p - a; b<=2
+        xy = fa(p1.x, p1.y)                   # b<=4
+        e = mm(xy, xy)                        # 16 -> b<=2
+        e = F.lazy_sub(e, fa(a, b), 4, ctx)   # b<=6
+        g = fa(d, b)                          # b<=4
+        f = F.lazy_sub(g, c, 4, ctx)          # b<=8
+        h = F.lazy_sub(d, b, 2, ctx)          # b<=4
+        return ExtEd(mm(e, f),                # 48 -> b<=2
+                     mm(g, h),                # 16 -> b<=2
+                     mm(e, h),                # 24 -> b<=2
+                     mm(f, g))                # 32 -> b<=2
+
+    def canon(self, p: ExtEd) -> ExtEd:
+        """Lazy point (coords < 2p) -> canonical coords: one conditional
+        subtract of p each."""
+        return ExtEd(*(F.field_canon(c, self.LAZY_BOUND, ED_CTX) for c in p))
+
+    @staticmethod
+    def select(mask: torch.Tensor, a, b) -> ExtEd:
+        """Lane-wise a where mask (N,) else b."""
+        return ExtEd(*(torch.where(mask[None], ca, cb) for ca, cb in zip(a, b)))
+
+
+G1 = G1Ops()
+EDWARDS = EdwardsOps()
+
+
+def group_ops(curve: CurveId):
+    """The group ops of a curve (the JAX package's group_ops)."""
+    return G1 if curve == CurveId.BLS12_377 else EDWARDS

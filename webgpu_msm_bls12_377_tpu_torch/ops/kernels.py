@@ -1,10 +1,13 @@
 """CUDA kernel build, loading and launch accounting; the lane-wise
-kernels: 1 (constant product), 4 (lazy BPR family), 6 (legacy SMVP round)
-and 7 (canonical add, double-and-add step, running-sum step).
+kernels: 1 (constant product, and the Edwards lane-wise product), 4 (lazy
+BPR family), 6 (legacy SMVP round) and 7 (canonical add, double-and-add
+step, running-sum step).
 
 Every kernel source under csrc/ is compiled by nvcc for sm_90a into a
-shared library with a plain C interface, loaded with ctypes.  The build
-runs at first use, one nvcc per source, all started together, into
+shared library with a plain C interface, loaded with ctypes; the sources
+of ED_SOURCES are compiled a second time with -DMSM_CURVE_ED, for the
+Edwards field and curve (libmsm_<source>_ed.so).  The build runs at first
+use, one nvcc per library, all started together, into
 <repo>/build/kernels/<hash of the sources>/ (listed in .gitignore), so a
 fresh checkout builds everything the first time a kernel launches and a
 changed source never reuses a stale library.  Importing this module
@@ -14,7 +17,9 @@ Every wrapper takes the plain PyTorch form of its kernel when its tensors
 lie on the CPU, launches the kernel on PyTorch's current stream when they
 lie on a CUDA device, and raises otherwise; it adds one to
 ``launches[name]`` for every kernel launch, so a run can show which
-kernels it went through.
+kernels it went through.  Wrappers of kernels built for both curves take
+the group (ops/curve.py: G1, the default, or EDWARDS) or the field; an
+Edwards launch counts under the name with "_ed" appended.
 """
 
 from __future__ import annotations
@@ -34,12 +39,18 @@ import torch
 
 from . import curve as C
 from . import field as F
-from .field import NW
+from .curve import G1
+from .field import ED_CTX, G1_CTX, NW, FieldCtx
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("convert", "tree", "packed", "bpr", "stream", "legacy", "canon",
            "fused")
+#: sources built a second time for Edwards: the rows on its main path
+ED_SOURCES = ("convert", "tree", "packed", "bpr", "stream")
+#: every library: (library name, source, extra nvcc flags)
+LIBRARIES = tuple((s, s, ()) for s in SOURCES) + tuple(
+    (s + ED_CTX.tag, s, ("-DMSM_CURVE_ED",)) for s in ED_SOURCES)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -84,6 +95,8 @@ _ARGTYPES = {
         "msm_fused_buckets": [_P, _P, _P, _P, _I64, _P],
     },
 }
+_ARGTYPES.update({s + ED_CTX.tag: dict(_ARGTYPES[s]) for s in ED_SOURCES})
+_ARGTYPES["convert" + ED_CTX.tag]["msm_mont_mul_lanes"] = [_P, _P, _P, _I64, _P]
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -111,22 +124,23 @@ def _build_dir() -> Path:
 
 
 def build_all() -> tuple[Path, float]:
-    """Compile every kernel source that has no library yet, in parallel.
+    """Compile every library that is not built yet, in parallel.
 
-    Returns (build directory, seconds spent compiling).  Each source's
+    Returns (build directory, seconds spent compiling).  Each library's
     compiler output (ptxas registers and spills per kernel) is kept
-    beside its library as <source>.log."""
+    beside it as <library>.log."""
     out_dir = _build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = []
-    for name in SOURCES:
+    for name, source, flags in LIBRARIES:
         lib = out_dir / f"libmsm_{name}.so"
         if lib.exists():
             continue
         tmp = out_dir / f"libmsm_{name}.so.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp),
+               str(CSRC / f"{source}.cu")]
         procs.append((name, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
@@ -148,7 +162,7 @@ def _lib(source: str) -> ctypes.CDLL:
         lib = _libs.get(source)
         if lib is None:
             out_dir, _ = build_all()
-            for name in SOURCES:
+            for name, _, _ in LIBRARIES:
                 cdll = ctypes.CDLL(str(out_dir / f"libmsm_{name}.so"))
                 cdll.msm_error_string.argtypes = [_INT]
                 cdll.msm_error_string.restype = ctypes.c_char_p
@@ -160,14 +174,14 @@ def _lib(source: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(source: str, fn: str, name: str, threads: int, *args) -> None:
+def launch(library: str, fn: str, name: str, threads: int, *args) -> None:
     """Call entry point fn of a kernel library with the current stream
     appended; raise on a nonzero launch status; count the launch.  With
     no threads to run the entry point launches nothing, so it is neither
     called nor counted."""
     if threads == 0:
         return
-    lib = _lib(source)
+    lib = _lib(library)
     stream = torch.cuda.current_stream().cuda_stream
     code = getattr(lib, fn)(*args, stream)
     if code != 0:
@@ -208,116 +222,144 @@ def check_plane(t: torch.Tensor, rows: int, cols: int | None = None) -> int:
 # ---------------------------------------------------------------------------
 
 
-def mont_mul_const_plain(a: torch.Tensor, y: int) -> torch.Tensor:
-    """(g*13, N) plane of g stacked field planes -> REDC(a * y) mod p
+def mont_mul_const_plain(a: torch.Tensor, y: int,
+                         ctx: FieldCtx = G1_CTX) -> torch.Tensor:
+    """(g*nw, N) plane of g stacked field planes -> REDC(a * y) mod p
     each (canonical: REDC(a * y) < 2p for y < p)."""
-    g = a.shape[0] // NW
-    out = F.mont_mul(a.reshape(g, NW, -1).transpose(0, 1).reshape(NW, -1),
-                     F.const_col(y, a.device))
-    out = F.field_canon(out, 2)
-    return out.reshape(NW, g, -1).transpose(0, 1).reshape(g * NW, -1)
+    nw = ctx.nw
+    g = a.shape[0] // nw
+    out = F.mont_mul_canon(
+        a.reshape(g, nw, -1).transpose(0, 1).reshape(nw, -1),
+        ctx.col(y, a.device), ctx)
+    return out.reshape(nw, g, -1).transpose(0, 1).reshape(g * nw, -1)
 
 
-def mont_mul_const(a: torch.Tensor, y: int) -> torch.Tensor:
-    """REDC(a * y) mod p lane-wise over a (g*13, N) plane, for a constant
+def mont_mul_const(a: torch.Tensor, y: int,
+                   ctx: FieldCtx = G1_CTX) -> torch.Tensor:
+    """REDC(a * y) mod p lane-wise over a (g*nw, N) plane, for a constant
     y < p: y = R^2 mod p enters the Montgomery domain (to_mont), y = 1
     leaves it (from_mont).  Outputs are canonical."""
-    if not 0 <= y < F.P:
+    nw = ctx.nw
+    if not 0 <= y < ctx.p:
         raise ValueError("the constant must be a canonical residue")
-    if a.shape[0] % NW:
-        raise ValueError(f"rows {a.shape[0]} not a multiple of {NW}")
+    if a.shape[0] % nw:
+        raise ValueError(f"rows {a.shape[0]} not a multiple of {nw}")
     if not on_cuda(a):
-        return mont_mul_const_plain(a, y)
+        return mont_mul_const_plain(a, y, ctx)
     n = a.shape[1]
     out = torch.empty_like(a)
     y_words = np.array(
-        [(y >> (32 * i)) & 0xFFFFFFFF for i in range(NW)], dtype=np.uint32
+        [(y >> (32 * i)) & 0xFFFFFFFF for i in range(nw)], dtype=np.uint32
     )
     launch(
-        "convert", "msm_mont_mul_const", "mont_mul_const", a.numel() // NW,
-        a.data_ptr(), out.data_ptr(), y_words.ctypes.data,
-        a.shape[0] // NW, n,
+        "convert" + ctx.tag, "msm_mont_mul_const", "mont_mul_const" + ctx.tag,
+        a.numel() // nw, a.data_ptr(), out.data_ptr(), y_words.ctypes.data,
+        a.shape[0] // nw, n,
     )
     return out
 
 
+def mont_mul_lanes_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return F.mont_mul_canon(a, b, ED_CTX)
+
+
+def mont_mul_lanes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """REDC(a * b) mod p lane-wise over two canonical (9, N) Edwards
+    planes: the Edwards table's t = x*y at point prep (built into the
+    Edwards library of csrc/convert.cu only)."""
+    n = check_plane(a, ED_CTX.nw)
+    check_plane(b, ED_CTX.nw, n)
+    if not on_cuda(a, b):
+        return mont_mul_lanes_plain(a, b)
+    out = torch.empty_like(a)
+    tag = ED_CTX.tag
+    launch("convert" + tag, "msm_mont_mul_lanes", "mont_mul_lanes" + tag, n,
+           a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Kernel 4: the BPR family on (39, L) lazy projective planes
+# Kernel 4: the BPR family on lazy projective planes ((39, L) G1, (36, L)
+# Edwards)
 # ---------------------------------------------------------------------------
 
-G1 = C.G1Ops()
 ROWS = C.N_COORDS * NW
 AFF_ROWS = 2 * NW
 
 
-def running_add_plain(m, g, b):
-    m2 = G1.add_lazy_pair(C.split(m), C.split(b))
-    g2 = G1.add_lazy_pair(C.split(g), m2)
+def running_add_plain(m, g, b, group=G1):
+    m2 = group.add_lazy(group.split(m), group.split(b))
+    g2 = group.add_lazy(group.split(g), m2)
     return C.merge(m2), C.merge(g2)
 
 
-def double_plain(a):
-    return C.merge(G1.double_lazy(C.split(a)))
+def double_plain(a, group=G1):
+    return C.merge(group.double_lazy(group.split(a)))
 
 
-def masked_add_double_plain(r, t, bits):
-    added = G1.add_lazy_pair(C.split(r), C.split(t))
-    res = G1.select(bits != 0, added, C.split(r))
-    return C.merge(res), C.merge(G1.double_lazy(C.split(t)))
+def masked_add_double_plain(r, t, bits, group=G1):
+    added = group.add_lazy(group.split(r), group.split(t))
+    res = group.select(bits != 0, added, group.split(r))
+    return C.merge(res), C.merge(group.double_lazy(group.split(t)))
 
 
-def add_plain(a, b):
-    return C.merge(G1.add_lazy_pair(C.split(a), C.split(b)))
+def add_plain(a, b, group=G1):
+    return C.merge(group.add_lazy(group.split(a), group.split(b)))
 
 
-def bpr_running_add(m, g, b):
+def bpr_running_add(m, g, b, group=G1):
     """One BPR stage-1 step: (m + b, g + (m + b))."""
-    n = check_plane(m, ROWS)
+    n = check_plane(m, group.rows)
     for t in (g, b):
-        check_plane(t, ROWS, n)
+        check_plane(t, group.rows, n)
     if not on_cuda(m, g, b):
-        return running_add_plain(m, g, b)
+        return running_add_plain(m, g, b, group)
     m2, g2 = torch.empty_like(m), torch.empty_like(g)
-    launch("bpr", "msm_bpr_running_add", "bpr_running_add", n,
+    tag = group.ctx.tag
+    launch("bpr" + tag, "msm_bpr_running_add", "bpr_running_add" + tag, n,
            m.data_ptr(), g.data_ptr(), b.data_ptr(), m2.data_ptr(),
            g2.data_ptr(), n)
     return m2, g2
 
 
-def bpr_double(a):
+def bpr_double(a, group=G1):
     """Lazy doubling of every lane."""
-    n = check_plane(a, ROWS)
+    n = check_plane(a, group.rows)
     if not on_cuda(a):
-        return double_plain(a)
+        return double_plain(a, group)
     out = torch.empty_like(a)
-    launch("bpr", "msm_bpr_double", "bpr_double", n,
+    tag = group.ctx.tag
+    launch("bpr" + tag, "msm_bpr_double", "bpr_double" + tag, n,
            a.data_ptr(), out.data_ptr(), n)
     return out
 
 
-def bpr_masked_add_double(r, t, bits):
+def bpr_masked_add_double(r, t, bits, group=G1):
     """One double-and-add step: (bit ? r + t : r, 2t); bits (L,) int32."""
-    n = check_plane(r, ROWS)
-    check_plane(t, ROWS, n)
+    n = check_plane(r, group.rows)
+    check_plane(t, group.rows, n)
     if bits.shape != (n,):
         raise ValueError(f"bits must be ({n},), got {tuple(bits.shape)}")
     if not on_cuda(r, t, bits):
-        return masked_add_double_plain(r, t, bits)
+        return masked_add_double_plain(r, t, bits, group)
     r2, t2 = torch.empty_like(r), torch.empty_like(t)
-    launch("bpr", "msm_bpr_masked_add_double", "bpr_masked_add_double", n,
+    tag = group.ctx.tag
+    launch("bpr" + tag, "msm_bpr_masked_add_double",
+           "bpr_masked_add_double" + tag, n,
            r.data_ptr(), t.data_ptr(), bits.data_ptr(), r2.data_ptr(),
            t2.data_ptr(), n)
     return r2, t2
 
 
-def bpr_add(a, b):
+def bpr_add(a, b, group=G1):
     """Lazy full add of every lane."""
-    n = check_plane(a, ROWS)
-    check_plane(b, ROWS, n)
+    n = check_plane(a, group.rows)
+    check_plane(b, group.rows, n)
     if not on_cuda(a, b):
-        return add_plain(a, b)
+        return add_plain(a, b, group)
     out = torch.empty_like(a)
-    launch("bpr", "msm_bpr_add", "bpr_add", n,
+    tag = group.ctx.tag
+    launch("bpr" + tag, "msm_bpr_add", "bpr_add" + tag, n,
            a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
     return out
 

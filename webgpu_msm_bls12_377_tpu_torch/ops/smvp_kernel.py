@@ -29,7 +29,7 @@ from .buckets import IDX_MASK, SIGN_BIT
 from .field import NW
 from .kernels import AFF_ROWS, ROWS, check_plane, launch, on_cuda
 
-G1 = C.G1Ops()
+G1 = C.G1
 ROW_WORDS = 32
 #: bucket lanes of one kernel block and rows of one DMA tile on the TPU;
 #: the *_supported policies keep them

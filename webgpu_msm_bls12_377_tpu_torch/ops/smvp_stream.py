@@ -7,7 +7,10 @@ sits beside buckets of similar length.  Kernels 3 and 5 give every real
 bucket one thread in that rank order; the sum it writes lands in column
 w*h + rank of a block-ordered plane that permute_buckets reorders.
 Kernel 5 (accumulate_buckets_streamed) sums a bucket's signed table
-points, kernel 3 (packed_finish) its level-K tree nodes.
+points, kernel 3 (packed_finish) its level-K tree nodes.  Every function
+here serves both curves: it takes the group (ops/curve.py: G1, the
+default, or EDWARDS), whose planes are (26|39, .) for G1 and (27|36, .)
+for Edwards.
 
 The JAX package streams 256-lane slabs through a sequential grid, whose
 slab maps live in the TPU's SMEM and cap the slab count
@@ -22,13 +25,10 @@ from typing import NamedTuple
 import torch
 
 from . import curve as C
-from . import field as F
 from .buckets import IDX_MASK, SIGN_BIT
-from .field import NW
-from .kernels import AFF_ROWS, check_plane, launch, on_cuda
+from .curve import G1
+from .kernels import check_plane, launch, on_cuda
 
-G1 = C.G1Ops()
-ROWS = C.N_COORDS * NW
 #: lanes of one slab on the TPU; stream_supported keeps its policy
 TPU_SLAB_LANES = 256
 
@@ -40,24 +40,23 @@ def stream_supported(chunk_size: int) -> bool:
     return (1 << (chunk_size - 1)) % TPU_SLAB_LANES == 0
 
 
-def build_signed_table(table: torch.Tensor) -> torch.Tensor:
-    """(26, N) Montgomery affine (x; y) plane -> (26, 2N) signed table:
-    columns [0, N) hold (x, y), columns [N, 2N) hold (x, -y).  One table
-    serves the stream kernel and tree level 1."""
-    check_plane(table, AFF_ROWS)
-    x, y = table[:NW], table[NW:]
-    return torch.cat(
-        [table, torch.cat([x, F.field_neg(y)], dim=0)], dim=1
-    ).contiguous()
+def build_signed_table(table: torch.Tensor, group=G1) -> torch.Tensor:
+    """Montgomery affine table -> signed table of twice the columns:
+    columns [0, N) hold the points, columns [N, 2N) their negatives
+    (G1: (26, N) (x; y) -> (x, -y); Edwards: (27, N) (x; y; t) ->
+    (-x, y, -t)).  One table serves the stream kernel and tree level 1."""
+    check_plane(table, group.aff_rows)
+    neg = C.merge(group.neg_affine(group.split_aff(table)))
+    return torch.cat([table, neg], dim=1).contiguous()
 
 
-def signed_rows(table: torch.Tensor, sorted_vals: torch.Tensor, i):
-    """Affine (x, y) of sorted-stream entries i from the signed table."""
+def signed_rows(table: torch.Tensor, sorted_vals: torch.Tensor, i, group=G1):
+    """Affine coordinates of sorted-stream entries i from the signed
+    table."""
     n = table.shape[1] // 2
     v = sorted_vals[i].to(torch.int64)
     col = (v & IDX_MASK) + torch.where(((v >> SIGN_BIT) & 1) == 1, 0, n)
-    cols = table[:, col]
-    return cols[:NW], cols[NW:]
+    return group.split_aff(table[:, col])
 
 
 class StreamLayout(NamedTuple):
@@ -95,38 +94,43 @@ def accumulate_buckets_streamed_plain(
     sorted_vals: torch.Tensor,
     starts_rk: torch.Tensor,
     lens_rk: torch.Tensor,
+    group=G1,
 ) -> torch.Tensor:
     """Plain form of kernel 5 on (B,) rank-order starts/lens."""
     starts = starts_rk.to(torch.int64)
     lens = lens_rk.to(torch.int64)
-    acc = G1.zero(starts.shape[0], signed_table.device)
+    acc = group.zero(starts.shape[0], signed_table.device)
     max_len = int(lens.max()) if lens.numel() else 0
     for t in range(max_len):
         live = t < lens
         idx = torch.where(live, starts + t, 0)
-        new = G1.add_mixed_lazy_pair(
-            acc, signed_rows(signed_table, sorted_vals, idx)
+        new = group.add_mixed_lazy(
+            acc, signed_rows(signed_table, sorted_vals, idx, group)
         )
-        acc = G1.select(live, new, acc)
-    return C.merge(G1.canon(acc))
+        acc = group.select(live, new, acc)
+    return C.merge(group.canon(acc))
 
 
 def accumulate_buckets_streamed(
-    signed_table: torch.Tensor, sorted_vals: torch.Tensor, layout: StreamLayout
+    signed_table: torch.Tensor, sorted_vals: torch.Tensor,
+    layout: StreamLayout, group=G1,
 ) -> torch.Tensor:
-    """(26, 2N) signed table, sorted entry stream -> (39, B) canonical
-    bucket sums, column r the bucket of rank r (layout order): per bucket,
-    the lazy mixed-add sum, from the identity, of its entries' signed
-    points in stream order.  Any bucket length and any chunk size run."""
-    check_plane(signed_table, AFF_ROWS)
+    """Signed table ((26|27, 2N)), sorted entry stream -> (39|36, B)
+    canonical bucket sums, column r the bucket of rank r (layout order):
+    per bucket, the lazy mixed-add sum, from the identity, of its entries'
+    signed points in stream order.  Any bucket length and any chunk size
+    run."""
+    check_plane(signed_table, group.aff_rows)
     starts, lens = layout.starts_rk, layout.lens_rk
     if not on_cuda(signed_table, sorted_vals, starts, lens):
         return accumulate_buckets_streamed_plain(
-            signed_table, sorted_vals, starts, lens
+            signed_table, sorted_vals, starts, lens, group
         )
     nb = starts.shape[0]
-    out = torch.empty((ROWS, nb), dtype=torch.int32, device=signed_table.device)
-    launch("stream", "msm_stream_buckets", "stream_buckets", nb,
+    out = torch.empty((group.rows, nb), dtype=torch.int32,
+                      device=signed_table.device)
+    tag = group.ctx.tag
+    launch("stream" + tag, "msm_stream_buckets", "stream_buckets" + tag, nb,
            signed_table.data_ptr(), signed_table.shape[1] // 2,
            sorted_vals.data_ptr(), starts.data_ptr(), lens.data_ptr(),
            out.data_ptr(), nb)
@@ -139,48 +143,51 @@ def accumulate_buckets_streamed(
 
 
 def packed_finish_plain(
-    plane: torch.Tensor, starts_rk: torch.Tensor, lens_rk: torch.Tensor
+    plane: torch.Tensor, starts_rk: torch.Tensor, lens_rk: torch.Tensor,
+    group=G1,
 ) -> torch.Tensor:
     """Plain form of kernel 3 on (B,) rank-order starts/lens."""
     starts = starts_rk.to(torch.int64)
     lens = lens_rk.to(torch.int64)
-    acc = G1.zero(starts.shape[0], plane.device)
+    acc = group.zero(starts.shape[0], plane.device)
     max_len = int(lens.max()) if lens.numel() else 0
     for t in range(max_len):
         live = t < lens
         idx = torch.where(live, starts + t, 0)
-        new = G1.add_lazy_pair(acc, C.split(plane[:, idx]))
-        acc = G1.select(live, new, acc)
-    return C.merge(G1.canon(acc))
+        new = group.add_lazy(acc, group.split(plane[:, idx]))
+        acc = group.select(live, new, acc)
+    return C.merge(group.canon(acc))
 
 
-def packed_finish(plane: torch.Tensor, layout: StreamLayout) -> torch.Tensor:
-    """(39, T_K) level-K plane -> (39, B) canonical bucket sums, column r
-    the bucket of rank r (layout order)."""
-    check_plane(plane, ROWS)
+def packed_finish(plane: torch.Tensor, layout: StreamLayout,
+                  group=G1) -> torch.Tensor:
+    """(39|36, T_K) level-K plane -> (39|36, B) canonical bucket sums,
+    column r the bucket of rank r (layout order)."""
+    check_plane(plane, group.rows)
     starts, lens = layout.starts_rk, layout.lens_rk
     if not on_cuda(plane, starts, lens):
-        return packed_finish_plain(plane, starts, lens)
+        return packed_finish_plain(plane, starts, lens, group)
     nb = starts.shape[0]
-    out = torch.empty((ROWS, nb), dtype=torch.int32, device=plane.device)
-    launch("packed", "msm_packed_finish", "packed_finish", nb,
+    out = torch.empty((group.rows, nb), dtype=torch.int32, device=plane.device)
+    tag = group.ctx.tag
+    launch("packed" + tag, "msm_packed_finish", "packed_finish" + tag, nb,
            plane.data_ptr(), plane.shape[1], starts.data_ptr(),
            lens.data_ptr(), out.data_ptr(), nb)
     return out
 
 
 def permute_buckets(
-    blocks: torch.Tensor, layout: StreamLayout, order=None
+    blocks: torch.Tensor, layout: StreamLayout, order=None, group=G1
 ) -> torch.Tensor:
-    """Block-ordered (39, B) plane -> window-major buckets, or
+    """Block-ordered (39|36, B) plane -> window-major buckets, or
     buckets[order.reshape(-1)] when order (an array or tensor, e.g.
     ops/bpr.py:bpr_order) is given: one column gather.  Empty buckets
-    become the identity."""
+    become the group's identity."""
     perm = layout.perm.to(torch.int64)
     if order is not None:
         perm = perm[torch.as_tensor(order, device=perm.device).reshape(-1)
                     .to(torch.int64)]
     sel = blocks[:, perm]
     nonempty = layout.lens_rk[perm] > 0
-    zero = G1.zero(1, blocks.device)
-    return C.merge(G1.select(nonempty, C.split(sel), zero))
+    zero = group.zero(1, blocks.device)
+    return C.merge(group.select(nonempty, group.split(sel), zero))

@@ -21,6 +21,9 @@ nodes are computed and never read.
 
 The pure tree's level count is ceil(log2(longest bucket)): the one value
 its caller reads back from the device (TreePlan.max_len).
+
+The plans are the same for both curves; the levels, the tree and the
+permute take the group (ops/curve.py: G1, the default, or EDWARDS).
 """
 
 from __future__ import annotations
@@ -31,10 +34,9 @@ import numpy as np
 import torch
 
 from . import curve as C
-from .field import NW
+from .curve import G1
 from .kernels import check_plane, launch, on_cuda
 from .smvp_stream import (
-    AFF_ROWS,
     StreamLayout,
     build_stream_layout,
     packed_finish,
@@ -44,9 +46,6 @@ from .smvp_stream import (
 FLAG_INVALID = 1 << 29
 FLAG_SINGLE = 1 << 30
 CHILD_MASK = FLAG_INVALID - 1
-
-G1 = C.G1Ops()
-ROWS = C.N_COORDS * NW
 
 
 def extend_with_phantom(
@@ -175,7 +174,7 @@ def build_hybrid_plan(
 
 
 def tree_level_plain(
-    arr_in, level_map, mode: str, last: bool, sorted_vals=None
+    arr_in, level_map, mode: str, last: bool, sorted_vals=None, group=G1
 ) -> torch.Tensor:
     """Plain form of kernel 2 (same arguments as run_tree_level)."""
     m = level_map.to(torch.int64)
@@ -185,18 +184,18 @@ def tree_level_plain(
     # a pair's second child exists; for others read A twice (unused)
     b = torch.where(invalid | single, a, a + 1)
     if mode == "aff":
-        aff_a = signed_rows(arr_in, sorted_vals, a)
-        aff_b = signed_rows(arr_in, sorted_vals, b)
-        res = G1.add_affine_lazy_pair(aff_a, aff_b)
-        alt = G1.from_affine(aff_a)
+        aff_a = signed_rows(arr_in, sorted_vals, a, group)
+        aff_b = signed_rows(arr_in, sorted_vals, b, group)
+        res = group.add_affine_lazy(aff_a, aff_b)
+        alt = group.from_affine(aff_a)
     else:
-        pa = C.split(arr_in[:, a])
-        res = G1.add_lazy_pair(pa, C.split(arr_in[:, b]))
+        pa = group.split(arr_in[:, a])
+        res = group.add_lazy(pa, group.split(arr_in[:, b]))
         alt = pa
-    out = G1.select(single, alt, res)
-    out = G1.select(invalid, G1.zero(m.shape[0], m.device), out)
+    out = group.select(single, alt, res)
+    out = group.select(invalid, group.zero(m.shape[0], m.device), out)
     if last:
-        out = G1.canon(out)
+        out = group.canon(out)
     return C.merge(out)
 
 
@@ -206,50 +205,56 @@ def run_tree_level(
     mode: str,
     last: bool = False,
     sorted_vals: torch.Tensor | None = None,
+    group=G1,
 ) -> torch.Tensor:
-    """One tree level -> (39, len(level_map)) packed lazy node plane.
+    """One tree level -> (39|36, len(level_map)) packed lazy node plane.
 
-    mode "aff": arr_in is the (26, 2N) signed table and sorted_vals the
+    mode "aff": arr_in is the (26|27, 2N) signed table and sorted_vals the
     sorted entry stream the map points into.  mode "full": arr_in is the
-    previous level's (39, T) plane.  last canonicalizes the outputs."""
+    previous level's (39|36, T) plane.  last canonicalizes the outputs."""
     t_out = level_map.shape[0]
     if mode == "aff":
-        check_plane(arr_in, AFF_ROWS)
+        check_plane(arr_in, group.aff_rows)
         ops = (arr_in, level_map, sorted_vals)
     elif mode == "full":
-        check_plane(arr_in, ROWS)
+        check_plane(arr_in, group.rows)
         ops = (arr_in, level_map)
     else:
         raise ValueError(f"unknown tree level mode {mode!r}")
     if not on_cuda(*ops):
-        return tree_level_plain(arr_in, level_map, mode, last, sorted_vals)
-    out = torch.empty((ROWS, t_out), dtype=torch.int32, device=arr_in.device)
+        return tree_level_plain(arr_in, level_map, mode, last, sorted_vals,
+                                group)
+    out = torch.empty((group.rows, t_out), dtype=torch.int32,
+                      device=arr_in.device)
+    tag = group.ctx.tag
     if mode == "aff":
-        launch("tree", "msm_tree_level_aff", "tree_level_aff", t_out,
-               arr_in.data_ptr(), arr_in.shape[1] // 2,
+        launch("tree" + tag, "msm_tree_level_aff", "tree_level_aff" + tag,
+               t_out, arr_in.data_ptr(), arr_in.shape[1] // 2,
                sorted_vals.data_ptr(), level_map.data_ptr(), out.data_ptr(),
                t_out, int(last))
     else:
-        launch("tree", "msm_tree_level_full", "tree_level_full", t_out,
-               arr_in.data_ptr(), arr_in.shape[1], level_map.data_ptr(),
+        launch("tree" + tag, "msm_tree_level_full", "tree_level_full" + tag,
+               t_out, arr_in.data_ptr(), arr_in.shape[1], level_map.data_ptr(),
                out.data_ptr(), t_out, int(last))
     return out
 
 
-def _tree_levels(tree_table, sorted_vals, level_map1, lens, levels, canon):
+def _tree_levels(tree_table, sorted_vals, level_map1, lens, levels, canon,
+                 group):
     """Tree levels 1..levels over the phantom-extended lens; canon
     canonicalizes the last level.  Returns (plane, packed offsets S_levels)."""
     kn = sorted_vals.shape[0]
     caps = level_caps(kn, lens.shape[0], levels)
     lvl = run_tree_level(tree_table, level_map1, "aff",
-                         last=canon and levels == 1, sorted_vals=sorted_vals)
+                         last=canon and levels == 1, sorted_vals=sorted_vals,
+                         group=group)
     c_prev, s_prev = chain_counts(lens, 1)
     for k in range(2, levels + 1):
         c_k = (c_prev + 1) >> 1
         s_k = torch.cumsum(c_k, 0) - c_k
         level_map = build_level_map(s_prev, c_prev, s_k, c_k, caps[k - 1])
         lvl = run_tree_level(lvl, level_map, "full",
-                             last=canon and k == levels)
+                             last=canon and k == levels, group=group)
         c_prev, s_prev = c_k, s_k
     return lvl, s_prev
 
@@ -259,13 +264,14 @@ def tree_smvp_hybrid(
     sorted_vals: torch.Tensor,
     plan: HybridPlan,
     k_levels: int,
+    group=G1,
 ) -> torch.Tensor:
     """Tree levels 1..k_levels, then the packed finish.  Returns the
-    (39, B) block-ordered canonical bucket plane (one column per real
+    (39|36, B) block-ordered canonical bucket plane (one column per real
     bucket, length-sorted rank order; see permute_buckets)."""
     lvl, _ = _tree_levels(tree_table, sorted_vals, plan.level_map1, plan.lens,
-                          k_levels, canon=False)
-    return packed_finish(lvl, plan.layout)
+                          k_levels, canon=False, group=group)
+    return packed_finish(lvl, plan.layout, group)
 
 
 def tree_smvp(
@@ -273,25 +279,28 @@ def tree_smvp(
     sorted_vals: torch.Tensor,
     plan: TreePlan,
     levels: int,
+    group=G1,
 ):
     """The pure tree: levels >= num_levels(longest bucket) pairwise levels,
-    the last canonical.  Returns (final, s_fin): the (39, T) packed plane
+    the last canonical.  Returns (final, s_fin): the (39|36, T) packed plane
     and the (B_e,) column of each bucket's sum in it (valid where the
     bucket is not empty; phantom-extended, see real_bucket_view)."""
     return _tree_levels(tree_table, sorted_vals, plan.level_map1, plan.lens,
-                        levels, canon=True)
+                        levels, canon=True, group=group)
 
 
 def permute_tree(
-    final: torch.Tensor, s_fin: torch.Tensor, lens: torch.Tensor, order=None
+    final: torch.Tensor, s_fin: torch.Tensor, lens: torch.Tensor, order=None,
+    group=G1,
 ) -> torch.Tensor:
     """Packed tree output -> window-major buckets, or buckets[order] when
     order (e.g. ops/bpr.py:bpr_order) is given: one column gather of the
-    real buckets' s_fin / lens.  Empty buckets become the identity."""
+    real buckets' s_fin / lens.  Empty buckets become the group's
+    identity."""
     mask = lens > 0
     idx = torch.where(mask, s_fin.to(torch.int64), 0)
     if order is not None:
         o = torch.as_tensor(order, device=idx.device).reshape(-1).to(torch.int64)
         idx, mask = idx[o], mask[o]
-    zero = G1.zero(1, final.device)
-    return C.merge(G1.select(mask, C.split(final[:, idx]), zero))
+    zero = group.zero(1, final.device)
+    return C.merge(group.select(mask, group.split(final[:, idx]), zero))

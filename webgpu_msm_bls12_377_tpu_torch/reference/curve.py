@@ -1,9 +1,10 @@
-"""Plain-bigint BLS12-377 G1 oracle (short Weierstrass y^2 = x^3 + 1).
+"""Plain-bigint oracles: BLS12-377 G1 (short Weierstrass y^2 = x^3 + 1)
+and Twisted Edwards BLS12 (a = -1, d = 3021).
 
 The subset of the JAX package's reference/curve.py that the port needs:
-projective add-2002-bj / dbl-2007-bl, double-and-add scalar
-multiplication and the affine conversion.  Points live in the plain
-field domain.
+G1 projective add-2002-bj / dbl-2007-bl, Edwards extended add-2008-hwcd /
+dbl-2008-hwcd, double-and-add scalar multiplication and the affine
+conversions.  Points live in the plain field domain.
 """
 
 from __future__ import annotations
@@ -14,9 +15,14 @@ from ..params import (
     BLS12_377_BASE_FIELD,
     BLS12_377_G1_GENERATOR_X,
     BLS12_377_G1_GENERATOR_Y,
+    EDWARDS_BLS12_BASE_FIELD,
+    EDWARDS_D,
+    EDWARDS_GENERATOR_X,
+    EDWARDS_GENERATOR_Y,
 )
 
 P = BLS12_377_BASE_FIELD
+Q = EDWARDS_BLS12_BASE_FIELD
 
 
 @dataclass(frozen=True)
@@ -124,4 +130,87 @@ def g1_eq(p1: ProjectivePoint, p2: ProjectivePoint) -> bool:
     return (
         (p1.x * p2.z - p2.x * p1.z) % P == 0
         and (p1.y * p2.z - p2.y * p1.z) % P == 0
+    )
+
+
+# ---------------------------------------------------------------------------
+# Twisted Edwards BLS12: a x^2 + y^2 = 1 + d x^2 y^2 with a = -1, d = 3021
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ExtendedPoint:
+    """Extended twisted Edwards coordinates (X : Y : T : Z), T = XY/Z."""
+
+    x: int
+    y: int
+    t: int
+    z: int
+
+
+ED_ZERO = ExtendedPoint(0, 1, 0, 1)
+ED_GENERATOR = ExtendedPoint(
+    EDWARDS_GENERATOR_X,
+    EDWARDS_GENERATOR_Y,
+    (EDWARDS_GENERATOR_X * EDWARDS_GENERATOR_Y) % Q,
+    1,
+)
+
+
+def ed_from_affine(x: int, y: int) -> ExtendedPoint:
+    return ExtendedPoint(x % Q, y % Q, (x * y) % Q, 1)
+
+
+def ed_neg(pt: ExtendedPoint) -> ExtendedPoint:
+    return ExtendedPoint((-pt.x) % Q, pt.y, (-pt.t) % Q, pt.z)
+
+
+def ed_add(p1: ExtendedPoint, p2: ExtendedPoint) -> ExtendedPoint:
+    """Unified extended addition, add-2008-hwcd, complete for a = -1."""
+    a = (p1.x * p2.x) % Q
+    b = (p1.y * p2.y) % Q
+    c = (EDWARDS_D * p1.t * p2.t) % Q
+    d = (p1.z * p2.z) % Q
+    e = ((p1.x + p1.y) * (p2.x + p2.y) - a - b) % Q
+    f = (d - c) % Q
+    g = (d + c) % Q
+    h = (b + a) % Q  # b - a*a_curve with a_curve = -1
+    return ExtendedPoint((e * f) % Q, (g * h) % Q, (e * h) % Q, (f * g) % Q)
+
+
+def ed_double(p1: ExtendedPoint) -> ExtendedPoint:
+    """Extended doubling, dbl-2008-hwcd (a = -1)."""
+    a = (p1.x * p1.x) % Q
+    b = (p1.y * p1.y) % Q
+    c = (2 * p1.z * p1.z) % Q
+    d = (-a) % Q
+    e = ((p1.x + p1.y) * (p1.x + p1.y) - a - b) % Q
+    g = (d + b) % Q
+    f = (g - c) % Q
+    h = (d - b) % Q
+    return ExtendedPoint((e * f) % Q, (g * h) % Q, (e * h) % Q, (f * g) % Q)
+
+
+def ed_scalar_mult(pt: ExtendedPoint, k: int) -> ExtendedPoint:
+    if k < 0:
+        return ed_scalar_mult(ed_neg(pt), -k)
+    result = ED_ZERO
+    addend = pt
+    while k:
+        if k & 1:
+            result = ed_add(result, addend)
+        addend = ed_double(addend)
+        k >>= 1
+    return result
+
+
+def ed_to_affine(pt: ExtendedPoint) -> tuple[int, int]:
+    zinv = pow(pt.z % Q, Q - 2, Q)
+    return ((pt.x * zinv) % Q, (pt.y * zinv) % Q)
+
+
+def ed_eq(p1: ExtendedPoint, p2: ExtendedPoint) -> bool:
+    return (
+        (p1.x * p2.z - p2.x * p1.z) % Q == 0
+        and (p1.y * p2.z - p2.y * p1.z) % Q == 0
     )

@@ -27,6 +27,14 @@ G1 = Group(
     eq=crv.g1_eq,
 )
 
+EDWARDS = Group(
+    zero=crv.ED_ZERO,
+    add=crv.ed_add,
+    neg=crv.ed_neg,
+    scalar_mult=crv.ed_scalar_mult,
+    eq=crv.ed_eq,
+)
+
 
 def naive_msm(points: Sequence[Any], scalars: Sequence[int], group: Group = G1):
     """Ground-truth sum of k_i * P_i."""
