@@ -6,12 +6,13 @@
 Phases, each of which fails the run on any error:
   1. the card's name and power limit (nvidia-smi), and the build of every
      kernel library with nvcc: each source under
-     webgpu_msm_bls12_377_tpu_torch/csrc/ for BLS12-377, and the five on
-     Edwards' path (convert, tree, packed, bpr, stream) again with
-     -DMSM_CURVE_ED for Twisted Edwards BLS12;
+     webgpu_msm_bls12_377_tpu_torch/csrc/ for BLS12-377 and again with
+     -DMSM_CURVE_ED for Twisted Edwards BLS12 (16 libraries, 29 entry
+     points);
   2. every kernel entry point, both curves, against its plain PyTorch form
-     on random inputs of a few thousand lanes (and a small real plan for
-     the tree, finish, stream and fused kernels): bit-exact equality;
+     on random inputs of a few thousand lanes (identity, equal and inverse
+     operands among the canonical family's), and on a small real plan for
+     the tree, finish, stream and fused kernels: bit-exact equality;
   3. every path through the entry points a user calls, on the
      distinct-point bench cases held against the pinned goldens in
      test-data/goldens.json: compute_msm with default options at 2^10 and
@@ -26,15 +27,18 @@ Phases, each of which fails the run on any error:
      2^20 (tree) against the pinned batch goldens and of 4 sets at 2^17
      (stream) against compute_msm per set, each with PyTorch's sync debug
      mode raising on any wait for the device between sets.  Edwards:
-     compute_msm_edwards at 2^16, 2^17 (stream), 2^18 and 2^20 (hybrid
-     tree), the pure tree forced at 2^18 and a batch of 8 sets at 2^20,
-     against the edwards_bls12 goldens.  Cold time,
+     compute_msm_edwards with default options at the same six sizes, the
+     2^14 case forced through legacy, Pippenger, naive and the chain at
+     2^16, the pure tree forced at 2^18 and a batch of 8 sets at 2^20,
+     against the edwards_bls12 goldens from 2^16 and below that against
+     msm_oracle ((sum of s_i k_i mod r) * G for the bench points k_i * G),
+     which first reproduces the 2^16 golden.  Cold time,
      median of 3 warm runs, and each kernel's launches in one run (counts
      zeroed just before, read just after); every path must launch the
      kernels it names, and together the paths cover every kernel;
   4. one more run of each path (2^20 tree, 2^17 stream, 2^16 legacy, 2^16
-     naive, the chain, 2^10 and forced 2^16 fused, 2^18 pure tree, Edwards
-     2^20 tree and 2^17 stream) in
+     naive, the chain, 2^10 and forced 2^16 fused, 2^18 pure tree; Edwards
+     2^20 tree, 2^17 stream, 2^16 legacy, naive and chain, 2^10 fused) in
      which every kernel launch is timed with CUDA events and repeated
      with its plain form on the same inputs, which must agree bit for
      bit: per-kernel time, plain time and the bound (least time for the
@@ -45,14 +49,13 @@ Phases, each of which fails the run on any error:
      (hundreds at the 2^10 default shape, 8,188 at 2^14's), each round
      replayed from a CUDA graph; phase 2 holds both replays against the
      plain forms run eagerly;
-  5. one more 2^20, 2^17, 2^16, 2^14 and Edwards 2^20 MSM with every
-     engine stage fenced
-     and timed, and one more 2^20 batch fenced as shared prep, per-set
-     stages, and readback with Horner; the engine's host-to-device copy
-     of the 2^20 words beside one plain .to(device); with --profile, also
-     torch.profiler over one 2^20 (both curves), 2^17, 2^14, Pippenger and
-     naive run
-     and one batch: the device's busy and idle share and the ops that
+  5. one more 2^20, 2^17, 2^16, 2^14, Edwards 2^20 and Edwards 2^14 MSM
+     with every engine stage fenced and timed, and one more 2^20 batch
+     fenced as shared prep, per-set stages, and readback with Horner; the
+     engine's host-to-device copy of the 2^20 words beside one plain
+     .to(device); with --profile, also torch.profiler over one 2^20 (both
+     curves), 2^17, 2^14 (both curves), Pippenger and naive (both curves)
+     run and one batch: the device's busy and idle share and the ops that
      take the most device time.
 Then three lines: the per-kernel JSON record, the card's name and power
 limit as nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -80,34 +83,35 @@ sys.path.insert(0, ROOT)
 PEAK_BYTES = 3.35e12
 PEAK_MULS = 67e12 / 2
 MM, MMP = 2 * 13 * 13, 3 * 13 * 13  # word products: Montgomery product, pair
-ADD_AFF = 4 * MM + 3 * MMP  # G1 add_affine_lazy (paired products)
-ADD_FULL = 6 * MM + 3 * MMP  # G1 add_lazy
-ADD_MIXED = 5 * MM + 3 * MMP  # G1 add_mixed_lazy
-DBL = 8 * MM  # double_lazy, and the canonical double
-ADD_CANON, ADD_MIXED_CANON = 12 * MM, 11 * MM  # canonical add, add_mixed
-PT = 39 * 4  # bytes of one projective point
-AFF = 26 * 4  # bytes of one affine point
 MM_ED = 2 * 9 * 9  # an Edwards (9-word) Montgomery product
-#: word products and bytes of the lazy forms, by kernel-name suffix: G1 ""
-#: (RCB with paired products), Edwards "_ed" (hwcd: mixed and affine add 9
+#: word products and bytes by kernel-name suffix: G1 "" (RCB; lazy forms
+#: with paired products: affine add 4 products and 3 pairs, full add 6 and
+#: 3, mixed add 5 and 3; canonical add 12 products, mixed add 11, double
+#: 8), Edwards "_ed" (hwcd: lazy and canonical mixed and affine add 9
 #: products, full add 10, double 8; 4 coordinates a point, 3 an addend).
-#: cw: the words a coordinate must move.  Edwards values stay below 8p <
-#: 2^256, so 8 of the plane's 9 words (the ninth is always zero); G1's 13
-#: are counted as before, though values below 20p < 2^382 need 12
+#: cw: the words a coordinate must move: values stay below 20p < 2^382
+#: (G1) and 8p < 2^256 (Edwards), so 12 of G1's 13 words and 8 of
+#: Edwards' 9 (the top word is always zero); pt and aff bytes count cw
+#: words a coordinate
 WORK = {
-    "": dict(mm=MM, add_aff=ADD_AFF, add_full=ADD_FULL, add_mixed=ADD_MIXED,
-             dbl=DBL, pt=PT, aff=AFF, cw=13),
+    "": dict(mm=MM, add_aff=4 * MM + 3 * MMP, add_full=6 * MM + 3 * MMP,
+             add_mixed=5 * MM + 3 * MMP, dbl=8 * MM, add_canon=12 * MM,
+             add_mixed_canon=11 * MM, dbl_canon=8 * MM, pt=3 * 48, aff=2 * 48,
+             cw=12),
     "_ed": dict(mm=MM_ED, add_aff=9 * MM_ED, add_full=10 * MM_ED,
-                add_mixed=9 * MM_ED, dbl=8 * MM_ED, pt=4 * 32, aff=3 * 32,
-                cw=8),
+                add_mixed=9 * MM_ED, dbl=8 * MM_ED, add_canon=10 * MM_ED,
+                add_mixed_canon=9 * MM_ED, dbl_canon=8 * MM_ED, pt=4 * 32,
+                aff=3 * 32, cw=8),
 }
 BENCH = ((10, 4), (14, 4), (16, 15), (17, 15), (18, 15), (20, 16))  # (power, chunk)
-ED_BENCH = ((16, 15), (17, 15), (18, 15), (20, 16))  # Edwards: n >= 2^16
-ROW = 32 * 4  # bytes of one pre-gathered row of the fused path
+#: bytes the fused kernel loads of one pre-gathered row: seven 16-byte
+#: loads (the first 28 of its 32 words), either curve
+ROW = 7 * 16
 BATCH_SETS, STREAM_BATCH_SETS = 8, 4
 FORCED_CHUNK = 15  # the forced fused run: the Pippenger row's shapes at 2^16
 FORCED_14 = (9, 13)  # stream chunks forced at 2^14, beside the default's 4
 DEV = "cuda"
+ED = "edwards_bls12"
 START = time.perf_counter()
 
 KERNELS = {
@@ -142,12 +146,10 @@ KERNELS = {
                       "webgpu_msm_bls12_377_tpu/ops/smvp_kernel.py:223"),
 }
 BPR = ("bpr_running_add", "bpr_double", "bpr_masked_add_double", "bpr_add")
-# the Edwards builds (-DMSM_CURVE_ED) of the sources on Edwards' main path,
-# and the lane-wise product of its point prep (t = x*y: an XLA product in
-# the JAX package, outside any Pallas kernel)
-KERNELS.update({f"{k}_ed": KERNELS[k] for k in (
-    "mont_mul_const", "tree_level_aff", "tree_level_full", "packed_finish",
-    *BPR, "stream_buckets")})
+# the Edwards build (-DMSM_CURVE_ED) of every source, and the lane-wise
+# product of its point prep (t = x*y: an XLA product in the JAX package,
+# outside any Pallas kernel)
+KERNELS.update({f"{k}_ed": KERNELS[k] for k in list(KERNELS)})
 KERNELS["mont_mul_lanes_ed"] = ("webgpu_msm_bls12_377_tpu_torch/csrc/convert.cu",
                                 "webgpu_msm_bls12_377_tpu/models/cuzk.py:166")
 BPR_ED = tuple(k + "_ed" for k in BPR)
@@ -182,9 +184,20 @@ PATHS = {
     "ed_stream": ("stream_buckets_ed", *PREP_ED, *BPR_ED),
     "ed_pure_tree": ("tree_level_aff_ed", "tree_level_full_ed", *PREP_ED,
                      *BPR_ED),
+    # Edwards on the G1 shapes above: Pippenger and naive at 2^16, the
+    # chain, the default fused path at 2^10 and 2^14 (the kernel's row from
+    # 2^10), and the 2^14 case forced through legacy
+    "ed_legacy": ("masked_add_mixed_ed", *PREP_ED, *BPR_ED),
+    "ed_naive": ("masked_add_and_double_ed", "fused_add_ed", *PREP_ED),
+    "ed_running_sum": ("fused_running_add_ed", "bpr_running_add_ed"),
+    "ed_fused_10": ("fused_buckets_ed", *PREP_ED, "bpr_masked_add_double_ed",
+                    "bpr_add_ed"),
 }
 PATHS["batch_tree"], PATHS["batch_stream"] = PATHS["tree"], PATHS["stream"]
 PATHS["ed_batch_tree"] = PATHS["ed_tree"]
+PATHS["ed_fused"] = PATHS["ed_fused_10"]
+PATHS["ed_legacy_14"] = ("masked_add_mixed_ed", *PREP_ED,
+                         "bpr_masked_add_double_ed", "bpr_add_ed")
 HOME = {k: path for path in reversed(PATHS) for k in PATHS[path]}
 
 
@@ -309,72 +322,101 @@ def lazy_kernel_cases(rng, group, n=4096):
     return cases, table, plan, npts, windows
 
 
-def check_kernels_random() -> None:
-    """Phase 2: every entry point against its plain form, bit-exact."""
+def edge_lanes(group, a, b):
+    """b with lane 0 the identity, lane 1 equal to a's and lane 2 a's
+    inverse: the operands a complete add must take."""
+    from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
+
+    b = b.clone()
+    b[:, 0] = C.merge(group.zero(1, a.device))[:, 0]
+    b[:, 1] = a[:, 1]
+    b[:, 2] = C.merge(group.neg(group.split(a[:, 2:3])))[:, 0]
+    return b
+
+
+def canonical_kernel_cases(rng, group, table, plan, npts, windows, n=4096):
+    """Phase 2 for kernels 6, 7 and 8 of one curve: the fused SMVP on the
+    small real plan of lazy_kernel_cases (empty, short and long buckets),
+    in one launch and window by window, then on hand-made segments over
+    random rows (empty, length 1, long, overlapping); the legacy round and
+    the canonical family on random canonical lanes, identity, equal and
+    inverse operands among them."""
     import torch
 
-    from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
     from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
     from webgpu_msm_bls12_377_tpu_torch.ops import smvp_kernel as SK
-    from webgpu_msm_bls12_377_tpu_torch.ops.field import P
 
-    rng = random.Random("chip-smoke-kernels")
-    n = 4096
-    cases, table, plan, npts, windows = lazy_kernel_cases(rng, C.G1, n)
-    ed_cases, *_ = lazy_kernel_cases(random.Random("chip-smoke-kernels-ed"),
-                                     C.EDWARDS, n)
-    cases += ed_cases
-    bits = torch.randint(0, 2, (n,), dtype=torch.int32,
-                         generator=torch.Generator().manual_seed(1)).to(DEV)
-    # fused segment SMVP: the same plan (empty, short and long buckets),
-    # in one launch and window by window, then hand-made segments over
-    # random rows: empty, length 1, long, overlapping
-    wide = SK.make_wide_rows(table[:, :npts].contiguous())
-    gathered = SK.pregather_signed(wide, plan.sorted_vals)
+    ctx, tag = group.ctx, group.ctx.tag
+    nw, p = ctx.nw, ctx.p
+    cases = []
+    wide = SK.make_wide_rows(table[:, :npts].contiguous(), group)
+    gathered = SK.pregather_signed(wide, plan.sorted_vals, group)
     if int(plan.lens.min()) != 0 or int(plan.lens.max()) <= 64:
         raise SystemExit("the fused plan lacks an empty or a long bucket")
-    want = SK.accumulate_buckets_fused_plain(gathered, plan.starts, plan.lens)
-    cases.append(("fused_buckets", SK.accumulate_buckets_fused(
-        gathered, plan.starts, plan.lens), want))
-    cases.append(("fused_buckets", SK.accumulate_buckets_windowed(
-        wide, plan.sorted_vals, plan.starts, plan.lens, windows), want))
+    want = SK.accumulate_buckets_fused_plain(gathered, plan.starts, plan.lens,
+                                             group)
+    name = "fused_buckets" + tag
+    cases.append((name, SK.accumulate_buckets_fused(
+        gathered, plan.starts, plan.lens, group), want))
+    cases.append((name, SK.accumulate_buckets_windowed(
+        wide, plan.sorted_vals, plan.starts, plan.lens, windows, group), want))
     rrows = torch.zeros((600, SK.ROW_WORDS), dtype=torch.int32, device=DEV)
-    rrows[:, :26] = rand_plane(rng, 26, 600, P).T
+    rrows[:, :group.aff_rows] = rand_plane(rng, group.aff_rows, 600, p, nw).T
     rlens = [0, 1, 2, 65, 0, 33, 1, 100] + [rng.randrange(9) for _ in range(992)]
     rstarts = [rng.randrange(600 - l + 1) for l in rlens]
     rstarts, rlens = (torch.tensor(v, dtype=torch.int32, device=DEV)
                       for v in (rstarts, rlens))
-    cases.append(("fused_buckets",
-                  SK.accumulate_buckets_fused(rrows, rstarts, rlens),
-                  SK.accumulate_buckets_fused_plain(rrows, rstarts, rlens)))
+    cases.append((name, SK.accumulate_buckets_fused(rrows, rstarts, rlens, group),
+                  SK.accumulate_buckets_fused_plain(rrows, rstarts, rlens,
+                                                    group)))
     # the plain form as phase 4 runs it (its round replayed from a CUDA
     # graph) against the plain form run eagerly
-    cases.append(("fused_buckets",
-                  fused_plain_graphed(gathered, plan.starts, plan.lens), want))
+    cases.append((name, fused_plain_graphed(gathered, plan.starts, plan.lens,
+                                            group), want))
     # canonical kernels: operands below p
-    ca, cg, cb = (rand_plane(rng, 39, n, P) for _ in range(3))
-    aff = rand_plane(rng, 26, n, P)
-    valid = torch.randint(0, 2, (n,), dtype=torch.int32,
-                          generator=torch.Generator().manual_seed(2)).to(DEV)
+    ca, cg, cb = (rand_plane(rng, group.rows, n, p, nw) for _ in range(3))
+    cg, cb = edge_lanes(group, ca, cg), edge_lanes(group, ca, cb)
+    aff = rand_plane(rng, group.aff_rows, n, p, nw)
+    bits, valid = (torch.randint(0, 2, (n,), dtype=torch.int32,
+                                 generator=torch.Generator().manual_seed(seed))
+                   .to(DEV) for seed in (1, 2))
     pairs = [
-        ("masked_add_mixed", K.masked_add_mixed(ca, aff, bits, valid),
-         K.masked_add_mixed_plain(ca, aff, bits, valid)),
-        ("fused_add", K.fused_add(ca, cb), K.fused_add_plain(ca, cb)),
-        ("masked_add_and_double", K.masked_add_and_double(ca, cg, bits),
-         K.masked_add_and_double_plain(ca, cg, bits)),
-        ("fused_running_add", K.fused_running_add(ca, cg, cb),
-         K.fused_running_add_plain(ca, cg, cb)),
+        ("masked_add_mixed", K.masked_add_mixed(ca, aff, bits, valid, group),
+         K.masked_add_mixed_plain(ca, aff, bits, valid, group)),
+        ("fused_add", K.fused_add(ca, cb, group),
+         K.fused_add_plain(ca, cb, group)),
+        ("masked_add_and_double", K.masked_add_and_double(ca, cg, bits, group),
+         K.masked_add_and_double_plain(ca, cg, bits, group)),
+        ("fused_running_add", K.fused_running_add(ca, cg, cb, group),
+         K.fused_running_add_plain(ca, cg, cb, group)),
     ]
     for name, got, want in pairs:
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         for x, y in zip(got, want):
-            cases.append((name, x, y))
+            cases.append((name + tag, x, y))
+    return cases
+
+
+def check_kernels_random() -> None:
+    """Phase 2: every entry point against its plain form, bit-exact, both
+    curves."""
+    import torch
+
+    from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
+
+    cases = []
+    for group, seed in ((C.G1, "chip-smoke-kernels"),
+                        (C.EDWARDS, "chip-smoke-kernels-ed")):
+        rng = random.Random(seed)
+        lazy, table, plan, npts, windows = lazy_kernel_cases(rng, group)
+        cases += lazy + canonical_kernel_cases(rng, group, table, plan, npts,
+                                               windows)
     torch.cuda.synchronize()
     bad = []
     for name, got, want in cases:
         err = max_abs_err(got, want)
-        log(f"  kernel {name:24s} {tuple(got.shape)} vs plain: "
+        log(f"  kernel {name:27s} {tuple(got.shape)} vs plain: "
             f"max_abs_err {err}")
         if err:
             bad.append(name)
@@ -383,26 +425,28 @@ def check_kernels_random() -> None:
         raise SystemExit(f"kernel mismatch: {bad}, untested: {set(KERNELS) - seen}")
 
 
-def fused_plain_graphed(gathered, starts, lens):
+def fused_plain_graphed(gathered, starts, lens, group=None):
     """accumulate_buckets_fused_plain with its round (smvp_kernel.fused_round,
-    ~5,000 small PyTorch ops) captured once in a CUDA graph and replayed
-    once per entry of the longest bucket: the same plain ops on the same
-    operands in the same order, without the host's cost per op, which at
-    the 8,188 rounds of the 2^14 default shape is 12 minutes."""
+    thousands of small PyTorch ops) captured once in a CUDA graph and
+    replayed once per entry of the longest bucket: the same plain ops on the
+    same operands in the same order, without the host's cost per op, which
+    at the 8,188 rounds of the 2^14 default shape is 12 minutes (G1)."""
     import torch
 
     from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
     from webgpu_msm_bls12_377_tpu_torch.ops import smvp_kernel as SK
 
+    group = group or C.G1
     starts, lens = starts.to(torch.int64), lens.to(torch.int64)
     rounds = int(lens.max()) if lens.numel() else 0
-    acc = [c.clone() for c in SK.G1.zero(starts.shape[0], gathered.device)]
+    zero = group.zero(starts.shape[0], gathered.device)
+    acc = type(zero)(*(c.clone() for c in zero))
     t = torch.zeros((), dtype=torch.int64, device=gathered.device)
     if not rounds:
         return C.merge(acc)
 
     def step():
-        new = SK.fused_round(C.ProjG1(*acc), gathered, starts, lens, t)
+        new = SK.fused_round(acc, gathered, starts, lens, t, group)
         for a, b in zip(acc, new):
             a.copy_(b)
         t.add_(1)
@@ -417,7 +461,7 @@ def fused_plain_graphed(gathered, starts, lens):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         step()
-    for a, z in zip(acc, SK.G1.zero(starts.shape[0], gathered.device)):
+    for a, z in zip(acc, zero):
         a.copy_(z)
     t.zero_()
     for _ in range(rounds):
@@ -575,7 +619,9 @@ def bench_case(power: int, curve: str = "bls12_377"):
     random.Random(f"bench-{power}-{curve}") (drawn in bulk by
     randrange_words), ks below the curve's subgroup order, points k_i * G
     computed on the card with kernel 4's double-and-add (the curve's
-    build) and made affine there by batch_inverse."""
+    build) and made affine there by batch_inverse.  Returns the point
+    words (2, 12|8, n), the scalar words (8, n) and the ks' words (8, n)
+    (msm_oracle's input)."""
     import numpy as np
     import torch
 
@@ -616,7 +662,8 @@ def bench_case(power: int, curve: str = "bls12_377"):
     # plane's 13 or 9 zero below p
     cw = 12 if group is C.G1 else 8
     point_words = aff.cpu().numpy().view(np.uint32).reshape(2, nw, n)[:, :cw]
-    return np.ascontiguousarray(point_words), scalars
+    ks = kw.cpu().numpy().astype(np.uint32)
+    return np.ascontiguousarray(point_words), scalars, ks
 
 
 def batch_scalars(power: int, num_sets: int, curve: str = "bls12_377"):
@@ -683,25 +730,38 @@ def batch_msm(pw, sws, curve=None):
         return eng.compute_msm_batch(pw, sws)
 
 
-def pippenger_msm(pw, sw):
+def pippenger_msm(pw, sw, curve="bls12_377"):
     from webgpu_msm_bls12_377_tpu_torch.models import PippengerMsmEngine
+    from webgpu_msm_bls12_377_tpu_torch.params import CurveId
 
-    return PippengerMsmEngine().compute_msm(pw, sw)
+    return PippengerMsmEngine(CurveId(curve)).compute_msm(pw, sw)
 
 
-def naive_msm(pw, sw):
-    """NaiveMsmEngine's device function, then the affine result."""
-    from webgpu_msm_bls12_377_tpu_torch.models import NaiveMsmEngine
+def to_affine(plane, curve, lane=0):
+    """Lane of a canonical (39|36, n) plane (Montgomery or plain: the
+    scale cancels) -> the oracle's affine {"x", "y"}."""
     from webgpu_msm_bls12_377_tpu_torch.ops import field as F
     from webgpu_msm_bls12_377_tpu_torch.reference import curve as ocurve
 
-    out = NaiveMsmEngine().build_fn()(pw, sw)
-    x, y = ocurve.g1_to_affine(ocurve.ProjectivePoint(
-        *(F.plane_to_ints(out[c * 13:(c + 1) * 13])[0] for c in range(3))))
+    nw = 13 if curve == "bls12_377" else 9
+    coords = [F.plane_to_ints(plane[c * nw:(c + 1) * nw, lane:lane + 1])[0]
+              for c in range(plane.shape[0] // nw)]
+    if curve == "bls12_377":
+        x, y = ocurve.g1_to_affine(ocurve.ProjectivePoint(*coords))
+    else:
+        x, y = ocurve.ed_to_affine(ocurve.ExtendedPoint(*coords))
     return {"x": x, "y": y}
 
 
-def running_sum_chain(pw, steps=8):
+def naive_msm(pw, sw, curve="bls12_377"):
+    """NaiveMsmEngine's device function, then the affine result."""
+    from webgpu_msm_bls12_377_tpu_torch.models import NaiveMsmEngine
+    from webgpu_msm_bls12_377_tpu_torch.params import CurveId
+
+    return to_affine(NaiveMsmEngine(CurveId(curve)).build_fn()(pw, sw), curve)
+
+
+def running_sum_chain(pw, curve="bls12_377", steps=8):
     """`steps` canonical running-sum steps (fused_running_add) over all
     points of a case, from the identity, with b_t the table rolled by t
     lanes; the lazy running add on the same operands must give the same
@@ -713,42 +773,71 @@ def running_sum_chain(pw, steps=8):
         words_to_device,
     )
     from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
-    from webgpu_msm_bls12_377_tpu_torch.ops import field as F
     from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
-    from webgpu_msm_bls12_377_tpu_torch.reference import curve as ocurve
+    from webgpu_msm_bls12_377_tpu_torch.params import CurveId
 
-    g1 = C.G1
-    table = mont_point_table(words_to_device(pw, torch.device(DEV)))
-    pts = C.merge(g1.from_affine((table[:13], table[13:])))
-    m = g = lm = lg = C.merge(g1.zero(pts.shape[1], DEV))
+    group = C.group_ops(CurveId(curve))
+    table = mont_point_table(words_to_device(pw, torch.device(DEV)), group)
+    pts = C.merge(group.from_affine(group.split_aff(table)))
+    m = g = lm = lg = C.merge(group.zero(pts.shape[1], DEV))
     for t in range(steps):
         b = torch.roll(pts, t, dims=1).contiguous()
-        m, g = K.fused_running_add(m, g, b)
-        lm, lg = K.bpr_running_add(lm, lg, b)
-    lazy = C.merge(g1.canon(C.split(lg)))
+        m, g = K.fused_running_add(m, g, b, group)
+        lm, lg = K.bpr_running_add(lm, lg, b, group)
+    lazy = C.merge(group.canon(group.split(lg)))
     if not torch.equal(g, lazy):
         raise SystemExit("running-sum chain: canonical and lazy forms differ")
     # Montgomery coordinates are the plain ones scaled by R: the same
     # projective point
-    x, y = ocurve.g1_to_affine(ocurve.ProjectivePoint(
-        *(F.plane_to_ints(g[c * 13:(c + 1) * 13, :1])[0] for c in range(3))))
-    return {"x": x, "y": y}
+    return to_affine(g, curve)
 
 
-def running_sum_oracle(pw, steps=8):
+def running_sum_oracle(pw, curve="bls12_377", steps=8):
     """Lane 0 of running_sum_chain with Python integers: step t adds point
     (-t mod n) to m and m to g, so g = sum_t (steps - t) * P[-t]."""
     from webgpu_msm_bls12_377_tpu_torch.reference import curve as ocurve
 
+    g1 = curve == "bls12_377"
+    from_affine, add, mult, to_aff, zero = (
+        (ocurve.g1_from_affine, ocurve.g1_add, ocurve.g1_scalar_mult,
+         ocurve.g1_to_affine, ocurve.G1_ZERO) if g1 else
+        (ocurve.ed_from_affine, ocurve.ed_add, ocurve.ed_scalar_mult,
+         ocurve.ed_to_affine, ocurve.ED_ZERO))
+
     def point(i):
-        return ocurve.g1_from_affine(*(
+        return from_affine(*(
             sum(int(w) << (32 * j) for j, w in enumerate(pw[c, :, i]))
             for c in range(2)))
 
-    g = ocurve.G1_ZERO
+    g = zero
     for t in range(steps):
-        g = ocurve.g1_add(g, ocurve.g1_scalar_mult(point(-t), steps - t))
-    x, y = ocurve.g1_to_affine(g)
+        g = add(g, mult(point(-t), steps - t))
+    x, y = to_aff(g)
+    return {"x": x, "y": y}
+
+
+def words_to_ints(words):
+    """(8, n) uint32 words -> n Python ints."""
+    return sum(words[i].astype(object) << (32 * i)
+               for i in range(words.shape[0])).tolist()
+
+
+def msm_oracle(sw, ks, curve):
+    """The bench case's MSM with Python integers: its points are k_i * G,
+    so the sum of s_i * P_i is (sum of s_i k_i mod r) * G, r the order of
+    G: n multiply-adds and one scalar multiplication."""
+    from webgpu_msm_bls12_377_tpu_torch import params as PP
+    from webgpu_msm_bls12_377_tpu_torch.reference import curve as ocurve
+
+    if curve == "bls12_377":
+        order, mult, gen, to_aff = (PP.SCALAR_FIELD, ocurve.g1_scalar_mult,
+                                    ocurve.G1_GENERATOR, ocurve.g1_to_affine)
+    else:
+        order, mult, gen, to_aff = (PP.EDWARDS_SUBGROUP_CHARACTERISTIC,
+                                    ocurve.ed_scalar_mult, ocurve.ED_GENERATOR,
+                                    ocurve.ed_to_affine)
+    total = sum(a * b for a, b in zip(words_to_ints(sw), words_to_ints(ks)))
+    x, y = to_aff(mult(gen, total % order))
     return {"x": x, "y": y}
 
 
@@ -804,7 +893,8 @@ def main_paths(goldens):
     auto = CuzkMsmEngine()
     for power, chunk in BENCH:
         t0 = time.perf_counter()
-        pw, sw = inputs[power] = bench_case(power)
+        pw, sw, _ = bench_case(power)
+        inputs[power] = pw, sw
         log(f"  2^{power}: bench inputs built on the card in "
             f"{time.perf_counter() - t0:.1f} s")
         want = golden(f"{power}:bench-{power}")
@@ -878,11 +968,14 @@ def main_paths(goldens):
 
 def edwards_paths(goldens, counts, medians):
     """Phase 3 for Twisted Edwards BLS12: compute_msm_edwards at the
-    default policy's stream (2^16, 2^17) and hybrid-tree (2^18, 2^20)
-    sizes, the pure tree forced at 2^18, and compute_msm_batch of 8 sets
-    at 2^20, against the pinned edwards_bls12 goldens.  Returns the inputs
-    by power and the batch's scalar sets; adds to counts and medians by
-    path."""
+    default policy's fused (2^10, 2^14), stream (2^16, 2^17) and
+    hybrid-tree (2^18, 2^20) sizes; the 2^14 case forced through legacy;
+    PippengerMsmEngine, NaiveMsmEngine and the running-sum chain at 2^16;
+    the pure tree forced at 2^18; compute_msm_batch of 8 sets at 2^20.
+    From 2^16 the results are held against the pinned edwards_bls12
+    goldens; below, where none is pinned, against msm_oracle, which first
+    reproduces the 2^16 golden.  Returns the inputs by power and the
+    batch's scalar sets; adds to counts and medians by path."""
     from webgpu_msm_bls12_377_tpu_torch import compute_msm_edwards
     from webgpu_msm_bls12_377_tpu_torch.models.cuzk import CuzkMsmEngine
     from webgpu_msm_bls12_377_tpu_torch.ops.decompose import choose_chunk_size
@@ -894,30 +987,50 @@ def edwards_paths(goldens, counts, medians):
         x_hex, y_hex = goldens[f"edwards_bls12:{key}"][:2]
         return {"x": int(x_hex, 16), "y": int(y_hex, 16)}
 
-    def run(path, label, fn, args, want):
-        counts[path], medians[path] = drive(label, path, fn, args, want)
+    def run(path, label, fn, args, want, **kw):
+        counts[path], medians[path] = drive(label, path, fn, args, want, **kw)
 
     auto = CuzkMsmEngine(ed)
-    inputs = {}
-    for power, chunk in ED_BENCH:
+    inputs, cases = {}, {}
+    for power, _ in BENCH:
         t0 = time.perf_counter()
-        pw, sw = inputs[power] = bench_case(power, ed.value)
+        cases[power] = bench_case(power, ED)
+        inputs[power] = cases[power][:2]
         log(f"  Edwards 2^{power}: bench inputs built on the card in "
             f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if msm_oracle(*cases[16][1:], ED) != golden("16:bench-16"):
+        raise SystemExit("Edwards: the oracle misses the 2^16 golden")
+    log(f"  Edwards oracle (sum of s_i k_i mod r) * G reproduces the 2^16 "
+        f"golden ({time.perf_counter() - t0:.1f} s)")
+    for power, chunk in BENCH:
+        pw, sw = inputs[power]
+        want = (golden(f"{power}:bench-{power}") if power >= 16
+                else msm_oracle(*cases[power][1:], ED))
         path = auto._select_smvp(chunk, 1 << power)
         if choose_chunk_size(1 << power) != chunk or path != (
-                "tree" if power >= 18 else "stream"):
+                "tree" if power >= 18 else "stream" if power >= 16 else "fused"):
             raise SystemExit(f"Edwards 2^{power}: the default policy gives "
                              f"chunk {choose_chunk_size(1 << power)}, path {path}")
-        run(f"ed_{path}", f"Edwards 2^{power} compute_msm_edwards ({path}, "
-            f"chunk {chunk})", compute_msm_edwards, (pw, sw),
-            golden(f"{power}:bench-{power}"))
+        run("ed_fused_10" if power == 10 else f"ed_{path}",
+            f"Edwards 2^{power} compute_msm_edwards ({path}, chunk {chunk})",
+            compute_msm_edwards, (pw, sw), want)
+        if power == 14:
+            run("ed_legacy_14", "Edwards 2^14 (legacy forced, chunk 4)",
+                engine_msm(curve=ed, smvp_mode="legacy"), (pw, sw), want,
+                warm_runs=1)
+        if power == 16:
+            run("ed_legacy", "Edwards 2^16 PippengerMsmEngine (legacy)",
+                pippenger_msm, (pw, sw, ED), want)
+            run("ed_naive", "Edwards 2^16 NaiveMsmEngine", naive_msm,
+                (pw, sw, ED), want)
+            run("ed_running_sum", "Edwards 2^16 running-sum chain",
+                running_sum_chain, (pw, ED), running_sum_oracle(pw, ED))
         if power == 18:
             run("ed_pure_tree", "Edwards 2^18 (pure tree forced, chunk 15)",
-                engine_msm(curve=ed, smvp_mode="tree"), (pw, sw),
-                golden("18:bench-18"))
+                engine_msm(curve=ed, smvp_mode="tree"), (pw, sw), want)
     t0 = time.perf_counter()
-    sets = batch_scalars(20, BATCH_SETS, ed.value)
+    sets = batch_scalars(20, BATCH_SETS, ED)
     log(f"  Edwards batch scalar sets drawn in {time.perf_counter() - t0:.1f} s")
     run("ed_batch_tree", f"Edwards 2^20 compute_msm_batch ({BATCH_SETS} sets, "
         "tree)", lambda pw, sws: batch_msm(pw, sws, ed), (inputs[20][0], sets),
@@ -1033,15 +1146,17 @@ def timed_paths(inputs, ed_inputs):
             (table, sorted_vals, layout.starts_rk, layout.lens_rk, group),
             *bucket_work(layout.lens_rk, w["add_mixed"], 4 + w["aff"], w["pt"]))
 
-    def fusedk(gathered, starts, lens):
+    def fusedk(gathered, starts, lens, group=G1):
         # every entry is one canonical mixed add, the one into the identity
         # included: the function's result is that add chain's coordinates
+        w, tag = WORK[group.ctx.tag], group.ctx.tag
         entries = int(lens.sum())
-        log(f"  fused_buckets: {lens.numel()} buckets, {entries} entries, "
+        log(f"  fused_buckets{tag}: {lens.numel()} buckets, {entries} entries, "
             f"the longest {int(lens.max())}")
-        return record("fused_buckets", K_FUSED, fused_plain_graphed,
-                      (gathered, starts, lens), entries * ADD_MIXED_CANON,
-                      entries * ROW + lens.numel() * (8 + PT))
+        return record("fused_buckets" + tag, K_FUSED, fused_plain_graphed,
+                      (gathered, starts, lens, group),
+                      entries * w["add_mixed_canon"],
+                      entries * ROW + lens.numel() * (8 + w["pt"]))
 
     def lanes(fn, plain, name, arity, muls, nbytes):
         """Recorder for a lane-wise kernel of `arity` plane arguments and,
@@ -1074,21 +1189,23 @@ def timed_paths(inputs, ed_inputs):
     mixed = lanes(K.masked_add_mixed, K.masked_add_mixed_plain,
                   "masked_add_mixed", 4,
                   lambda n, w, acc, aff, sign, valid:
-                  int(valid.sum()) * ADD_MIXED_CANON,
+                  int(valid.sum()) * w["add_mixed_canon"],
                   # a masked lane's result is acc: it needs neither its
                   # addend nor its sign
                   lambda n, w, acc, aff, sign, valid:
-                  n * (2 * PT + 4) + int(valid.sum()) * (AFF + 4))
+                  n * (2 * w["pt"] + 4) + int(valid.sum()) * (w["aff"] + 4))
     cadd = lanes(K.fused_add, K.fused_add_plain, "fused_add", 2,
-                 lambda n, w, *a: n * ADD_CANON, lambda n, w, *a: 3 * PT * n)
+                 lambda n, w, *a: n * w["add_canon"],
+                 lambda n, w, *a: 3 * w["pt"] * n)
     cmasked = lanes(K.masked_add_and_double, K.masked_add_and_double_plain,
                     "masked_add_and_double", 3,
-                    lambda n, w, r, t, bits: int(bits.sum()) * ADD_CANON + n * DBL,
-                    lambda n, w, *a: (4 * PT + 4) * n)
+                    lambda n, w, r, t, bits: int(bits.sum()) * w["add_canon"]
+                    + n * w["dbl_canon"],
+                    lambda n, w, *a: (4 * w["pt"] + 4) * n)
     crunning = lanes(K.fused_running_add, K.fused_running_add_plain,
                      "fused_running_add", 3,
-                     lambda n, w, *a: 2 * n * ADD_CANON,
-                     lambda n, w, *a: 5 * PT * n)
+                     lambda n, w, *a: 2 * n * w["add_canon"],
+                     lambda n, w, *a: 5 * w["pt"] * n)
 
     K_MMC, K_MML, K_TREE = K.mont_mul_const, K.mont_mul_lanes, T.run_tree_level
     MMC_PLAIN = graphed(K.mont_mul_const_plain)
@@ -1118,7 +1235,11 @@ def timed_paths(inputs, ed_inputs):
              engine_msm(smvp_mode="fused", chunk_size=FORCED_CHUNK), inputs[16]),
             ("pure_tree", engine_msm(smvp_mode="tree"), inputs[18]),
             ("ed_tree", run_ed_msm, ed_inputs[20]),
-            ("ed_stream", run_ed_msm, ed_inputs[17]))
+            ("ed_stream", run_ed_msm, ed_inputs[17]),
+            ("ed_legacy", pippenger_msm, (*ed_inputs[16], ED)),
+            ("ed_naive", naive_msm, (*ed_inputs[16], ED)),
+            ("ed_running_sum", running_sum_chain, (ed_inputs[16][0], ED)),
+            ("ed_fused_10", run_ed_msm, ed_inputs[10]))
     for path, fn, args in runs:
         current = stats[path] = {}
         with patched(patches):
@@ -1300,8 +1421,8 @@ def main(argv: list[str]) -> int:
 
     log(f"phase 4 at {elapsed():.1f} s: per-kernel time at each path's "
         "shapes (2^20 tree, 2^17 stream, 2^16 legacy, naive and chain, 2^10 "
-        "and forced 2^16 fused, 2^18 pure tree; Edwards 2^20 tree and 2^17 "
-        "stream)")
+        "and forced 2^16 fused, 2^18 pure tree; Edwards 2^20 tree, 2^17 "
+        "stream, 2^16 legacy, naive and chain, 2^10 fused)")
     stats = timed_paths(inputs, ed_inputs)
     rows = []
     for path, per_kernel in stats.items():
@@ -1330,7 +1451,7 @@ def main(argv: list[str]) -> int:
 
     for label, run, (pw, sw) in [
             *((f"2^{p}", run_msm, inputs[p]) for p in (20, 17, 16, 14)),
-            ("Edwards 2^20", run_ed_msm, ed_inputs[20])]:
+            *((f"Edwards 2^{p}", run_ed_msm, ed_inputs[p]) for p in (20, 14))]:
         log(f"phase 5 at {elapsed():.1f} s: stage breakdown of one warm "
             f"{label} MSM (each stage fenced)")
         secs, total = stage_breakdown(pw, sw, run)
@@ -1359,10 +1480,16 @@ def main(argv: list[str]) -> int:
                                  ed_inputs[20]),
                                 ("2^17 stream", compute_msm, inputs[17]),
                                 ("2^14 fused", compute_msm, inputs[14]),
+                                ("Edwards 2^14 fused", compute_msm_edwards,
+                                 ed_inputs[14]),
                                 (f"2^20 batch of {BATCH_SETS}", batch_msm,
                                  (inputs[20][0], sets[20])),
                                 ("2^16 legacy", pippenger_msm, inputs[16]),
-                                ("2^16 naive", naive_msm, inputs[16])):
+                                ("2^16 naive", naive_msm, inputs[16]),
+                                ("Edwards 2^16 legacy", pippenger_msm,
+                                 (*ed_inputs[16], ED)),
+                                ("Edwards 2^16 naive", naive_msm,
+                                 (*ed_inputs[16], ED))):
             wall, busy, top = device_busy_share(fn, args)
             log(f"profile {label}: wall {wall * 1e3:.2f} ms, device busy "
                 f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f} %), idle "

@@ -1,8 +1,9 @@
 """chip_smoke.py's bench inputs, on the CPU: the bulk draws equal
 random.Random's own, word for word and in the generator's state after them;
-the product-tree inversion equals pow(z, -1, p); and a tiny bench case equals
-the seed scheme computed with Python integers and the bigint oracle.  Exact
-equality throughout.
+the product-tree inversion equals pow(z, -1, p); a tiny bench case equals
+the seed scheme computed with Python integers and the bigint oracle; and the
+MSM oracle of the bench cases equals the naive bigint MSM.  Exact equality
+throughout.
 """
 
 import random
@@ -15,6 +16,7 @@ import chip_smoke as cs
 from webgpu_msm_bls12_377_tpu_torch import params as PP
 from webgpu_msm_bls12_377_tpu_torch.ops import field as F
 from webgpu_msm_bls12_377_tpu_torch.reference import curve as crv
+from webgpu_msm_bls12_377_tpu_torch.reference.msm import EDWARDS, G1, naive_msm
 
 torch.set_num_threads(1)
 
@@ -61,7 +63,7 @@ def test_bench_case_equals_the_seed_scheme(curve, monkeypatch):
     oracle."""
     monkeypatch.setattr(cs, "DEV", "cpu")
     power, n = 3, 8
-    pw, sw = cs.bench_case(power, curve)
+    pw, sw, kw = cs.bench_case(power, curve)
     rng = random.Random(f"bench-{power}-{curve}")
     if curve == "bls12_377":
         ks = [rng.randrange(1, PP.SCALAR_FIELD) for _ in range(n)]
@@ -75,6 +77,24 @@ def test_bench_case_equals_the_seed_scheme(curve, monkeypatch):
                for k in ks]
         cw = 8
     scalars = [rng.randrange(0, 1 << 253) for _ in range(n)]
-    assert pw.shape == (2, cw, n) and sw.shape == (8, n)
+    assert pw.shape == (2, cw, n) and sw.shape == (8, n) and kw.shape == (8, n)
     assert list(zip(words_to_ints(pw[0]), words_to_ints(pw[1]))) == pts
     assert words_to_ints(sw) == scalars
+    assert words_to_ints(kw) == ks == cs.words_to_ints(kw)
+
+
+@pytest.mark.parametrize("curve", ["bls12_377", "edwards_bls12"],
+                         ids=["", "ed"])
+def test_msm_oracle_equals_the_naive_msm(curve, monkeypatch):
+    """The oracle below 2^16, (sum of s_i k_i mod r) * G, on a tiny bench
+    case: the sum of s_i * (k_i * G) point by point."""
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    pw, sw, kw = cs.bench_case(3, curve)
+    scalars, ks = words_to_ints(sw), words_to_ints(kw)
+    if curve == "bls12_377":
+        pts = [crv.g1_scalar_mult(crv.G1_GENERATOR, k) for k in ks]
+        want = crv.g1_to_affine(naive_msm(pts, scalars, G1))
+    else:
+        pts = [crv.ed_scalar_mult(crv.ED_GENERATOR, k) for k in ks]
+        want = crv.ed_to_affine(naive_msm(pts, scalars, EDWARDS))
+    assert cs.msm_oracle(sw, kw, curve) == {"x": want[0], "y": want[1]}

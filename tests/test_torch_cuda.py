@@ -1,9 +1,9 @@
 """Port CUDA kernels against their plain PyTorch versions, on the card.
 
 Every kernel entry point (csrc/convert.cu, tree.cu, packed.cu, bpr.cu,
-stream.cu, legacy.cu, canon.cu, fused.cu, and the Edwards builds of the
-first five) runs on CUDA tensors and must equal its plain version word
-for word: both compute the same exact integers (no tolerance).  Marked ``cuda``; without
+stream.cu, legacy.cu, canon.cu, fused.cu, each built for G1 and for
+Edwards) runs on CUDA tensors and must equal its plain version word for
+word: both compute the same exact integers (no tolerance).  Marked ``cuda``; without
 a CUDA device every test skips.  On a GPU machine:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -182,63 +182,84 @@ def test_stream_duplicate_heavy_bucket(dev):
                                              layout.starts_rk, layout.lens_rk))
 
 
-def test_fused_buckets_random_and_real_plan(dev):
+@GROUPS
+def test_fused_buckets_random_and_real_plan(dev, group):
     """Kernel 8 on random rows with hand-made segments (empty, length 1,
     long, overlapping) and on a real plan, single dispatch and windowed."""
-    rng = random.Random("k8")
+    ctx, tag = group.ctx, group.ctx.tag
+    rng = random.Random("k8" + tag)
     count = 600
     rows = torch.zeros((count, SK.ROW_WORDS), dtype=torch.int32, device=dev)
-    rows[:, :26] = rand_plane(rng, 26, count, P, dev).T
+    rows[:, :group.aff_rows] = rand_plane(rng, group.aff_rows, count, ctx.p,
+                                          dev, ctx.nw).T
     lens = [0, 1, 2, 65, 0, 33, 1, 100] + [rng.randrange(0, 9) for _ in range(LANES - 8)]
     starts = [rng.randrange(0, count - l + 1) for l in lens]
     starts, lens = (torch.tensor(v, dtype=torch.int32, device=dev)
                     for v in (starts, lens))
     K.reset_launches()
-    same(SK.accumulate_buckets_fused(rows, starts, lens),
-         SK.accumulate_buckets_fused_plain(rows, starts, lens))
-    assert K.launches["fused_buckets"] == 1
+    same(SK.accumulate_buckets_fused(rows, starts, lens, group),
+         SK.accumulate_buckets_fused_plain(rows, starts, lens, group))
+    assert K.launches["fused_buckets" + tag] == 1 and len(K.launches) == 1
     # the kernel reads raw int32 pointers: other operands are refused
     for bad in ((rows, starts.to(torch.int64), lens),
                 (rows, starts, lens.repeat_interleave(2)[::2]),
                 (rows.T.contiguous().T, starts, lens)):
         with pytest.raises(ValueError, match="contiguous int32"):
-            SK.accumulate_buckets_fused(*bad)
-    assert K.launches["fused_buckets"] == 1
+            SK.accumulate_buckets_fused(*bad, group)
+    assert K.launches["fused_buckets" + tag] == 1
 
     npts, chunk = 300, 9
     windows = num_windows_for(chunk)
-    wide = SK.make_wide_rows(rand_plane(rng, 26, npts, P, dev))
+    wide = SK.make_wide_rows(
+        rand_plane(rng, group.aff_rows, npts, ctx.p, dev, ctx.nw), group)
     sw = torch.tensor([[rng.randrange(1 << 32) for _ in range(npts)]
                        for _ in range(8)], dtype=torch.int64)
     sw[7] &= (1 << 29) - 1
     plan = build_bucket_plan(decompose_scalars_signed(sw.to(dev), chunk, windows),
                              chunk)
-    gathered = SK.pregather_signed(wide, plan.sorted_vals)
-    want = SK.accumulate_buckets_fused_plain(gathered, plan.starts, plan.lens)
-    same(SK.accumulate_buckets_fused(gathered, plan.starts, plan.lens), want)
+    gathered = SK.pregather_signed(wide, plan.sorted_vals, group)
+    want = SK.accumulate_buckets_fused_plain(gathered, plan.starts, plan.lens,
+                                             group)
+    same(SK.accumulate_buckets_fused(gathered, plan.starts, plan.lens, group),
+         want)
     K.reset_launches()
     same(SK.accumulate_buckets_windowed(wide, plan.sorted_vals, plan.starts,
-                                        plan.lens, windows), want)
-    assert K.launches["fused_buckets"] == windows
+                                        plan.lens, windows, group), want)
+    assert K.launches["fused_buckets" + tag] == windows
 
 
-def test_canonical_family_and_masked_add_mixed(dev):
-    rng = random.Random("k67")
-    a, g, b = (rand_plane(rng, 39, LANES, P, dev) for _ in range(3))
-    aff = rand_plane(rng, 26, LANES, P, dev)
+def edge_lanes(group, a, b):
+    """b with lane 0 the identity, lane 1 equal to a's and lane 2 a's
+    inverse (canonical), the operands a complete add must take."""
+    b = b.clone()
+    b[:, 0] = C.merge(group.zero(1, a.device))[:, 0]
+    b[:, 1] = a[:, 1]
+    b[:, 2] = C.merge(group.neg(group.split(a[:, 2:3])))[:, 0]
+    return b
+
+
+@GROUPS
+def test_canonical_family_and_masked_add_mixed(dev, group):
+    ctx, tag = group.ctx, group.ctx.tag
+    rng = random.Random("k67" + tag)
+    a, g, b = (rand_plane(rng, group.rows, LANES, ctx.p, dev, ctx.nw)
+               for _ in range(3))
+    g, b = edge_lanes(group, a, g), edge_lanes(group, a, b)
+    aff = rand_plane(rng, group.aff_rows, LANES, ctx.p, dev, ctx.nw)
     gen = torch.Generator().manual_seed(3)
     bits, valid = (torch.randint(0, 2, (LANES,), dtype=torch.int32,
                                  generator=gen).to(dev) for _ in range(2))
     K.reset_launches()
-    same(K.masked_add_mixed(a, aff, bits, valid),
-         K.masked_add_mixed_plain(a, aff, bits, valid))
-    same(K.fused_add(a, b), K.fused_add_plain(a, b))
-    same(K.masked_add_and_double(a, g, bits),
-         K.masked_add_and_double_plain(a, g, bits))
-    same(K.fused_running_add(a, g, b), K.fused_running_add_plain(a, g, b))
-    assert all(K.launches[k] == 1 for k in
-               ("masked_add_mixed", "fused_add", "masked_add_and_double",
-                "fused_running_add"))
+    same(K.masked_add_mixed(a, aff, bits, valid, group),
+         K.masked_add_mixed_plain(a, aff, bits, valid, group))
+    same(K.fused_add(a, b, group), K.fused_add_plain(a, b, group))
+    same(K.masked_add_and_double(a, g, bits, group),
+         K.masked_add_and_double_plain(a, g, bits, group))
+    same(K.fused_running_add(a, g, b, group),
+         K.fused_running_add_plain(a, g, b, group))
+    assert dict(K.launches) == {
+        k + tag: 1 for k in ("masked_add_mixed", "fused_add",
+                             "masked_add_and_double", "fused_running_add")}
 
 
 @pytest.fixture(scope="module")
@@ -251,29 +272,43 @@ def msm_case():
             crv.g1_to_affine(naive_msm(pts, scalars, G1)))
 
 
+def case_of(request, group):
+    """The curve's engine case: (affine points, scalars, affine MSM)."""
+    return request.getfixturevalue("msm_case" if group is C.G1 else "ed_case")
+
+
+@GROUPS
 @pytest.mark.parametrize("mode,kernel", [("stream", "stream_buckets"),
                                          ("legacy", "masked_add_mixed")])
-def test_stream_and_legacy_engines_on_the_card(dev, msm_case, mode, kernel):
-    aff, scalars, want = msm_case
+def test_stream_and_legacy_engines_on_the_card(dev, request, group, mode,
+                                               kernel):
+    aff, scalars, want = case_of(request, group)
+    tag = group.ctx.tag
     cls = PippengerMsmEngine if mode == "legacy" else CuzkMsmEngine
-    eng = cls(chunk_size=4, num_bpr_threads=4, smvp_mode=mode)
+    eng = cls(group.CURVE, chunk_size=4, num_bpr_threads=4, smvp_mode=mode)
     K.reset_launches()
     got = eng.compute_msm(aff, scalars)
     assert (got["x"], got["y"]) == want
-    assert K.launches[kernel] > 0 and K.launches["bpr_add"] > 0
+    assert K.launches[kernel + tag] > 0 and K.launches["bpr_add" + tag] > 0
+    assert all(k.endswith("_ed") == bool(tag) for k in K.launches)
 
 
+@GROUPS
 @pytest.mark.parametrize("chunk", [4, 9])
-def test_fused_engine_on_the_card(dev, msm_case, chunk):
+def test_fused_engine_on_the_card(dev, request, group, chunk):
     """One launch of kernel 8 at chunk 4, one per window at chunk 9."""
-    aff, scalars, want = msm_case
-    eng = CuzkMsmEngine(chunk_size=chunk, num_bpr_threads=4, smvp_mode="fused")
+    aff, scalars, want = case_of(request, group)
+    tag = group.ctx.tag
+    eng = CuzkMsmEngine(group.CURVE, chunk_size=chunk, num_bpr_threads=4,
+                        smvp_mode="fused")
     K.reset_launches()
     got = eng.compute_msm(aff, scalars)
     assert (got["x"], got["y"]) == want
-    assert K.launches["fused_buckets"] == (
+    assert K.launches["fused_buckets" + tag] == (
         1 if chunk == 4 else num_windows_for(chunk))
-    assert K.launches["masked_add_mixed"] == K.launches["stream_buckets"] == 0
+    assert K.launches["masked_add_mixed" + tag] == 0
+    assert K.launches["stream_buckets" + tag] == 0
+    assert all(k.endswith("_ed") == bool(tag) for k in K.launches)
 
 
 def test_pure_tree_engine_on_the_card(dev, msm_case):
@@ -314,19 +349,29 @@ def test_batch_on_the_card(dev, msm_case, mode, monkeypatch):
     assert K.launches["mont_mul_const"] == 1 + len(sets)
 
 
-def test_naive_engine_on_the_card(dev, msm_case):
-    aff, scalars, _ = msm_case
+@GROUPS
+def test_naive_engine_on_the_card(dev, request, group):
+    aff, scalars, _ = case_of(request, group)
     aff, scalars = aff[:64], scalars[:64]
-    pw = np.stack([ints_to_words([a[0] for a in aff], 12),
-                   ints_to_words([a[1] for a in aff], 12)])
+    nw, tag = group.ctx.nw, group.ctx.tag
+    cw = 12 if group is C.G1 else 8
+    pw = np.stack([ints_to_words([a[0] for a in aff], cw),
+                   ints_to_words([a[1] for a in aff], cw)])
     K.reset_launches()
-    out = NaiveMsmEngine().build_fn()(pw, ints_to_words(scalars, 8))
-    got = crv.ProjectivePoint(*(F.plane_to_ints(out[c * 13:(c + 1) * 13])[0]
-                                for c in range(3)))
-    want = naive_msm([crv.g1_from_affine(*a) for a in aff], scalars, G1)
-    assert crv.g1_eq(got, want)
-    assert K.launches["masked_add_and_double"] == 256
-    assert K.launches["fused_add"] == 6
+    out = NaiveMsmEngine(group.CURVE).build_fn()(pw, ints_to_words(scalars, 8))
+    coords = [F.plane_to_ints(out[c * nw:(c + 1) * nw])[0]
+              for c in range(out.shape[0] // nw)]
+    if group is C.G1:
+        got = crv.g1_to_affine(crv.ProjectivePoint(*coords))
+        want = crv.g1_to_affine(naive_msm(
+            [crv.g1_from_affine(*a) for a in aff], scalars, G1))
+    else:
+        got = crv.ed_to_affine(crv.ExtendedPoint(*coords))
+        want = crv.ed_to_affine(naive_msm(
+            [crv.ed_from_affine(*a) for a in aff], scalars, EDWARDS))
+    assert got == want
+    assert K.launches["masked_add_and_double" + tag] == 256
+    assert K.launches["fused_add" + tag] == 6
 
 
 def test_engine_on_the_card_matches_oracle(dev):

@@ -226,6 +226,13 @@ def test_canonical_double_and_is_zero_match_jax_and_oracle():
         [False] * 6 + [True]
 
 
+def test_canonical_neg_matches_jax_and_oracle():
+    rng = random.Random("curve-canon-neg")
+    a = [rand_point(rng) for _ in range(6)] + [crv.G1_ZERO]
+    got = port_ints(G1.neg(port_point(a)))
+    check(got, jax_ints(JG1.neg(jax_point(a))), [crv.g1_neg(p) for p in a])
+
+
 @pytest.mark.parametrize("k", [1, 2, 3, 1 << 61])
 def test_scalar_mult_oracle_matches_jax_oracle(k):
     """The port's own bigint oracle agrees with the JAX package's."""

@@ -1,8 +1,10 @@
 """Port Twisted Edwards BLS12 (a = -1, d = 3021) against the JAX package and
 the bigint oracle, where no G1 test has a counterpart: the hwcd lazy forms
-against the JAX EdwardsOps, and the engine end to end (CPU, plain PyTorch
-versions of every kernel) with its refusals.  The field and the SMVP stages
-run for both curves in tests/test_torch_field.py and
+against the JAX EdwardsOps, and the engine end to end on the tree and
+stream paths and the public entry point (CPU, plain PyTorch versions of
+every kernel); tests/test_torch_edwards_canon.py holds the canonical
+forms, the fused and legacy paths and the baseline engines.  The field
+and the SMVP stages run for both curves in tests/test_torch_field.py and
 tests/test_torch_smvp_bpr.py.
 
 The port's Edwards values are exact integers below 2^288 (9 x 32-bit
@@ -199,12 +201,11 @@ def test_edwards_engine_matches_jax_and_oracle(case, mode, finish):
 
 def test_compute_msm_edwards_entry_point(case, monkeypatch):
     """The public entry point with its default policy: below 2^16 (chunk
-    < 9) it raises; at chunk 9 ("auto" takes the stream path, as from
-    2^16) it equals the JAX engine, for int pairs, 64-byte point buffers
-    and word arrays alike."""
+    4, the fused path, 512 BPR threads) and at chunk 9 ("auto" takes the
+    stream path, as from 2^16) it equals the JAX engine, for int pairs,
+    64-byte point buffers and word arrays alike."""
     aff, scalars = case["aff"], case["scalars"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.compute_msm_edwards(aff, scalars, device="cpu")
+    assert port.compute_msm_edwards(aff, scalars, device="cpu") == case["want"]
     monkeypatch.setattr(CuzkMsmEngine, "_chunk_for", lambda self, n: 9)
     # 4 BPR threads in place of 512 keep the plain forms quick
     monkeypatch.setattr(CuzkMsmEngine, "__init__", functools.partialmethod(

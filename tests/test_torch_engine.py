@@ -23,6 +23,7 @@ import torch
 import webgpu_msm_bls12_377_tpu_torch as port
 from webgpu_msm_bls12_377_tpu_torch.models import NaiveMsmEngine, PippengerMsmEngine
 from webgpu_msm_bls12_377_tpu_torch.models.cuzk import CuzkMsmEngine
+from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
 from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
 from webgpu_msm_bls12_377_tpu_torch.params import CurveId
 from webgpu_msm_bls12_377_tpu_torch.reference import curve as crv
@@ -96,17 +97,17 @@ def test_input_validation():
         engine(smvp_mode="tree-interpret")
     with pytest.raises(ValueError, match="tree_finish"):
         engine(tree_finish=0)
-    # Edwards runs the tree and stream paths; its fused and legacy paths,
-    # "auto" below chunk 9 and the baseline engines raise, naming the
-    # ROADMAP entry
+    # Edwards takes every path too: its fused and legacy paths, "auto"
+    # below chunk 9 (the fused path at chunk 4 and 8) and the baseline
+    # engines, each with the curve's group (tests/test_torch_edwards_canon.py
+    # runs them)
     ed = CurveId.EDWARDS_BLS12
-    for make in (lambda: CuzkMsmEngine(ed, smvp_mode="fused", device="cpu"),
-                 lambda: CuzkMsmEngine(ed, smvp_mode="legacy", device="cpu"),
-                 lambda: PippengerMsmEngine(ed, device="cpu"),
-                 lambda: NaiveMsmEngine(ed, device="cpu"),
-                 lambda: CuzkMsmEngine(ed, device="cpu")._select_smvp(8, 1 << 15)):
-        with pytest.raises(NotImplementedError, match="Edwards.*ROADMAP"):
-            make()
+    for mode in ("fused", "legacy"):
+        eng = CuzkMsmEngine(ed, smvp_mode=mode, device="cpu")
+        assert eng._select_smvp(8, 1 << 15) == mode and eng.group is C.EDWARDS
+    assert PippengerMsmEngine(ed, device="cpu")._select_smvp(8, 1 << 15) == "legacy"
+    assert NaiveMsmEngine(ed, device="cpu").group is C.EDWARDS
+    assert CuzkMsmEngine(ed, device="cpu")._select_smvp(8, 1 << 15) == "fused"
     with pytest.raises(ValueError, match="power of two"):
         engine(num_bpr_threads=6)
 
@@ -187,6 +188,16 @@ print("ok")
                          text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_port_refuses_nothing_for_edwards():
+    """The port's one NotImplementedError is the device pool's (ROADMAP
+    item 16): every single-device call answers on both curves."""
+    raises = [f.name for f in PKG.rglob("*.py")
+              for line in f.read_text().splitlines()
+              if "NotImplementedError" in line]
+    assert raises == ["cuzk.py"]
+    assert "item 16" in (PKG / "models" / "cuzk.py").read_text()
 
 
 def test_port_sources_name_no_jax():

@@ -40,6 +40,7 @@ from webgpu_msm_bls12_377_tpu_torch.ops.convert import (
     from_jax_rows,
     ints_to_words,
 )
+from webgpu_msm_bls12_377_tpu_torch.params import CurveId
 from webgpu_msm_bls12_377_tpu_torch.reference import curve as crv
 from webgpu_msm_bls12_377_tpu_torch.reference.msm import G1, naive_msm
 
@@ -326,15 +327,18 @@ def test_tree_k_semantics():
 # -- the path policy -----------------------------------------------------------
 
 
+@pytest.mark.parametrize("curve", ["bls12_377", "edwards_bls12"],
+                         ids=["", "ed"])
 @pytest.mark.parametrize("chunk", range(4, 17))
-def test_auto_policy_equals_jax_tpu_policy(chunk, monkeypatch):
+def test_auto_policy_equals_jax_tpu_policy(chunk, curve, monkeypatch):
     """For every n = 2^6..2^20 the port's "auto" path is the JAX engine's
-    on a TPU with an empty autotune table: the JAX engine's own
-    _select_smvp, with its backend probes answering as on a TPU."""
+    on a TPU with an empty autotune table, on both curves: the JAX
+    engine's own _select_smvp, with its backend probes answering as on a
+    TPU."""
     for mod in (jstream, jtree, jfused):
         monkeypatch.setattr(mod, "_on_tpu", lambda: True)
-    jeng = jcuzk.CuzkMsmEngine(JCurveId.BLS12_377, autotune=False)
-    eng = CuzkMsmEngine(device="cpu")
+    jeng = jcuzk.CuzkMsmEngine(JCurveId(curve), autotune=False)
+    eng = CuzkMsmEngine(CurveId(curve), device="cpu")
     seen = set()
     for power in range(6, 21):
         n = 1 << power

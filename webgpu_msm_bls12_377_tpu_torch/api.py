@@ -24,10 +24,9 @@ def compute_msm(points: Any, scalars: Any, device=None) -> dict[str, int]:
 
 
 def compute_msm_edwards(points: Any, scalars: Any, device=None) -> dict[str, int]:
-    """Twisted Edwards BLS12 MSM, as compute_msm.  It runs from n = 2^16
-    (where the default chunk is 9 or more: the stream path, and the
-    hybrid tree from 2^18); below that it raises NotImplementedError (the
-    Edwards fused and legacy paths are not ported)."""
+    """Twisted Edwards BLS12 MSM, as compute_msm, with the same policy:
+    the fused path below 2^16 (chunk 4), the stream path from 2^16 and the
+    hybrid tree from 2^18."""
     from .models.cuzk import CuzkMsmEngine
     from .params import CurveId
 

@@ -14,9 +14,10 @@
 // vocabulary): (36, L) extended planes, coords < 2p.
 //
 // Bound on this card: G1 3,549 word products per add and 2,704 per double
-// against 156 bytes per point moved (Edwards 1,620 and 1,296 against
-// 128, 32 bytes a coordinate), bytes and products within 1.5x of each other at the HBM and
-// float32 multiply-add rates.  But BPR runs only
+// against 144 bytes per point moved (values below 20p < 2^382: 12 of a
+// coordinate's 13 words), Edwards 1,620 and 1,296 against 128 (below 8p
+// < 2^256: 8 of 9 words); bytes and products are within 1.5x of each
+// other at the HBM and float32 multiply-add rates.  But BPR runs only
 // num_windows * num_threads lanes (8,192 at 2^20), so one launch fills a
 // fraction of the card's 132 SMs and launch latency dominates; the design
 // here is one thread per lane, simple and right, and the low occupancy is

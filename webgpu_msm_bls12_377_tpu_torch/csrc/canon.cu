@@ -1,5 +1,7 @@
 // Kernel 7: the canonical-domain point kernels, three entry points over
-// the complete RCB add (Alg. 7) and double (Alg. 9).
+// the complete add and double: G1's RCB Alg. 7 and 9, or with
+// -DMSM_CURVE_ED Edwards' add-2008-hwcd and dbl-2008-hwcd (curve.cuh's
+// vocabulary).
 //
 // Replaces, from ops/pallas_kernels.py of the JAX package (one launcher,
 // _run, three bodies):
@@ -7,15 +9,18 @@
 //   msm_masked_add_and_double <- masked_add_and_double
 //                                r' = bit ? r + t : r, t' = 2t
 //   msm_fused_running_add     <- fused_running_add     m' = m + b, g' = g + m'
-// Every operand is a (39, L) projective plane with coordinates below p, and
-// so is every output: each field operation reduces, so chains need no
-// bound bookkeeping.  The naive engine (models/naive.py) runs the first
-// two; the running add has no engine caller in either package.
+// Every operand is a (39, L) G1 projective or (36, L) Edwards extended
+// plane with coordinates below p, and so is every output: each field
+// operation reduces, so chains need no bound bookkeeping.  The naive
+// engine (models/naive.py) runs the first two; the running add has no
+// engine caller in either package.
 //
-// Bound on this card: 4,056 word products per add (12 Montgomery products)
-// and 2,704 per double against 156 bytes per point moved; bytes and
-// products are within 1.5x of each other at the HBM and float32
-// multiply-add rates.  One thread per lane, as in bpr.cu.
+// Bound on this card: word products per add G1 4,056 (12 Montgomery
+// products at 13 words), Edwards 1,620 (10 at 9 words), per double 2,704
+// and 1,296 (8 each), against 144 and 128 bytes per point moved (12 and 8
+// significant words a coordinate); bytes and products are within 1.5x of
+// each other at the HBM and float32 multiply-add rates.  One thread per
+// lane, as in bpr.cu.
 #include "curve.cuh"
 
 #define THREADS 128
@@ -26,10 +31,10 @@ __global__ void __launch_bounds__(THREADS)
                      long long n) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  G1 x, y;
+  Point x, y;
   pt_load(x, a, n, j);
   pt_load(y, b, n, j);
-  g1_add(x, x, y);
+  pt_add(x, x, y);
   pt_store(out, n, j, x);
 }
 
@@ -41,12 +46,12 @@ __global__ void __launch_bounds__(THREADS)
                                  int32_t* __restrict__ t_out, long long n) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  G1 x, y;
+  Point x, y;
   pt_load(x, r, n, j);
   pt_load(y, t, n, j);
-  if (bits[j]) g1_add(x, x, y);
+  if (bits[j]) pt_add(x, x, y);
   pt_store(r_out, n, j, x);
-  g1_double(y, y);
+  pt_double(y, y);
   pt_store(t_out, n, j, y);
 }
 
@@ -58,13 +63,13 @@ __global__ void __launch_bounds__(THREADS)
                              int32_t* __restrict__ g_out, long long n) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
-  G1 x, y;
+  Point x, y;
   pt_load(x, m, n, j);
   pt_load(y, b, n, j);
-  g1_add(x, x, y);
+  pt_add(x, x, y);
   pt_store(m_out, n, j, x);
   pt_load(y, g, n, j);
-  g1_add(y, y, x);
+  pt_add(y, y, x);
   pt_store(g_out, n, j, y);
 }
 

@@ -7,8 +7,8 @@
 //
 // Replaces ops/pallas_kernels.py:mont_mul_const of the JAX package.
 // Work per element: one CIOS product, 338 32x32->64 word products at 13
-// words (162 at 9), for 104 bytes moved (Edwards 64: values below 2^256
-// need 8 of the 9 words): bound by bytes at the HBM rate, about 3x above
+// words (162 at 9), for 96 bytes moved (values below 2^384 need 12 of
+// the 13 words; Edwards 64: below 2^256, 8 of 9): bound by bytes at the HBM rate, about 3x above
 // the time its products need even at the float32 multiply-add rate.
 // Design: one thread per element, y in __constant__ memory (every thread
 // reads the same word: a broadcast), limb-major planes so that word w of

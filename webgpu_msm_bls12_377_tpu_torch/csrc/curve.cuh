@@ -7,21 +7,25 @@
 // ops/curve.py:G1Ops (the plain PyTorch forms).  Lazy forms: comments give
 // value bounds in units of p ("b<=k": value < k*p); REDC outputs stay
 // below 2p because R/p ~ 2^39 dwarfs every bound product used here (at
-// most 304).  Canonical forms (g1_add, g1_add_mixed, g1_double; G1
-// only) take and return coordinates below p and reduce after every field
-// operation.
+// most 304).
 //
-// Edwards (a = -1, d = 3021): the unified extended hwcd formulas, lazy
-// domain only, in the exact operation order of ops/curve.py:EdwardsOps:
+// Edwards (a = -1, d = 3021): the unified extended hwcd formulas, in the
+// exact operation order of ops/curve.py:EdwardsOps.  Lazy forms:
 // coordinates handed on stay below 2p, REDC inputs reach bound products
 // of 48 at most against R/p ~ 5.9e10.  No paired-product form.
 //
-// Every path kernel (tree.cu, packed.cu, bpr.cu, stream.cu) is written
-// against one vocabulary that both curves define: Point, Affine, pt_zero,
-// pt_from_affine, pt_add_affine_lazy, pt_add_mixed_lazy, pt_add_lazy,
-// pt_double_lazy, pt_canon, pt_load, pt_store and load_signed_aff.  The
-// G1-only kernels (canon.cu, legacy.cu, fused.cu) use the same names for
-// G1 points (Point is G1) beside the canonical g1_* forms.
+// Canonical forms of both curves (pt_add, pt_add_mixed, pt_double) take
+// and return coordinates below p and reduce after every field operation:
+// the product is mont_mul_mod (REDC of canonical inputs lands below 2p,
+// one conditional subtract brings it below p), sums and differences are
+// fe_add_mod and fe_sub_mod, so canonical values have one representation
+// and a kernel equals its plain form bit for bit.
+//
+// Every kernel is written against one vocabulary that both curves define:
+// Point, Affine, pt_zero, pt_from_affine, pt_add_affine_lazy,
+// pt_add_mixed_lazy, pt_add_lazy, pt_double_lazy, pt_canon, pt_add,
+// pt_add_mixed, pt_double, pt_neg_affine, pt_load, pt_store, aff_load
+// and load_signed_aff.
 #pragma once
 #include "field.cuh"
 
@@ -199,7 +203,8 @@ __device__ __forceinline__ void fe_triple_mod(u32 r[NW], const u32 a[NW]) {
 }
 
 // Complete projective add (RCB Alg. 7): 12 products.  r may alias p or q.
-__device__ __forceinline__ void g1_add(G1& r, const G1& p, const G1& q) {
+__device__ __forceinline__ void pt_add(Point& r, const Point& p,
+                                       const Point& q) {
   u32 t0[NW], t1[NW], t2[NW], t3[NW], t4[NW], X3[NW], Y3[NW], Z3[NW];
   mont_mul_mod(t0, p.x, q.x);
   mont_mul_mod(t1, p.y, q.y);
@@ -237,9 +242,9 @@ __device__ __forceinline__ void g1_add(G1& r, const G1& p, const G1& q) {
 
 // Complete mixed add (RCB Alg. 8): 11 products.  The affine addend
 // (X2, Y2) must not be the identity; the accumulator may be.  r may alias p.
-__device__ __forceinline__ void g1_add_mixed(G1& r, const G1& p,
-                                             const u32 X2[NW],
-                                             const u32 Y2[NW]) {
+__device__ __forceinline__ void pt_add_mixed(Point& r, const Point& p,
+                                             const Affine& a) {
+  const u32 *X2 = a.x, *Y2 = a.y;
   u32 t0[NW], t1[NW], t2[NW], t3[NW], t4[NW], X3[NW], Y3[NW], Z3[NW];
   mont_mul_mod(t0, p.x, X2);
   mont_mul_mod(t1, p.y, Y2);
@@ -269,7 +274,7 @@ __device__ __forceinline__ void g1_add_mixed(G1& r, const G1& p,
 }
 
 // Complete doubling (RCB Alg. 9): 8 products.  r may alias p.
-__device__ __forceinline__ void g1_double(G1& r, const G1& p) {
+__device__ __forceinline__ void pt_double(Point& r, const Point& p) {
   u32 t0[NW], t1[NW], t2[NW], X3[NW], Y3[NW], Z3[NW];
   mont_mul_mod(t0, p.y, p.y);
   fe_add_mod(Z3, t0, t0);
@@ -292,6 +297,9 @@ __device__ __forceinline__ void g1_double(G1& r, const G1& p) {
   fe_copy(r.z, Z3);
 }
 
+// (x, y) -> (x, -y), canonical
+__device__ __forceinline__ void pt_neg_affine(Affine& a) { fe_neg_mod(a.y, a.y); }
+
 __device__ __forceinline__ void pt_canon(Point& r) {
   fe_canon4(r.x);
   fe_canon4(r.y);
@@ -310,6 +318,13 @@ __device__ __forceinline__ void pt_store(int32_t* plane, size_t ncols,
   fe_store(plane, ncols, 0, j, a.x);
   fe_store(plane, ncols, NW, j, a.y);
   fe_store(plane, ncols, 2 * NW, j, a.z);
+}
+
+// Column j of a (26, ncols) affine plane
+__device__ __forceinline__ void aff_load(Affine& a, const int32_t* plane,
+                                         size_t ncols, size_t j) {
+  fe_load(a.x, plane, ncols, 0, j);
+  fe_load(a.y, plane, ncols, NW, j);
 }
 
 // Entry i of a sorted entry stream -> its affine (x, y), Montgomery, from
@@ -437,6 +452,78 @@ __device__ __forceinline__ void pt_canon(Point& r) {
   fe_csub(r.z, MSM_P);
 }
 
+// -- canonical domain: coordinates < p in, < p out ------------------------
+// Complete for a = -1 and d a non-square: identity, equal and inverse
+// operands need no select.
+
+// add-2008-hwcd core with a = -1 folded in (h = b + a); dd is the z-term
+// (z1*z2, or z1 for an affine addend).  r may alias p, dd may be p.z.
+__device__ __forceinline__ void ed_add_core(Point& r, const Point& p,
+                                            const u32 x2[NW],
+                                            const u32 y2[NW],
+                                            const u32 t2[NW],
+                                            const u32 dd[NW]) {
+  u32 a[NW], b[NW], c[NW], e[NW], f[NW], g[NW], h[NW];
+  mont_mul_mod(a, p.x, x2);
+  mont_mul_mod(b, p.y, y2);
+  mont_mul_mod(c, p.t, t2);
+  mont_mul_mod(c, MSM_D_MONT, c);
+  fe_add_mod(e, p.x, p.y);
+  fe_add_mod(f, x2, y2);
+  mont_mul_mod(e, e, f);
+  fe_sub_mod(e, e, a);
+  fe_sub_mod(e, e, b);
+  fe_sub_mod(f, dd, c);
+  fe_add_mod(g, dd, c);
+  fe_add_mod(h, b, a);
+  mont_mul_mod(r.x, e, f);
+  mont_mul_mod(r.y, g, h);
+  mont_mul_mod(r.t, e, h);
+  mont_mul_mod(r.z, f, g);
+}
+
+// Complete extended add: 10 products.  r may alias p or q.
+__device__ __forceinline__ void pt_add(Point& r, const Point& p,
+                                       const Point& q) {
+  u32 dd[NW];
+  mont_mul_mod(dd, p.z, q.z);
+  ed_add_core(r, p, q.x, q.y, q.t, dd);
+}
+
+// Complete mixed add of an affine (x, y, t) addend, z2 = 1 (the z-term is
+// z1): 9 products.  r may alias p.
+__device__ __forceinline__ void pt_add_mixed(Point& r, const Point& p,
+                                             const Affine& a) {
+  ed_add_core(r, p, a.x, a.y, a.t, p.z);
+}
+
+// dbl-2008-hwcd (a = -1: the d-term is -a): 8 products.  r may alias p.
+__device__ __forceinline__ void pt_double(Point& r, const Point& p) {
+  u32 a[NW], b[NW], c[NW], d[NW], e[NW], f[NW], g[NW], h[NW];
+  mont_mul_mod(a, p.x, p.x);
+  mont_mul_mod(b, p.y, p.y);
+  mont_mul_mod(c, p.z, p.z);
+  fe_add_mod(c, c, c);
+  fe_neg_mod(d, a);
+  fe_add_mod(e, p.x, p.y);
+  mont_mul_mod(e, e, e);
+  fe_sub_mod(e, e, a);
+  fe_sub_mod(e, e, b);
+  fe_add_mod(g, d, b);
+  fe_sub_mod(f, g, c);
+  fe_sub_mod(h, d, b);
+  mont_mul_mod(r.x, e, f);
+  mont_mul_mod(r.y, g, h);
+  mont_mul_mod(r.t, e, h);
+  mont_mul_mod(r.z, f, g);
+}
+
+// (x, y, t) -> (-x, y, -t), canonical
+__device__ __forceinline__ void pt_neg_affine(Affine& a) {
+  fe_neg_mod(a.x, a.x);
+  fe_neg_mod(a.t, a.t);
+}
+
 __device__ __forceinline__ void pt_load(Point& r, const int32_t* plane,
                                         size_t ncols, size_t j) {
   fe_load(r.x, plane, ncols, 0, j);
@@ -451,6 +538,14 @@ __device__ __forceinline__ void pt_store(int32_t* plane, size_t ncols,
   fe_store(plane, ncols, NW, j, a.y);
   fe_store(plane, ncols, 2 * NW, j, a.t);
   fe_store(plane, ncols, 3 * NW, j, a.z);
+}
+
+// Column j of a (27, ncols) affine plane
+__device__ __forceinline__ void aff_load(Affine& a, const int32_t* plane,
+                                         size_t ncols, size_t j) {
+  fe_load(a.x, plane, ncols, 0, j);
+  fe_load(a.y, plane, ncols, NW, j);
+  fe_load(a.t, plane, ncols, 2 * NW, j);
 }
 
 // Entry i of a sorted entry stream -> its affine (x, y, t), Montgomery,

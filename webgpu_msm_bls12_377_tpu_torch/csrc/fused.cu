@@ -1,5 +1,7 @@
 // Kernel 8: the fused segment SMVP.  Per bucket, the canonical complete
-// mixed-add sum (RCB Alg. 8) of its contiguous pre-gathered signed rows.
+// mixed-add sum of its contiguous pre-gathered signed rows.  Built for G1
+// (RCB Alg. 8) and, with -DMSM_CURVE_ED, for Edwards (hwcd; curve.cuh's
+// vocabulary).
 //
 // Replaces ops/smvp_kernel.py:accumulate_buckets_fused of the JAX package
 // (kernel body _kernel_body).  On the TPU that kernel is a grid over
@@ -10,15 +12,17 @@
 // bucket, a count that rides in as a scalar prefetch.  Here a thread owns
 // one bucket and its trip count is its own length: thread b walks rows
 // starts[b] .. starts[b] + lens[b] - 1 of the pre-gathered array
-// (ops/smvp_kernel.py:pregather_signed: the digit's sign is already applied
-// to y) and writes column b of the (39, nb) output, in the order of starts.
-// No tiles, pad rows, clamp, semaphore, per-block reshape, round counts or
-// masks exist on this path, and no lane constraint: any bucket count runs.
+// (ops/smvp_kernel.py:pregather_signed: the digit's sign is already applied,
+// to y for G1, to x and t for Edwards) and writes column b of the (39, nb)
+// G1 or (36, nb) Edwards output, in the order of starts.  No tiles, pad
+// rows, clamp, semaphore, per-block reshape, round counts or masks exist on
+// this path, and no lane constraint: any bucket count runs.
 //
-// A row is 32 words (128 bytes): x in words 0..12, y in 13..25, six zero
-// words.  The TPU's 128-word row existed for its DMA's lane tiling; 32 is
-// the least width that keeps every row 16-byte aligned, so a thread reads
-// a row as seven 16-byte loads.
+// A row is 32 words (128 bytes): G1 x in words 0..12, y in 13..25, six
+// zero words; Edwards x in 0..8, y in 9..17, t in 18..26, five zero words.
+// The TPU's 128-word row existed for its DMA's lane tiling; 32 is the least
+// width that keeps every row 16-byte aligned, so a thread reads a row's
+// first 28 words as seven 16-byte loads (112 bytes).
 //
 // The sum starts from the identity and adds the rows in order with the
 // canonical complete add, as the TPU kernel and the legacy path (kernel 6)
@@ -27,10 +31,13 @@
 // bit.  Empty buckets stay the identity.
 //
 // Bound on this card: products.  Every entry is one mixed add of 3,718
-// word products (the add into the identity is computed, as the function
-// says, and counted) against 128 bytes read per entry and 164 per bucket.
-// In practice the loop is a chain of dependent adds: with few buckets (512
-// at chunk 4) the card is nearly empty and the time is the chain's latency.
+// word products for G1 (11 Montgomery products at 13 words) or 1,458 for
+// Edwards (9 at 9 words); the add into the identity is computed, as the
+// function says, and counted.  Bytes: 112 loaded per entry, the bucket's
+// start and length and its output point (144 bytes G1, 128 Edwards, at 12
+// and 8 significant words a coordinate) per bucket.  In practice the loop
+// is a chain of dependent adds: with few buckets (512 at chunk 4) the card
+// is nearly empty and the time is the chain's latency.
 //
 // The add sits in a __noinline__ helper, as in packed.cu and stream.cu:
 // nvcc 12.8's cicc crashes on a runtime-length loop around an inlined
@@ -40,7 +47,8 @@
 #define THREADS 128
 #define ROW_WORDS 32
 
-__device__ __noinline__ void add_row(G1& acc, const int32_t* __restrict__ row) {
+__device__ __noinline__ void add_row(Point& acc,
+                                     const int32_t* __restrict__ row) {
   u32 w[28];
   const int4* v = reinterpret_cast<const int4*>(row);
 #pragma unroll
@@ -51,7 +59,10 @@ __device__ __noinline__ void add_row(G1& acc, const int32_t* __restrict__ row) {
     w[4 * i + 2] = (u32)q.z;
     w[4 * i + 3] = (u32)q.w;
   }
-  g1_add_mixed(acc, acc, w, w + NW);
+  // the row's words are the addend's coordinates in Affine's order (u32
+  // arrays, no padding): read them in place
+  static_assert(sizeof(Affine) <= sizeof(w), "an affine point fits a row");
+  pt_add_mixed(acc, acc, *reinterpret_cast<const Affine*>(w));
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -63,14 +74,14 @@ __global__ void __launch_bounds__(THREADS)
   if (b >= nb) return;
   const int32_t* row = rows + (long long)starts[b] * ROW_WORDS;
   const int len = lens[b];
-  G1 acc;
+  Point acc;
   pt_zero(acc);
   for (int t = 0; t < len; ++t, row += ROW_WORDS) add_row(acc, row);
   pt_store(out, nb, b, acc);
 }
 
 // rows: (count, 32) row-major signed rows; starts/lens: (nb,) segments of
-// rows; out: the (39, nb) canonical bucket plane.
+// rows; out: the (39|36, nb) canonical bucket plane.
 extern "C" int msm_fused_buckets(const int32_t* rows, const int32_t* starts,
                                  const int32_t* lens, int32_t* out,
                                  long long nb, cudaStream_t stream) {

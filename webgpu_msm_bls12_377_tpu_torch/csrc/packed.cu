@@ -19,8 +19,8 @@
 //
 // Bound on this card: products.  A bucket of c nodes needs c - 1 full adds
 // (G1 3,549 word products each, Edwards 1,620; the add into the identity
-// is not counted), against 156 (G1) or 128 (Edwards, 32 bytes a
-// coordinate) bytes read per node.
+// is not counted), against 144 (G1, 48 bytes a coordinate) or 128
+// (Edwards, 32 bytes a coordinate) bytes read per node.
 //
 // The add sits in a __noinline__ helper: with the full add inlined into
 // the runtime-length loop, nvcc 12.8's cicc crashes (segmentation fault)

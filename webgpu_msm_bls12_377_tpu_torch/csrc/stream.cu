@@ -24,9 +24,10 @@
 //
 // Bound on this card: products.  A bucket of c entries needs c - 1 mixed
 // adds (G1 3,211 word products each, Edwards 1,458; the add into the
-// identity is not counted), against 108 (G1) or 100 (Edwards, 32 bytes a
-// coordinate) bytes read per entry (4 of sorted_vals, the rest of the
-// table) and 164 (G1) or 136 (Edwards) bytes per bucket.  In practice the table reads are scattered
+// identity is not counted), against 100 (G1, 48 bytes a coordinate) or
+// 100 (Edwards, 32 bytes a coordinate) bytes read per entry (4 of
+// sorted_vals, the rest of the table) and 152 (G1) or 136 (Edwards) bytes
+// per bucket.  In practice the table reads are scattered
 // columns of a limb-major plane (one 4-byte read per word) and a warp's
 // lanes run different trip counts.
 //

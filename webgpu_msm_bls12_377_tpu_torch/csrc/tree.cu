@@ -19,9 +19,10 @@
 // points, and the adds the hwcd forms.
 //
 // Bound on this card: a G1 aff node costs 2,873 word products (4
-// Montgomery products, 3 paired) for ~316 bytes moved (two 4-byte
-// sorted_vals, two 104-byte table rows, one 156-byte node); a full node
-// 3,549 for 468 bytes.  Edwards: 1,458 word products (9 products of 162)
+// Montgomery products, 3 paired) for ~344 bytes moved (two 4-byte
+// sorted_vals, two 96-byte table rows, one 144-byte node: values below
+// 20p < 2^382 need 12 of a coordinate's 13 words); a full node 3,549 for
+// 432 bytes.  Edwards: 1,458 word products (9 products of 162)
 // for ~328 bytes (two 96-byte rows, one 128-byte node: values below 8p <
 // 2^256 need 8 of a coordinate's 9 words), a full node 1,620 for 384.  At the HBM rate and the float32 multiply-add rate the two
 // limits are within 1.5x, bytes the larger.  In practice the kernel runs

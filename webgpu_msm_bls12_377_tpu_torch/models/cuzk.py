@@ -1,6 +1,7 @@
 """The cuZK MSM engine: tree (hybrid and pure), stream, fused and legacy
-SMVP paths, and batch mode over a fixed point set, for BLS12-377 G1; the
-tree and stream paths and batch mode for Twisted Edwards BLS12.
+SMVP paths, and batch mode over a fixed point set, for BLS12-377 G1 and
+Twisted Edwards BLS12 (the curve's group and field picked once per
+engine).
 
 compute_msm(points, scalars) -> {"x": int, "y": int} runs, on one device:
   1. point prep: wire words -> Montgomery table (kernel 1; for Edwards
@@ -31,10 +32,6 @@ compute_msm(points, scalars) -> {"x": int, "y": int} runs, on one device:
 compute_msm_batch(points, [scalars, ...]) runs step 1 once and steps 2-5
 per scalar set without the host waiting for the device between sets, then
 reads every set's window sums back in one copy.
-For Edwards (the curve's group and field picked once per engine), the
-fused and legacy paths, and so "auto" below chunk 9 (by default below
-2^16), raise NotImplementedError: their Edwards kernels are not ported
-(ROADMAP "Next slices" item 1).
 PyTorch runs eagerly, so the JAX package's plan/main program split, its
 size classes and their host readbacks, and its compile caches have no
 counterpart here; the legacy path's readback stays, since it fixes how
@@ -106,16 +103,6 @@ TREE_MIN_N = 1 << 18
 #: bytes of one wire coordinate
 COORD_BYTES = {CurveId.BLS12_377: 48, CurveId.EDWARDS_BLS12: 32}
 SMVP_MODES = ("auto", "tree", "stream", "legacy", "fused")
-#: paths with no Edwards kernels yet
-ED_NOT_PORTED = ("fused", "legacy")
-
-
-def _edwards_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported for Edwards: the Edwards fused and legacy "
-        "paths, the baseline engines and compute_msm_edwards below 2^16 are "
-        'ROADMAP "Next slices" item 1'
-    )
 
 
 def resolve_device(device) -> torch.device:
@@ -175,10 +162,7 @@ class CuzkMsmEngine:
         and answers at every n; "tree", "stream", "fused" and "legacy"
         force that path at any n and chunk size.  tree_finish is K of the
         hybrid tree; None means 2 under "auto" and the pure tree under an
-        explicit "tree".  For Edwards, "fused" and "legacy" raise
-        NotImplementedError."""
-        if curve == CurveId.EDWARDS_BLS12 and smvp_mode in ED_NOT_PORTED:
-            raise _edwards_not_ported(f'smvp_mode="{smvp_mode}"')
+        explicit "tree"."""
         if num_bpr_threads < 1 or num_bpr_threads & (num_bpr_threads - 1):
             raise ValueError(
                 f"num_bpr_threads must be a power of two, got {num_bpr_threads}"
@@ -208,11 +192,7 @@ class CuzkMsmEngine:
             return self.smvp_mode
         if stream_supported(chunk_size):
             return "tree" if n >= TREE_MIN_N else "stream"
-        path = "fused" if self._fused_ok(chunk_size, n) else "legacy"
-        if self.curve == CurveId.EDWARDS_BLS12:
-            raise _edwards_not_ported(
-                f'smvp_mode="auto" at chunk {chunk_size} (the {path} path)')
-        return path
+        return "fused" if self._fused_ok(chunk_size, n) else "legacy"
 
     @staticmethod
     def _fused_ok(chunk_size: int, n: int) -> bool:
@@ -285,7 +265,7 @@ class CuzkMsmEngine:
                                  self.group)
         if path in ("tree", "stream"):
             return build_signed_table(table, self.group)
-        return make_wide_rows(table) if path == "fused" else table
+        return make_wide_rows(table, self.group) if path == "fused" else table
 
     def _smvp_fn(self, path: str, batch: bool = False):
         if path == "tree":
@@ -352,18 +332,21 @@ class CuzkMsmEngine:
         return self._reduce_blocks(blocks, layout, chunk_size, num_windows)
 
     def _smvp_fused(self, rows, plan, chunk_size, num_windows):
-        n = rows.shape[0]
+        n, group = rows.shape[0], self.group
         if windowed_supported(plan.starts.shape[0], num_windows, n):
             buckets = accumulate_buckets_windowed(
-                rows, plan.sorted_vals, plan.starts, plan.lens, num_windows
+                rows, plan.sorted_vals, plan.starts, plan.lens, num_windows,
+                group
             )
         else:
             buckets = accumulate_buckets_fused(
-                pregather_signed(rows, plan.sorted_vals), plan.starts, plan.lens
+                pregather_signed(rows, plan.sorted_vals, group), plan.starts,
+                plan.lens, group
             )
         order = self._bpr_order(num_windows, chunk_size)
         return reduce_buckets_prearranged(
-            buckets[:, order], num_windows, chunk_size, self.num_bpr_threads
+            buckets[:, order], num_windows, chunk_size, self.num_bpr_threads,
+            group
         )
 
     @staticmethod
@@ -384,10 +367,11 @@ class CuzkMsmEngine:
             idx = torch.as_tensor(window_slice_indices(windows, h),
                                   device=self.device)
             plan_g = BucketPlan(plan.sorted_vals, plan.starts[idx], plan.lens[idx])
-            buckets = accumulate_buckets(table, plan_g, rounds)
+            buckets = accumulate_buckets(table, plan_g, rounds, self.group)
             order = self._bpr_order(len(windows), chunk_size)
             wsums[:, list(windows)] = reduce_buckets_prearranged(
-                buckets[:, order], len(windows), chunk_size, self.num_bpr_threads
+                buckets[:, order], len(windows), chunk_size,
+                self.num_bpr_threads, self.group
             )
         return wsums
 

@@ -7,7 +7,8 @@ scalar words, least significant first), then the products are folded with
 a log-depth tree of kernel 7's fused_add and leave the Montgomery domain
 through kernel 1.  It costs ~256 point operations per point against the
 cuZK pipeline's ~16, and is a correctness and throughput baseline only.
-All of it runs in the canonical domain.
+All of it runs in the canonical domain, for either curve (the group picks
+the planes and the kernels' builds).
 """
 
 from __future__ import annotations
@@ -18,64 +19,61 @@ import torch
 from ..ops import curve as C
 from ..ops.kernels import fused_add, masked_add_and_double, mont_mul_const
 from ..params import CurveId
-from .cuzk import (
-    _edwards_not_ported,
-    mont_point_table,
-    resolve_device,
-    words_to_device,
-)
+from .cuzk import mont_point_table, resolve_device, words_to_device
 
 SCALAR_BITS = 256
 G1 = C.G1
 
 
-def batched_scalar_mult(table: torch.Tensor, scalar_words: torch.Tensor):
-    """k_i * P_i for every lane: table (26, N) Montgomery affine (x; y),
-    scalar_words (8, N) int32 (the u32 bits).  Returns the (39, N)
-    canonical projective plane."""
+def batched_scalar_mult(table: torch.Tensor, scalar_words: torch.Tensor,
+                        group=G1):
+    """k_i * P_i for every lane: table the Montgomery affine plane (G1
+    (26, N) (x; y), Edwards (27, N) (x; y; t)), scalar_words (8, N) int32
+    (the u32 bits).  Returns the (39|36, N) canonical plane."""
     n = table.shape[1]
-    acc = C.merge(G1.zero(n, table.device))
-    temp = C.merge(G1.from_affine((table[: C.NW], table[C.NW :])))
+    acc = C.merge(group.zero(n, table.device))
+    temp = C.merge(group.from_affine(group.split_aff(table)))
     for t in range(SCALAR_BITS):
         bit = (scalar_words[t // 32] >> (t % 32)) & 1
-        acc, temp = masked_add_and_double(acc, temp, bit)
+        acc, temp = masked_add_and_double(acc, temp, bit, group)
     return acc
 
 
-def tree_sum(points: torch.Tensor) -> torch.Tensor:
-    """Fold the lanes of a (39, N) plane into lane 0 with log2(N) batched
-    adds (N a power of two)."""
+def tree_sum(points: torch.Tensor, group=G1) -> torch.Tensor:
+    """Fold the lanes of a (39|36, N) plane into lane 0 with log2(N)
+    batched adds (N a power of two)."""
     width = points.shape[1]
     if width & (width - 1):
         raise ValueError(f"tree_sum needs a power-of-two width, got {width}")
     while width > 1:
         half = width // 2
         points = fused_add(points[:, :half].contiguous(),
-                           points[:, half:width].contiguous())
+                           points[:, half:width].contiguous(), group)
         width = half
     return points
 
 
 class NaiveMsmEngine:
-    """Baseline MSM engine: build_fn() gives the device function, as the
-    JAX class does.  BLS12-377 only: the Edwards canonical kernels are not
-    ported."""
+    """Baseline MSM engine for one curve: build_fn() gives the device
+    function, as the JAX class does."""
 
     def __init__(self, curve: CurveId = CurveId.BLS12_377, *, device=None):
-        if curve != CurveId.BLS12_377:
-            raise _edwards_not_ported("NaiveMsmEngine")
         self.curve = curve
+        self.group = C.group_ops(curve)
         self.device = resolve_device(device)
 
     def build_fn(self):
-        """fn(point_words (2, 12, N) uint32, scalar_words (8, N) uint32),
-        host arrays, N a power of two -> (39, 1) canonical projective sum
-        in plain (non-Montgomery) form, on the device."""
+        """fn(point_words (2, 12|8, N) uint32, scalar_words (8, N) uint32),
+        host arrays, N a power of two -> the (39|36, 1) canonical sum (G1
+        projective, Edwards extended) in plain (non-Montgomery) form, on
+        the device."""
+        group = self.group
 
         def fn(point_words: np.ndarray, scalar_words: np.ndarray):
-            table = mont_point_table(words_to_device(point_words, self.device))
+            table = mont_point_table(words_to_device(point_words, self.device),
+                                     group)
             sw = words_to_device(scalar_words, self.device)
-            total = tree_sum(batched_scalar_mult(table, sw))
-            return mont_mul_const(total, 1)
+            total = tree_sum(batched_scalar_mult(table, sw, group), group)
+            return mont_mul_const(total, 1, group.ctx)
 
         return fn

@@ -11,16 +11,14 @@ package's models/pippenger.py does.
 from __future__ import annotations
 
 from ..params import CurveId
-from .cuzk import CuzkMsmEngine, _edwards_not_ported
+from .cuzk import CuzkMsmEngine
 
 
 class PippengerMsmEngine(CuzkMsmEngine):
-    """CuzkMsmEngine pinned to smvp_mode="legacy"; same public surface.
-    BLS12-377 only: the Edwards legacy kernel is not ported."""
+    """CuzkMsmEngine pinned to smvp_mode="legacy", for either curve; same
+    public surface."""
 
     def __init__(self, curve: CurveId = CurveId.BLS12_377, **kwargs):
-        if curve == CurveId.EDWARDS_BLS12:
-            raise _edwards_not_ported("PippengerMsmEngine")
         kwargs.setdefault("smvp_mode", "legacy")
         if kwargs["smvp_mode"] != "legacy":
             raise ValueError(

@@ -11,11 +11,12 @@ the JAX package's lax.sort is, so the plan matches it entry for entry.
 
 accumulate_buckets is the legacy SMVP over such a plan: every bucket of a
 window group advances in lockstep, round t adding entry t of each bucket
-with kernel 6 (the masked canonical mixed add).  The point table stays the
-limb-major (26, N) plane: a round's column gather yields the (26, B)
-operand the kernel reads, so the JAX package's row-major copy
-(table_to_rows) is not needed, and neither is its batching of several
-rounds' gathers into one (GATHER_BATCH, a TPU gather-latency device).
+with kernel 6 (the masked canonical mixed add), for either curve.  The
+point table stays the limb-major (26|27, N) plane: a round's column
+gather yields the (26|27, B) operand the kernel reads, so the JAX
+package's row-major copy (table_to_rows) is not needed, and neither is
+its batching of several rounds' gathers into one (GATHER_BATCH, a TPU
+gather-latency device).
 """
 
 from __future__ import annotations
@@ -85,22 +86,23 @@ def window_slice_indices(windows, h: int) -> np.ndarray:
 
 
 def accumulate_buckets(
-    table: torch.Tensor, plan: BucketPlan, num_rounds: int
+    table: torch.Tensor, plan: BucketPlan, num_rounds: int, group=C.G1
 ) -> torch.Tensor:
     """Legacy SMVP: per-bucket signed point sums in lockstep rounds.
 
-    table: (26, N) Montgomery affine (x; y) plane; plan.starts / plan.lens
-    may cover a subset of the buckets; num_rounds must be at least the
-    longest of them (round_class).  Returns the (39, B) canonical bucket
-    plane in the order of plan.starts (empty buckets: the identity)."""
+    table: Montgomery affine plane, G1 (26, N) (x; y) or Edwards (27, N)
+    (x; y; t); plan.starts / plan.lens may cover a subset of the buckets;
+    num_rounds must be at least the longest of them (round_class).  Returns
+    the (39|36, B) canonical bucket plane in the order of plan.starts
+    (empty buckets: the identity)."""
     num_buckets = plan.starts.shape[0]
     total = plan.sorted_vals.shape[0]
     starts = plan.starts.to(torch.int64)
-    acc = C.merge(C.G1.zero(num_buckets, table.device))
+    acc = C.merge(group.zero(num_buckets, table.device))
     for t in range(num_rounds):
         v = plan.sorted_vals[(starts + t).clamp(max=total - 1)]
         aff = table[:, (v & IDX_MASK).to(torch.int64)]
         sign_pos = (v >> SIGN_BIT) & 1
         valid = (t < plan.lens).to(torch.int32)
-        acc = masked_add_mixed(acc, aff, sign_pos, valid)
+        acc = masked_add_mixed(acc, aff, sign_pos, valid, group)
     return acc

@@ -1,5 +1,5 @@
-"""Point formulas, plain PyTorch: BLS12-377 G1 (lazy and canonical
-domain) and Twisted Edwards BLS12 (lazy domain).
+"""Point formulas, plain PyTorch: BLS12-377 G1 and Twisted Edwards BLS12,
+each in the lazy and the canonical domain.
 
 Complete projective formulas of Renes-Costello-Batina 2016 (a = 0,
 b3 = 3) in Montgomery form, in the exact operation order of the JAX
@@ -18,13 +18,16 @@ merged (39, N) plane (coordinate c at rows [13c, 13c + 13)).
 
 EdwardsOps: the extended twisted-Edwards hwcd formulas (a = -1, d =
 3021) over the 9-word Edwards field, in the exact operation order of the
-JAX package's ops/curve.py:EdwardsOps lazy forms; a point batch is an
-ExtEd of four (9, N) planes (merged: (36, N)), an affine addend the triple
-(x, y, t = x*y) (merged: (27, N)).  hwcd has no paired-product form.
+JAX package's ops/curve.py:EdwardsOps (the lazy forms, and the canonical
+add / add_mixed / double, complete for a = -1 with d a non-square, so no
+lane needs an identity select); a point batch is an ExtEd of four (9, N)
+planes (merged: (36, N)), an affine addend the triple (x, y, t = x*y)
+(merged: (27, N)).  hwcd has no paired-product form.
 
 Both classes carry the vocabulary the kernels' plain forms use: ctx,
-rows / aff_rows, split / split_aff, zero, from_affine, neg_affine,
-add_affine_lazy, add_mixed_lazy, add_lazy, double_lazy, canon, select.
+rows / aff_rows, signed_coords, split / split_aff, zero, from_affine,
+neg_affine, add_affine_lazy, add_mixed_lazy, add_lazy, double_lazy, canon,
+select, and the canonical add, add_mixed, double, neg and is_zero.
 """
 
 from __future__ import annotations
@@ -69,6 +72,8 @@ class G1Ops:
     ctx = G1_CTX
     rows = N_COORDS * NW
     aff_rows = 2 * NW
+    #: the affine coordinates that change sign with the point
+    signed_coords = (1,)
 
     @staticmethod
     def split(plane: torch.Tensor) -> ProjG1:
@@ -100,6 +105,12 @@ class G1Ops:
         """(x, y) -> (x, -y) for canonical y."""
         x, y = aff
         return (x, F.field_neg(y))
+
+    def neg(self, p: ProjG1) -> ProjG1:
+        """(X : Y : Z) -> (X : -Y : Z) for canonical Y; lanes at infinity
+        pass through, as in the JAX package."""
+        return self.select(self.is_zero(p), p,
+                           ProjG1(p.x, F.field_neg(p.y), p.z))
 
     def add_mixed_lazy(self, p1: ProjG1, aff) -> ProjG1:
         """Mixed add: accumulator < 4p, affine addend canonical and not the
@@ -290,7 +301,8 @@ class ExtEd(NamedTuple):
 
 
 class EdwardsOps:
-    """Batched lazy-domain Edwards group ops over Montgomery word planes.
+    """Batched Edwards group ops over Montgomery word planes, lazy and
+    canonical.
 
     Lazy forms (comments: "b<=k", value < k*p): every coordinate handed on
     is below 2p (LAZY_BOUND), affine addends are canonical.  REDC outputs
@@ -305,6 +317,7 @@ class EdwardsOps:
     LAZY_BOUND = 2
     rows = 4 * ED_CTX.nw
     aff_rows = 3 * ED_CTX.nw
+    signed_coords = (0, 2)
 
     @staticmethod
     def split(plane: torch.Tensor) -> ExtEd:
@@ -416,6 +429,64 @@ class EdwardsOps:
         """Lazy point (coords < 2p) -> canonical coords: one conditional
         subtract of p each."""
         return ExtEd(*(F.field_canon(c, self.LAZY_BOUND, ED_CTX) for c in p))
+
+    # -- canonical domain (coordinates < p in, < p out) ----------------------
+
+    @staticmethod
+    def is_zero(p: ExtEd) -> torch.Tensor:
+        """(N,) mask of the identity lanes (x == 0 and y == z), canonical
+        coordinates."""
+        return F.is_zero(p.x) & F.is_zero(F.field_sub(p.y, p.z, ED_CTX))
+
+    @staticmethod
+    def neg(p: ExtEd) -> ExtEd:
+        """(x : y : t : z) -> (-x : y : -t : z) for canonical x, t."""
+        return ExtEd(F.field_neg(p.x, ED_CTX), p.y, F.field_neg(p.t, ED_CTX),
+                     p.z)
+
+    def _add_core(self, p1: ExtEd, p2, dd) -> ExtEd:
+        """add-2008-hwcd with a = -1 folded in (h = b + a), dd the z-term;
+        canonical throughout."""
+        ctx = ED_CTX
+        mm = lambda u, v: F.mont_mul_canon(u, v, ctx)  # noqa: E731
+        fa = lambda u, v: F.field_add(u, v, ctx)  # noqa: E731
+        fs = lambda u, v: F.field_sub(u, v, ctx)  # noqa: E731
+        x2, y2, t2 = p2[:3]
+        a = mm(p1.x, x2)
+        b = mm(p1.y, y2)
+        c = mm(self._d(a.device), mm(p1.t, t2))
+        e = fs(fs(mm(fa(p1.x, p1.y), fa(x2, y2)), a), b)
+        f = fs(dd, c)
+        g = fa(dd, c)
+        h = fa(b, a)
+        return ExtEd(mm(e, f), mm(g, h), mm(e, h), mm(f, g))
+
+    def add(self, p1: ExtEd, p2: ExtEd) -> ExtEd:
+        """Complete extended add: 10 products."""
+        return self._add_core(p1, p2, F.mont_mul_canon(p1.z, p2.z, ED_CTX))
+
+    def add_mixed(self, p1: ExtEd, aff) -> ExtEd:
+        """Complete mixed add of an affine (x, y, t) addend (z2 = 1: the
+        z-term is z1): 9 products."""
+        return self._add_core(p1, aff, p1.z)
+
+    def double(self, p1: ExtEd) -> ExtEd:
+        """dbl-2008-hwcd (a = -1, d-term -a): 8 products."""
+        ctx = ED_CTX
+        mm = lambda u, v: F.mont_mul_canon(u, v, ctx)  # noqa: E731
+        fa = lambda u, v: F.field_add(u, v, ctx)  # noqa: E731
+        fs = lambda u, v: F.field_sub(u, v, ctx)  # noqa: E731
+        a = mm(p1.x, p1.x)
+        b = mm(p1.y, p1.y)
+        zz = mm(p1.z, p1.z)
+        c = fa(zz, zz)
+        d = F.field_neg(a, ctx)
+        xy = fa(p1.x, p1.y)
+        e = fs(fs(mm(xy, xy), a), b)
+        g = fa(d, b)
+        f = fs(g, c)
+        h = fs(d, b)
+        return ExtEd(mm(e, f), mm(g, h), mm(e, h), mm(f, g))
 
     @staticmethod
     def select(mask: torch.Tensor, a, b) -> ExtEd:

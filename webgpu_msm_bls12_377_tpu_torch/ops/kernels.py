@@ -4,10 +4,10 @@ BPR family), 6 (legacy SMVP round) and 7 (canonical add, double-and-add
 step, running-sum step).
 
 Every kernel source under csrc/ is compiled by nvcc for sm_90a into a
-shared library with a plain C interface, loaded with ctypes; the sources
-of ED_SOURCES are compiled a second time with -DMSM_CURVE_ED, for the
-Edwards field and curve (libmsm_<source>_ed.so).  The build runs at first
-use, one nvcc per library, all started together, into
+shared library with a plain C interface, loaded with ctypes, and a second
+time with -DMSM_CURVE_ED, for the Edwards field and curve
+(libmsm_<source>_ed.so): 16 libraries, 29 entry points.  The build runs
+at first use, one nvcc per library, all started together, into
 <repo>/build/kernels/<hash of the sources>/ (listed in .gitignore), so a
 fresh checkout builds everything the first time a kernel launches and a
 changed source never reuses a stale library.  Importing this module
@@ -17,9 +17,9 @@ Every wrapper takes the plain PyTorch form of its kernel when its tensors
 lie on the CPU, launches the kernel on PyTorch's current stream when they
 lie on a CUDA device, and raises otherwise; it adds one to
 ``launches[name]`` for every kernel launch, so a run can show which
-kernels it went through.  Wrappers of kernels built for both curves take
-the group (ops/curve.py: G1, the default, or EDWARDS) or the field; an
-Edwards launch counts under the name with "_ed" appended.
+kernels it went through.  Wrappers take the group (ops/curve.py: G1, the
+default, or EDWARDS) or the field; an Edwards launch counts under the name
+with "_ed" appended.
 """
 
 from __future__ import annotations
@@ -40,17 +40,16 @@ import torch
 from . import curve as C
 from . import field as F
 from .curve import G1
-from .field import ED_CTX, G1_CTX, NW, FieldCtx
+from .field import ED_CTX, G1_CTX, FieldCtx
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("convert", "tree", "packed", "bpr", "stream", "legacy", "canon",
            "fused")
-#: sources built a second time for Edwards: the rows on its main path
-ED_SOURCES = ("convert", "tree", "packed", "bpr", "stream")
-#: every library: (library name, source, extra nvcc flags)
+#: every library, each source for G1 and for Edwards: (library name,
+#: source, extra nvcc flags)
 LIBRARIES = tuple((s, s, ()) for s in SOURCES) + tuple(
-    (s + ED_CTX.tag, s, ("-DMSM_CURVE_ED",)) for s in ED_SOURCES)
+    (s + ED_CTX.tag, s, ("-DMSM_CURVE_ED",)) for s in SOURCES)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -95,7 +94,7 @@ _ARGTYPES = {
         "msm_fused_buckets": [_P, _P, _P, _P, _I64, _P],
     },
 }
-_ARGTYPES.update({s + ED_CTX.tag: dict(_ARGTYPES[s]) for s in ED_SOURCES})
+_ARGTYPES.update({s + ED_CTX.tag: dict(_ARGTYPES[s]) for s in SOURCES})
 _ARGTYPES["convert" + ED_CTX.tag]["msm_mont_mul_lanes"] = [_P, _P, _P, _I64, _P]
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -283,10 +282,6 @@ def mont_mul_lanes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # Edwards)
 # ---------------------------------------------------------------------------
 
-ROWS = C.N_COORDS * NW
-AFF_ROWS = 2 * NW
-
-
 def running_add_plain(m, g, b, group=G1):
     m2 = group.add_lazy(group.split(m), group.split(b))
     g2 = group.add_lazy(group.split(g), m2)
@@ -369,90 +364,97 @@ def bpr_add(a, b, group=G1):
 # ---------------------------------------------------------------------------
 
 
-def masked_add_mixed_plain(acc, aff, sign_pos, valid):
-    x, y = aff[:NW], aff[NW:]
-    signed = (x, torch.where((sign_pos != 0)[None], y, F.field_neg(y)))
-    new = G1.add_mixed(C.split(acc), signed)
-    return C.merge(G1.select(valid != 0, new, C.split(acc)))
+def masked_add_mixed_plain(acc, aff, sign_pos, valid, group=G1):
+    parts = group.split_aff(aff)
+    neg = group.neg_affine(parts)
+    pos = (sign_pos != 0)[None]
+    signed = tuple(torch.where(pos, a, b) for a, b in zip(parts, neg))
+    new = group.add_mixed(group.split(acc), signed)
+    return C.merge(group.select(valid != 0, new, group.split(acc)))
 
 
-def masked_add_mixed(acc, aff, sign_pos, valid):
+def masked_add_mixed(acc, aff, sign_pos, valid, group=G1):
     """select(valid, acc + (sign_pos ? aff : -aff), acc), the canonical
-    complete mixed add: acc (39, B) canonical, aff (26, B) canonical
+    complete mixed add: acc (39|36, B) canonical, aff (26|27, B) canonical
     affine points (never the identity on a valid lane), sign_pos and valid
     (B,) int32."""
-    n = check_plane(acc, ROWS)
-    check_plane(aff, AFF_ROWS, n)
+    n = check_plane(acc, group.rows)
+    check_plane(aff, group.aff_rows, n)
     for t in (sign_pos, valid):
         if t.shape != (n,):
             raise ValueError(f"lane flags must be ({n},), got {tuple(t.shape)}")
     if not on_cuda(acc, aff, sign_pos, valid):
-        return masked_add_mixed_plain(acc, aff, sign_pos, valid)
+        return masked_add_mixed_plain(acc, aff, sign_pos, valid, group)
     out = torch.empty_like(acc)
-    launch("legacy", "msm_masked_add_mixed", "masked_add_mixed", n,
+    tag = group.ctx.tag
+    launch("legacy" + tag, "msm_masked_add_mixed", "masked_add_mixed" + tag, n,
            acc.data_ptr(), aff.data_ptr(), sign_pos.data_ptr(),
            valid.data_ptr(), out.data_ptr(), n)
     return out
 
 
 # ---------------------------------------------------------------------------
-# Kernel 7: the canonical-domain kernels on (39, L) planes below p
+# Kernel 7: the canonical-domain kernels on (39|36, L) planes below p
 # ---------------------------------------------------------------------------
 
 
-def fused_add_plain(a, b):
-    return C.merge(G1.add(C.split(a), C.split(b)))
+def fused_add_plain(a, b, group=G1):
+    return C.merge(group.add(group.split(a), group.split(b)))
 
 
-def masked_add_and_double_plain(r, t, bits):
-    added = G1.add(C.split(r), C.split(t))
-    res = G1.select(bits != 0, added, C.split(r))
-    return C.merge(res), C.merge(G1.double(C.split(t)))
+def masked_add_and_double_plain(r, t, bits, group=G1):
+    added = group.add(group.split(r), group.split(t))
+    res = group.select(bits != 0, added, group.split(r))
+    return C.merge(res), C.merge(group.double(group.split(t)))
 
 
-def fused_running_add_plain(m, g, b):
-    m2 = G1.add(C.split(m), C.split(b))
-    g2 = G1.add(C.split(g), m2)
+def fused_running_add_plain(m, g, b, group=G1):
+    m2 = group.add(group.split(m), group.split(b))
+    g2 = group.add(group.split(g), m2)
     return C.merge(m2), C.merge(g2)
 
 
-def fused_add(a, b):
+def fused_add(a, b, group=G1):
     """Canonical complete add of every lane."""
-    n = check_plane(a, ROWS)
-    check_plane(b, ROWS, n)
+    n = check_plane(a, group.rows)
+    check_plane(b, group.rows, n)
     if not on_cuda(a, b):
-        return fused_add_plain(a, b)
+        return fused_add_plain(a, b, group)
     out = torch.empty_like(a)
-    launch("canon", "msm_fused_add", "fused_add", n,
+    tag = group.ctx.tag
+    launch("canon" + tag, "msm_fused_add", "fused_add" + tag, n,
            a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
     return out
 
 
-def masked_add_and_double(r, t, bits):
+def masked_add_and_double(r, t, bits, group=G1):
     """One canonical double-and-add step: (bit ? r + t : r, 2t); bits (L,)
     int32."""
-    n = check_plane(r, ROWS)
-    check_plane(t, ROWS, n)
+    n = check_plane(r, group.rows)
+    check_plane(t, group.rows, n)
     if bits.shape != (n,):
         raise ValueError(f"bits must be ({n},), got {tuple(bits.shape)}")
     if not on_cuda(r, t, bits):
-        return masked_add_and_double_plain(r, t, bits)
+        return masked_add_and_double_plain(r, t, bits, group)
     r2, t2 = torch.empty_like(r), torch.empty_like(t)
-    launch("canon", "msm_masked_add_and_double", "masked_add_and_double", n,
+    tag = group.ctx.tag
+    launch("canon" + tag, "msm_masked_add_and_double",
+           "masked_add_and_double" + tag, n,
            r.data_ptr(), t.data_ptr(), bits.data_ptr(), r2.data_ptr(),
            t2.data_ptr(), n)
     return r2, t2
 
 
-def fused_running_add(m, g, b):
+def fused_running_add(m, g, b, group=G1):
     """One canonical running-sum step: (m + b, g + (m + b))."""
-    n = check_plane(m, ROWS)
+    n = check_plane(m, group.rows)
     for t in (g, b):
-        check_plane(t, ROWS, n)
+        check_plane(t, group.rows, n)
     if not on_cuda(m, g, b):
-        return fused_running_add_plain(m, g, b)
+        return fused_running_add_plain(m, g, b, group)
     m2, g2 = torch.empty_like(m), torch.empty_like(g)
-    launch("canon", "msm_fused_running_add", "fused_running_add", n,
+    tag = group.ctx.tag
+    launch("canon" + tag, "msm_fused_running_add", "fused_running_add" + tag, n,
            m.data_ptr(), g.data_ptr(), b.data_ptr(), m2.data_ptr(),
            g2.data_ptr(), n)
     return m2, g2
