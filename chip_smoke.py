@@ -12,12 +12,15 @@ Phases, each of which fails the run on any error:
   2. every kernel entry point, both curves, against its plain PyTorch form
      on random inputs of a few thousand lanes (identity, equal and inverse
      operands among the canonical family's), and on a small real plan for
-     the tree, finish, stream and fused kernels: bit-exact equality;
+     the tree, finish, stream and fused kernels (the fused path's two
+     passes: kernel 8 over pieces of at most PIECE rows, and the fold
+     through kernel 2's full levels): bit-exact equality;
   3. every path through the entry points a user calls, on the
      distinct-point bench cases held against the pinned goldens in
      test-data/goldens.json: compute_msm with default options at 2^10 and
      2^14 (fused path, chunk 4), 2^16 and 2^17 (stream path, chunk 15),
-     2^18 and 2^20 (hybrid tree, chunk 15 and 16); beside the 2^14 default,
+     2^18 and 2^20 (hybrid tree, chunk 15 and 16), and at 2^20 again from
+     the reference's wire bytes; beside the 2^14 default,
      the same case forced through the legacy path (chunk 4) and the stream
      path (chunks 9 and 13); the fused path forced at 2^16 and chunk 15;
      the pure tree forced at 2^18;
@@ -27,7 +30,8 @@ Phases, each of which fails the run on any error:
      2^20 (tree) against the pinned batch goldens and of 4 sets at 2^17
      (stream) against compute_msm per set, each with PyTorch's sync debug
      mode raising on any wait for the device between sets.  Edwards:
-     compute_msm_edwards with default options at the same six sizes, the
+     compute_msm_edwards with default options at the same six sizes and
+     from wire bytes at 2^20, the
      2^14 case forced through legacy, Pippenger, naive and the chain at
      2^16, the pure tree forced at 2^18 and a batch of 8 sets at 2^20,
      against the edwards_bls12 goldens from 2^16 and below that against
@@ -37,19 +41,20 @@ Phases, each of which fails the run on any error:
      zeroed just before, read just after); every path must launch the
      kernels it names, and together the paths cover every kernel;
   4. one more run of each path (2^20 tree, 2^17 stream, 2^16 legacy, 2^16
-     naive, the chain, 2^10 and forced 2^16 fused, 2^18 pure tree; Edwards
-     2^20 tree, 2^17 stream, 2^16 legacy, naive and chain, 2^10 fused) in
-     which every kernel launch is timed with CUDA events and repeated
-     with its plain form on the same inputs, which must agree bit for
-     bit: per-kernel time, plain time and the bound (least time for the
-     same work on an H100 SXM).  The plain forms of the lane-wise kernels
-     (1, the BPR and canonical families, the legacy round) are replayed
-     from CUDA graphs, one captured per shape; the fused kernel's plain
-     form runs one lockstep round per entry of the longest bucket
-     (hundreds at the 2^10 default shape, 8,188 at 2^14's), each round
-     replayed from a CUDA graph; phase 2 holds both replays against the
+     naive, the chain, 2^10 and 2^14 default fused, the forced fused run
+     at 2^16 and chunk 15, 2^18 pure tree; Edwards 2^20 tree, 2^17
+     stream, 2^16 legacy, naive and chain, 2^10 and 2^14 fused) in which
+     every kernel launch is timed with
+     CUDA events and repeated with its plain form on the same inputs,
+     which must agree bit for bit: per-kernel time, plain time and the
+     bound (least time for the same work on an H100 SXM); the stream
+     kernel five more times.  The plain forms of the lane-wise kernels (1, the
+     BPR and canonical families, the legacy round) are replayed from CUDA
+     graphs, one captured per shape, and kernel 8's round from one graph a
+     launch (fused_plain_graphed); phase 2 holds the replays against the
      plain forms run eagerly;
-  5. one more 2^20, 2^17, 2^16, 2^14, Edwards 2^20 and Edwards 2^14 MSM
+  5. one more 2^20, 2^20 from wire bytes, 2^17, 2^16, 2^14, Edwards 2^20
+     (also from wire bytes) and Edwards 2^14 MSM
      with every engine stage fenced and timed, and one more 2^20 batch
      fenced as shared prep, per-set stages, and readback with Horner; the
      engine's host-to-device copy of the 2^20 words beside one plain
@@ -167,17 +172,19 @@ PATHS = {
     "running_sum": ("fused_running_add", "bpr_running_add"),
     # default options at 2^10 and 2^14: chunk 4 has 8 buckets a window,
     # one per BPR lane, so BPR runs no running add and no pre-double; the
-    # fused kernel's row is the 2^10 run's (phase 4 replays its plain form
-    # once per entry of the longest bucket: hundreds of rounds, not 8,188)
-    "fused_10": ("fused_buckets", "mont_mul_const", "bpr_masked_add_double",
-                 "bpr_add"),
-    "fused": ("fused_buckets", "mont_mul_const", "bpr_masked_add_double",
-              "bpr_add"),
+    # fused kernel's row is the 2^10 run's (phase 4 times the 2^14 run
+    # too); the fused paths fold each bucket's pieces with kernel 2's full
+    # levels
+    "fused_10": ("fused_buckets", "tree_level_full", "mont_mul_const",
+                 "bpr_masked_add_double", "bpr_add"),
+    "fused": ("fused_buckets", "tree_level_full", "mont_mul_const",
+              "bpr_masked_add_double", "bpr_add"),
     # the 2^14 case forced off its default path, for the times alone
     "legacy_14": ("masked_add_mixed", "mont_mul_const",
                   "bpr_masked_add_double", "bpr_add"),
     "stream_14": ("stream_buckets", "mont_mul_const"),
-    "fused_forced": ("fused_buckets", "mont_mul_const", *BPR),
+    "fused_forced": ("fused_buckets", "tree_level_full", "mont_mul_const",
+                     *BPR),
     "pure_tree": ("tree_level_aff", "tree_level_full", "mont_mul_const", *BPR),
     "ed_tree": (*PREP_ED, "tree_level_aff_ed", "tree_level_full_ed",
                 "packed_finish_ed", *BPR_ED),
@@ -190,11 +197,13 @@ PATHS = {
     "ed_legacy": ("masked_add_mixed_ed", *PREP_ED, *BPR_ED),
     "ed_naive": ("masked_add_and_double_ed", "fused_add_ed", *PREP_ED),
     "ed_running_sum": ("fused_running_add_ed", "bpr_running_add_ed"),
-    "ed_fused_10": ("fused_buckets_ed", *PREP_ED, "bpr_masked_add_double_ed",
-                    "bpr_add_ed"),
+    "ed_fused_10": ("fused_buckets_ed", "tree_level_full_ed", *PREP_ED,
+                    "bpr_masked_add_double_ed", "bpr_add_ed"),
 }
 PATHS["batch_tree"], PATHS["batch_stream"] = PATHS["tree"], PATHS["stream"]
 PATHS["ed_batch_tree"] = PATHS["ed_tree"]
+# the 2^20 cases again from the reference's wire bytes
+PATHS["wire_tree"], PATHS["ed_wire_tree"] = PATHS["tree"], PATHS["ed_tree"]
 PATHS["ed_fused"] = PATHS["ed_fused_10"]
 PATHS["ed_legacy_14"] = ("masked_add_mixed_ed", *PREP_ED,
                          "bpr_masked_add_double_ed", "bpr_add_ed")
@@ -231,8 +240,8 @@ def lazy_kernel_cases(rng, group, n=4096):
     """Phase 2 for the kernels both curves build: kernel 1 (entry and
     exit; for Edwards also the lane-wise product), the BPR family on lazy
     operands, and on a small real plan (2048 points, chunk 8, K = 2) tree
-    levels 1 and 2, the packed finish and the stream kernel.  Returns
-    (cases, signed table, plan, points, windows)."""
+    levels 1 and 2, the packed finish and the stream kernel.  Returns (cases, Montgomery table, signed table,
+    plan, windows)."""
     import torch
 
     from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
@@ -277,8 +286,8 @@ def lazy_kernel_cases(rng, group, n=4096):
             cases.append((name + tag, x, y))
     # a small real plan: 2048 points, chunk 8, K = 2
     npts, chunk, windows = 2048, 8, 32
-    table = S.build_signed_table(rand_plane(rng, group.aff_rows, npts, p, nw),
-                                 group)
+    points = rand_plane(rng, group.aff_rows, npts, p, nw)
+    table = S.build_signed_table(points, group)
     sw = torch.tensor(
         [[rng.randrange(1 << 32) for _ in range(npts)] for _ in range(8)],
         dtype=torch.int64,
@@ -319,7 +328,7 @@ def lazy_kernel_cases(rng, group, n=4096):
                                             layout.starts_rk, layout.lens_rk,
                                             group),
     ))
-    return cases, table, plan, npts, windows
+    return cases, points, plan, windows
 
 
 def edge_lanes(group, a, b):
@@ -334,13 +343,15 @@ def edge_lanes(group, a, b):
     return b
 
 
-def canonical_kernel_cases(rng, group, table, plan, npts, windows, n=4096):
-    """Phase 2 for kernels 6, 7 and 8 of one curve: the fused SMVP on the
-    small real plan of lazy_kernel_cases (empty, short and long buckets),
-    in one launch and window by window, then on hand-made segments over
-    random rows (empty, length 1, long, overlapping); the legacy round and
-    the canonical family on random canonical lanes, identity, equal and
-    inverse operands among them."""
+def canonical_kernel_cases(rng, group, points, plan, windows, n=4096):
+    """Phase 2 for kernels 6, 7 and 8 of one curve: the fused path on the
+    small real plan of lazy_kernel_cases (empty, short and long buckets):
+    kernel 8 over its pieces, the fold, both passes in one dispatch and
+    window by window against the same functions run with their plain
+    forms (plain_passes), and kernel 8 on hand-made segments over random rows (empty,
+    length 1, long, overlapping); the legacy round and the canonical family
+    on random canonical lanes, identity, equal and inverse operands among
+    them."""
     import torch
 
     from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
@@ -349,15 +360,32 @@ def canonical_kernel_cases(rng, group, table, plan, npts, windows, n=4096):
     ctx, tag = group.ctx, group.ctx.tag
     nw, p = ctx.nw, ctx.p
     cases = []
-    wide = SK.make_wide_rows(table[:, :npts].contiguous(), group)
+    wide = SK.make_wide_rows(points, group)
     gathered = SK.pregather_signed(wide, plan.sorted_vals, group)
-    if int(plan.lens.min()) != 0 or int(plan.lens.max()) <= 64:
+    npts = points.shape[1]
+    if int(plan.lens.min()) != 0 or int(plan.lens.max()) <= 2 * SK.PIECE:
         raise SystemExit("the fused plan lacks an empty or a long bucket")
-    want = SK.accumulate_buckets_fused_plain(gathered, plan.starts, plan.lens,
-                                             group)
+    pp = SK.piece_plan(plan.starts, plan.lens, gathered.shape[0], npts)
+    sums = SK.fused_segments(gathered, pp.starts, pp.lens, group)
     name = "fused_buckets" + tag
+    sums_plain = SK.accumulate_buckets_fused_plain(gathered, pp.starts,
+                                                   pp.lens, group)
+    cases.append((name, sums, sums_plain))
+    # the plain form as phase 4 runs it (its round replayed from a CUDA
+    # graph) against the plain form run eagerly
+    cases.append((name, fused_plain_graphed(gathered, pp.starts, pp.lens,
+                                            group), sums_plain))
+    with plain_passes():
+        fold_want = SK.fold_pieces(sums, pp.counts, pp.offsets, pp.caps,
+                                   group)[0]
+        want = SK.accumulate_buckets_fused(gathered, plan.starts, plan.lens,
+                                           group, max_len=npts)
+    cases.append(("tree_level_full" + tag, SK.fold_pieces(
+        sums, pp.counts, pp.offsets, pp.caps, group)[0], fold_want))
     cases.append((name, SK.accumulate_buckets_fused(
-        gathered, plan.starts, plan.lens, group), want))
+        gathered, plan.starts, plan.lens, group, max_len=npts), want))
+    # kernel 8 window by window, then one fold: a bucket's pieces fold in
+    # the same pairs, the same words as one dispatch
     cases.append((name, SK.accumulate_buckets_windowed(
         wide, plan.sorted_vals, plan.starts, plan.lens, windows, group), want))
     rrows = torch.zeros((600, SK.ROW_WORDS), dtype=torch.int32, device=DEV)
@@ -366,13 +394,9 @@ def canonical_kernel_cases(rng, group, table, plan, npts, windows, n=4096):
     rstarts = [rng.randrange(600 - l + 1) for l in rlens]
     rstarts, rlens = (torch.tensor(v, dtype=torch.int32, device=DEV)
                       for v in (rstarts, rlens))
-    cases.append((name, SK.accumulate_buckets_fused(rrows, rstarts, rlens, group),
+    cases.append((name, SK.fused_segments(rrows, rstarts, rlens, group),
                   SK.accumulate_buckets_fused_plain(rrows, rstarts, rlens,
                                                     group)))
-    # the plain form as phase 4 runs it (its round replayed from a CUDA
-    # graph) against the plain form run eagerly
-    cases.append((name, fused_plain_graphed(gathered, plan.starts, plan.lens,
-                                            group), want))
     # canonical kernels: operands below p
     ca, cg, cb = (rand_plane(rng, group.rows, n, p, nw) for _ in range(3))
     cg, cb = edge_lanes(group, ca, cg), edge_lanes(group, ca, cb)
@@ -409,8 +433,8 @@ def check_kernels_random() -> None:
     for group, seed in ((C.G1, "chip-smoke-kernels"),
                         (C.EDWARDS, "chip-smoke-kernels-ed")):
         rng = random.Random(seed)
-        lazy, table, plan, npts, windows = lazy_kernel_cases(rng, group)
-        cases += lazy + canonical_kernel_cases(rng, group, table, plan, npts,
+        lazy, points, plan, windows = lazy_kernel_cases(rng, group)
+        cases += lazy + canonical_kernel_cases(rng, group, points, plan,
                                                windows)
     torch.cuda.synchronize()
     bad = []
@@ -425,12 +449,32 @@ def check_kernels_random() -> None:
         raise SystemExit(f"kernel mismatch: {bad}, untested: {set(KERNELS) - seen}")
 
 
+@contextlib.contextmanager
+def plain_passes():
+    """Inside the block the fused path's two passes run their plain forms
+    on the card: kernel 8's (accumulate_buckets_fused_plain) and kernel
+    2's (tree_level_plain)."""
+    from webgpu_msm_bls12_377_tpu_torch.ops import smvp_kernel as SK
+    from webgpu_msm_bls12_377_tpu_torch.ops import smvp_tree as T
+
+    def level(arr_in, level_map, mode, last=False, sorted_vals=None,
+              group=SK.G1):
+        return T.tree_level_plain(arr_in, level_map, mode, last, sorted_vals,
+                                  group)
+
+    with patched([(SK, "fused_segments", SK.accumulate_buckets_fused_plain),
+                  (T, "run_tree_level", level)]):
+        yield
+
+
 def fused_plain_graphed(gathered, starts, lens, group=None):
     """accumulate_buckets_fused_plain with its round (smvp_kernel.fused_round,
     thousands of small PyTorch ops) captured once in a CUDA graph and
-    replayed once per entry of the longest bucket: the same plain ops on the
-    same operands in the same order, without the host's cost per op, which
-    at the 8,188 rounds of the 2^14 default shape is 12 minutes (G1)."""
+    replayed once per entry of the longest segment: the same plain ops on
+    the same operands in the same order, without the host's cost per op,
+    which phase 4's forced fused run at 2^16 pays over 17 launches (18.4 s
+    eagerly on an H100 80GB HBM3 at 700 W).  The capture is part of the
+    call's time."""
     import torch
 
     from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
@@ -666,6 +710,19 @@ def bench_case(power: int, curve: str = "bls12_377"):
     return np.ascontiguousarray(point_words), scalars, ks
 
 
+#: bytes of one point in the reference's wire format, by wire path
+WIRE = {"wire_tree": 96, "ed_wire_tree": 64}
+
+
+def to_wire(pw, sw):
+    """Bench words -> the reference's wire bytes: x||y little-endian
+    coordinates a point (48 or 32 bytes each), 32-byte scalars."""
+    import numpy as np
+
+    return (np.ascontiguousarray(pw.transpose(2, 0, 1)).tobytes(),
+            np.ascontiguousarray(sw.T).tobytes())
+
+
 def batch_scalars(power: int, num_sets: int, curve: str = "bls12_377"):
     """The port's copy of the batch case seed scheme
     (harness/testdata.py:make_batch_case): num_sets scalar sets over the
@@ -860,7 +917,9 @@ def drive(label, path, fn, args, want, warm_runs=3):
             raise SystemExit(f"{label}: warm result differs")
         warm.append(dt)
     med = statistics.median(warm)
-    n = args[0].shape[-1] * (len(want) if isinstance(want, list) else 1)
+    pts = args[0]
+    n = (pts.shape[-1] if hasattr(pts, "shape") else len(pts) // WIRE[path]) * (
+        len(want) if isinstance(want, list) else 1)
     log(f"  {label}: result OK; cold {cold:.3f} s, warm median {med:.4f} s "
         f"({[round(w, 4) for w in warm]}), {n / med:,.0f} points/s")
     log(f"  {label} launches per run: {launches}")
@@ -906,6 +965,9 @@ def main_paths(goldens):
         run("fused_10" if power == 10 else path,
             f"2^{power} compute_msm ({path}, chunk {chunk})",
             compute_msm, (pw, sw), want)
+        if power == 20:
+            run("wire_tree", "2^20 compute_msm from wire bytes (tree)",
+                compute_msm, to_wire(pw, sw), want)
         if power == 14:
             # what the default policy passes over at this size: ~12,000
             # lockstep rounds of kernel 6 (one warm run), and kernel 5
@@ -1015,6 +1077,10 @@ def edwards_paths(goldens, counts, medians):
         run("ed_fused_10" if power == 10 else f"ed_{path}",
             f"Edwards 2^{power} compute_msm_edwards ({path}, chunk {chunk})",
             compute_msm_edwards, (pw, sw), want)
+        if power == 20:
+            run("ed_wire_tree",
+                "Edwards 2^20 compute_msm_edwards from wire bytes (tree)",
+                compute_msm_edwards, to_wire(pw, sw), want)
         if power == 14:
             run("ed_legacy_14", "Edwards 2^14 (legacy forced, chunk 4)",
                 engine_msm(curve=ed, smvp_mode="legacy"), (pw, sw), want,
@@ -1139,20 +1205,26 @@ def timed_paths(inputs, ed_inputs):
 
     def stream(table, sorted_vals, layout, group=G1):
         w = WORK[group.ctx.tag]
-        return record(
+        out = record(
             "stream_buckets" + group.ctx.tag,
             lambda t, v, s, l, g: K_STREAM(t, v, layout, g),
             S.accumulate_buckets_streamed_plain,
             (table, sorted_vals, layout.starts_rk, layout.lens_rk, group),
             *bucket_work(layout.lens_rk, w["add_mixed"], 4 + w["aff"], w["pt"]))
+        # the spread of one launch on the same operands
+        again = [round(timed(K_STREAM, table, sorted_vals, layout, group)[1], 3)
+                 for _ in range(5)]
+        log(f"  stream_buckets{group.ctx.tag}: five more launches {again} ms")
+        return out
 
     def fusedk(gathered, starts, lens, group=G1):
-        # every entry is one canonical mixed add, the one into the identity
-        # included: the function's result is that add chain's coordinates
+        # kernel 8 over the pieces: every entry is one canonical mixed add,
+        # the one into the identity included (the function's result is
+        # that add chain's coordinates); the fold is kernel 2's
         w, tag = WORK[group.ctx.tag], group.ctx.tag
         entries = int(lens.sum())
-        log(f"  fused_buckets{tag}: {lens.numel()} buckets, {entries} entries, "
-            f"the longest {int(lens.max())}")
+        log(f"  fused_buckets{tag}: {lens.numel()} piece slots, {entries} "
+            f"entries, the longest piece {int(lens.max())}")
         return record("fused_buckets" + tag, K_FUSED, fused_plain_graphed,
                       (gathered, starts, lens, group),
                       entries * w["add_mixed_canon"],
@@ -1212,14 +1284,13 @@ def timed_paths(inputs, ed_inputs):
     MML_PLAIN = graphed(K.mont_mul_lanes_plain)
     replays += [MMC_PLAIN, MML_PLAIN]
     K_FINISH = T.packed_finish
-    K_STREAM, K_FUSED = S.accumulate_buckets_streamed, SK.accumulate_buckets_fused
+    K_STREAM, K_FUSED = S.accumulate_buckets_streamed, SK.fused_segments
     patches = [
         (convert, "mont_mul_const", mmc), (cuzk, "mont_mul_const", mmc),
         (naive, "mont_mul_const", mmc), (cuzk, "mont_mul_lanes", mml),
         (T, "run_tree_level", tree), (T, "packed_finish", finish),
         (cuzk, "accumulate_buckets_streamed", stream),
-        (cuzk, "accumulate_buckets_fused", fusedk),
-        (SK, "accumulate_buckets_fused", fusedk),
+        (SK, "fused_segments", fusedk),
         (bpr, "bpr_running_add", running), (bpr, "bpr_double", double),
         (bpr, "bpr_masked_add_double", masked), (bpr, "bpr_add", add),
         (buckets, "masked_add_mixed", mixed),
@@ -1231,6 +1302,7 @@ def timed_paths(inputs, ed_inputs):
             ("naive", naive_msm, inputs[16]),
             ("running_sum", running_sum_chain, inputs[16][:1]),
             ("fused_10", run_msm, inputs[10]),
+            ("fused", run_msm, inputs[14]),
             ("fused_forced",
              engine_msm(smvp_mode="fused", chunk_size=FORCED_CHUNK), inputs[16]),
             ("pure_tree", engine_msm(smvp_mode="tree"), inputs[18]),
@@ -1239,7 +1311,8 @@ def timed_paths(inputs, ed_inputs):
             ("ed_legacy", pippenger_msm, (*ed_inputs[16], ED)),
             ("ed_naive", naive_msm, (*ed_inputs[16], ED)),
             ("ed_running_sum", running_sum_chain, (ed_inputs[16][0], ED)),
-            ("ed_fused_10", run_ed_msm, ed_inputs[10]))
+            ("ed_fused_10", run_ed_msm, ed_inputs[10]),
+            ("ed_fused", run_ed_msm, ed_inputs[14]))
     for path, fn, args in runs:
         current = stats[path] = {}
         with patched(patches):
@@ -1421,8 +1494,10 @@ def main(argv: list[str]) -> int:
 
     log(f"phase 4 at {elapsed():.1f} s: per-kernel time at each path's "
         "shapes (2^20 tree, 2^17 stream, 2^16 legacy, naive and chain, 2^10 "
-        "and forced 2^16 fused, 2^18 pure tree; Edwards 2^20 tree, 2^17 "
-        "stream, 2^16 legacy, naive and chain, 2^10 fused)")
+        "and 2^14 default fused, 2^16 forced fused (chunk "
+        f"{FORCED_CHUNK}), 2^18 pure tree; Edwards "
+        "2^20 tree, 2^17 stream, 2^16 legacy, naive and chain, 2^10 and "
+        "2^14 fused)")
     stats = timed_paths(inputs, ed_inputs)
     rows = []
     for path, per_kernel in stats.items():
@@ -1451,7 +1526,10 @@ def main(argv: list[str]) -> int:
 
     for label, run, (pw, sw) in [
             *((f"2^{p}", run_msm, inputs[p]) for p in (20, 17, 16, 14)),
-            *((f"Edwards 2^{p}", run_ed_msm, ed_inputs[p]) for p in (20, 14))]:
+            ("2^20 from wire bytes", run_msm, to_wire(*inputs[20])),
+            *((f"Edwards 2^{p}", run_ed_msm, ed_inputs[p]) for p in (20, 14)),
+            ("Edwards 2^20 from wire bytes", run_ed_msm,
+             to_wire(*ed_inputs[20]))]:
         log(f"phase 5 at {elapsed():.1f} s: stage breakdown of one warm "
             f"{label} MSM (each stage fenced)")
         secs, total = stage_breakdown(pw, sw, run)

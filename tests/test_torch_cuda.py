@@ -165,6 +165,37 @@ def test_tree_levels_and_finish(dev, group):
                 "stream_buckets"))
 
 
+@GROUPS
+@pytest.mark.parametrize("t_out", [1000, 3 * 132 * 4 * 128 + 77],
+                         ids=["small", "large"])
+def test_tree_level_aff_random_map(dev, group, t_out):
+    """Level 1 (row loads from the row-major signed table) against the
+    plain form on a random level map (pairs, singles and invalid slots)
+    over a random sorted stream: fewer nodes than one block a SM, and
+    more than the card holds at once, with a ragged last block."""
+    ctx = group.ctx
+    rng = np.random.default_rng(len(ctx.tag) * 1000 + t_out % 997)
+    npts, entries = 4096, 2 * t_out + 8
+    table = S.build_signed_table(
+        rand_plane(random.Random(t_out), group.aff_rows, npts, ctx.p, dev,
+                   ctx.nw), group)
+    sorted_vals = torch.from_numpy(
+        (rng.integers(0, npts, entries)
+         | (rng.integers(0, 2, entries) << 30)).astype(np.int32)).to(dev)
+    child = rng.integers(0, entries - 1, t_out)
+    kind = rng.integers(0, 8, t_out)  # 0: invalid, 1: single, else a pair
+    level_map = np.where(kind == 1, child | T.FLAG_SINGLE, child)
+    level_map = np.where(kind == 0, T.FLAG_INVALID, level_map)
+    level_map = torch.from_numpy(level_map.astype(np.int32)).to(dev)
+    for last in (False, True):
+        K.reset_launches()
+        same(T.run_tree_level(table, level_map, "aff", last, sorted_vals,
+                              group),
+             T.tree_level_plain(table, level_map, "aff", last, sorted_vals,
+                                group))
+        assert K.launches["tree_level_aff" + ctx.tag] == 1
+
+
 def test_stream_duplicate_heavy_bucket(dev):
     """One bucket holds every entry of its window: a long runtime loop."""
     rng = random.Random("k5-dup")
@@ -184,11 +215,20 @@ def test_stream_duplicate_heavy_bucket(dev):
 
 @GROUPS
 def test_fused_buckets_random_and_real_plan(dev, group):
-    """Kernel 8 on random rows with hand-made segments (empty, length 1,
-    long, overlapping) and on a real plan, single dispatch and windowed."""
+    """The fused path's two passes against their plain forms, bit for bit:
+    kernel 8 (fused_segments) on random rows with hand-made segments
+    (empty, length 1, long, overlapping); the fold (kernel 2's full
+    levels); and both together (accumulate_buckets_fused on the card
+    against the same function on the CPU, the plain forms) with buckets of
+    0, 1, PIECE, PIECE + 1 and many times PIECE rows, and on a real plan,
+    single dispatch and windowed."""
     ctx, tag = group.ctx, group.ctx.tag
     rng = random.Random("k8" + tag)
-    count = 600
+    piece = SK.PIECE
+    # buckets tiling the first rows in order, of every kind of length
+    blens = [0, 1, piece, piece + 1, 0, 12 * piece + 3, 2, piece - 1,
+             3 * piece]
+    count = max(600, sum(blens))
     rows = torch.zeros((count, SK.ROW_WORDS), dtype=torch.int32, device=dev)
     rows[:, :group.aff_rows] = rand_plane(rng, group.aff_rows, count, ctx.p,
                                           dev, ctx.nw).T
@@ -197,16 +237,40 @@ def test_fused_buckets_random_and_real_plan(dev, group):
     starts, lens = (torch.tensor(v, dtype=torch.int32, device=dev)
                     for v in (starts, lens))
     K.reset_launches()
-    same(SK.accumulate_buckets_fused(rows, starts, lens, group),
+    same(SK.fused_segments(rows, starts, lens, group),
          SK.accumulate_buckets_fused_plain(rows, starts, lens, group))
     assert K.launches["fused_buckets" + tag] == 1 and len(K.launches) == 1
     # the kernel reads raw int32 pointers: other operands are refused
     for bad in ((rows, starts.to(torch.int64), lens),
                 (rows, starts, lens.repeat_interleave(2)[::2]),
                 (rows.T.contiguous().T, starts, lens)):
-        with pytest.raises(ValueError, match="contiguous int32"):
-            SK.accumulate_buckets_fused(*bad, group)
+        for fn in (SK.fused_segments, SK.accumulate_buckets_fused):
+            with pytest.raises(ValueError, match="contiguous int32"):
+                fn(*bad, group)
     assert K.launches["fused_buckets" + tag] == 1
+
+    # both passes on the buckets above
+    bstarts = np.cumsum([0] + blens[:-1])
+    bstarts, blens = (torch.tensor(v, dtype=torch.int32) for v in (bstarts, blens))
+    cpu_rows = rows.cpu()
+    plan = SK.piece_plan(bstarts.to(dev), blens.to(dev), count, count)
+    sums = SK.fused_segments(rows, plan.starts, plan.lens, group)
+    same(sums, SK.accumulate_buckets_fused_plain(rows, plan.starts, plan.lens,
+                                                 group))
+    K.reset_launches()
+    got, s_fin = SK.fold_pieces(sums, plan.counts, plan.offsets, plan.caps,
+                                group)
+    cpu_plan = SK.piece_plan(bstarts, blens, count, count)
+    want, want_s = SK.fold_pieces(sums.cpu(), cpu_plan.counts,
+                                  cpu_plan.offsets, cpu_plan.caps, group)
+    same(got, want.to(dev))
+    assert torch.equal(s_fin.cpu(), want_s)
+    assert K.launches["tree_level_full" + tag] == len(plan.caps) > 0
+    order = torch.randperm(len(blens), generator=torch.Generator().manual_seed(8))
+    same(SK.accumulate_buckets_fused(rows, bstarts.to(dev), blens.to(dev), group,
+                                     order=order.to(dev)),
+         SK.accumulate_buckets_fused(cpu_rows, bstarts, blens, group,
+                                     order=order).to(dev))
 
     npts, chunk = 300, 9
     windows = num_windows_for(chunk)
@@ -218,13 +282,13 @@ def test_fused_buckets_random_and_real_plan(dev, group):
     plan = build_bucket_plan(decompose_scalars_signed(sw.to(dev), chunk, windows),
                              chunk)
     gathered = SK.pregather_signed(wide, plan.sorted_vals, group)
-    want = SK.accumulate_buckets_fused_plain(gathered, plan.starts, plan.lens,
-                                             group)
-    same(SK.accumulate_buckets_fused(gathered, plan.starts, plan.lens, group),
-         want)
+    want = SK.accumulate_buckets_fused(gathered.cpu(), plan.starts.cpu(),
+                                       plan.lens.cpu(), group, max_len=npts)
+    same(SK.accumulate_buckets_fused(gathered, plan.starts, plan.lens, group,
+                                     max_len=npts), want.to(dev))
     K.reset_launches()
     same(SK.accumulate_buckets_windowed(wide, plan.sorted_vals, plan.starts,
-                                        plan.lens, windows, group), want)
+                                        plan.lens, windows, group), want.to(dev))
     assert K.launches["fused_buckets" + tag] == windows
 
 
@@ -296,7 +360,8 @@ def test_stream_and_legacy_engines_on_the_card(dev, request, group, mode,
 @GROUPS
 @pytest.mark.parametrize("chunk", [4, 9])
 def test_fused_engine_on_the_card(dev, request, group, chunk):
-    """One launch of kernel 8 at chunk 4, one per window at chunk 9."""
+    """The fused engine against the oracle: kernel 8 once at chunk 4, once
+    per window at chunk 9, then one fold."""
     aff, scalars, want = case_of(request, group)
     tag = group.ctx.tag
     eng = CuzkMsmEngine(group.CURVE, chunk_size=chunk, num_bpr_threads=4,
@@ -306,6 +371,9 @@ def test_fused_engine_on_the_card(dev, request, group, chunk):
     assert (got["x"], got["y"]) == want
     assert K.launches["fused_buckets" + tag] == (
         1 if chunk == 4 else num_windows_for(chunk))
+    # one fold: a full level per doubling of the pieces a bucket can hold
+    assert K.launches["tree_level_full" + tag] == SK.fold_levels(
+        len(aff), SK.PIECE)
     assert K.launches["masked_add_mixed" + tag] == 0
     assert K.launches["stream_buckets" + tag] == 0
     assert all(k.endswith("_ed") == bool(tag) for k in K.launches)
@@ -321,7 +389,7 @@ def test_pure_tree_engine_on_the_card(dev, msm_case):
     assert K.launches["packed_finish"] == 0
 
 
-@pytest.mark.parametrize("mode", ["tree", "stream"])
+@pytest.mark.parametrize("mode", ["tree", "stream", "fused"])
 def test_batch_on_the_card(dev, msm_case, mode, monkeypatch):
     """Three sets over one point set: one table conversion for the batch
     (kernel 1 launches = 1 + one exit per set), results equal to
@@ -388,6 +456,26 @@ def test_engine_on_the_card_matches_oracle(dev):
                ("mont_mul_const", "tree_level_aff", "tree_level_full",
                 "packed_finish", "bpr_running_add", "bpr_double",
                 "bpr_masked_add_double", "bpr_add"))
+
+
+def test_force_recompile_rebuilds_on_the_card(dev, msm_case):
+    """compute_msm(force_recompile=True) compiles every library again with
+    nvcc (each one a new file under the same name, the build directory
+    kept), and the call still launches its kernels and equals the
+    oracle."""
+    from webgpu_msm_bls12_377_tpu_torch import compute_msm
+
+    aff, scalars, want = msm_case
+    built, _ = K.build_all()
+    libs = [built / f"libmsm_{name}.so" for name, _, _ in K.LIBRARIES]
+    before = [lib.stat().st_ino for lib in libs]
+    K.reset_launches()
+    got = compute_msm(aff, scalars, force_recompile=True)
+    assert (got["x"], got["y"]) == want
+    assert K.launches["mont_mul_const"] > 0
+    assert all(lib.stat().st_ino != ino for lib, ino in zip(libs, before))
+    assert sorted(p.name for p in built.parent.iterdir()
+                  if p.name.startswith(built.name)) == [built.name]
 
 
 # -- Edwards engine (-DMSM_CURVE_ED builds) ------------------------------

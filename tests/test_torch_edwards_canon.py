@@ -54,6 +54,8 @@ from webgpu_msm_bls12_377_tpu_torch.params import CurveId
 from webgpu_msm_bls12_377_tpu_torch.reference import curve as crv
 from webgpu_msm_bls12_377_tpu_torch.reference.msm import EDWARDS, naive_msm
 
+from test_torch_fused_pieces import same_points
+
 # tiny tensors: one intra-op thread avoids oversubscribing the CPU
 # beside the other test workers
 torch.set_num_threads(1)
@@ -243,19 +245,40 @@ def test_make_wide_rows_and_pregather_match_jax(plans):
 
 
 def test_fused_buckets_match_jax_legacy(plans):
-    """The plain form of kernel 8 on the whole plan, in one launch and
-    window by window: the JAX legacy path's canonical coordinates."""
+    """The plain forms of the fused path on the whole plan, in one pass and
+    window by window, with pieces as long as the longest bucket (the fold
+    adds nothing): the JAX legacy path's canonical coordinates."""
     plan = plans["plan"]
-    assert int(plan.lens.min()) == 0 and int(plan.lens.max()) > 1
+    longest = int(plan.lens.max())
+    assert int(plan.lens.min()) == 0 and longest > 1
     got = fused.accumulate_buckets_fused(plans["gathered"], plan.starts,
-                                         plan.lens, ED)
+                                         plan.lens, ED, piece=longest)
     assert got.shape == (36, NWIN * H)
     assert torch.equal(got, plans["want"])
     nw = 12
     got = fused.accumulate_buckets_windowed(
         plans["rows"], plan.sorted_vals, plan.starts[:nw * H],
-        plan.lens[:nw * H], nw, ED)
+        plan.lens[:nw * H], nw, ED, piece=longest)
     assert torch.equal(got, plans["want"][:, :nw * H])
+
+
+@pytest.mark.parametrize("piece", [2, 4])
+def test_pieces_shorter_than_buckets_give_the_same_points(plans, piece):
+    """Pieces of 2 or 4 rows, in one pass and window by window: buckets no
+    longer than a piece keep the JAX legacy sums word for word; every
+    bucket is the same point in other coordinates."""
+    plan = plans["plan"]
+    short = plan.lens <= piece
+    assert short.any() and (~short).any()
+    got = fused.accumulate_buckets_fused(plans["gathered"], plan.starts,
+                                         plan.lens, ED, piece=piece, max_len=N)
+    assert torch.equal(got[:, short], plans["want"][:, short])
+    same_points(got, plans["want"], ED)
+    nw = 12
+    win = fused.accumulate_buckets_windowed(
+        plans["rows"], plan.sorted_vals, plan.starts[:nw * H],
+        plan.lens[:nw * H], nw, ED, piece=piece)
+    assert torch.equal(win, got[:, :nw * H])
 
 
 def test_legacy_accumulate_buckets_matches_jax(plans):

@@ -32,6 +32,7 @@ from webgpu_msm_bls12_377_tpu.ops import smvp_tree as jtree
 from webgpu_msm_bls12_377_tpu.params import CurveId as JCurveId
 from webgpu_msm_bls12_377_tpu_torch.models import CuzkMsmEngine, cuzk
 from webgpu_msm_bls12_377_tpu_torch.ops import bpr, buckets, decompose
+from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
 from webgpu_msm_bls12_377_tpu_torch.ops import field as F
 from webgpu_msm_bls12_377_tpu_torch.ops import smvp_kernel as fused
 from webgpu_msm_bls12_377_tpu_torch.ops import smvp_stream, smvp_tree
@@ -43,6 +44,8 @@ from webgpu_msm_bls12_377_tpu_torch.ops.convert import (
 from webgpu_msm_bls12_377_tpu_torch.params import CurveId
 from webgpu_msm_bls12_377_tpu_torch.reference import curve as crv
 from webgpu_msm_bls12_377_tpu_torch.reference.msm import G1, naive_msm
+
+from test_torch_fused_pieces import same_points
 
 # tiny tensors: one intra-op thread avoids oversubscribing the CPU
 # beside the other test workers
@@ -123,11 +126,16 @@ def test_pregather_signed_matches_jax(plans):
 
 
 def test_fused_buckets_match_jax_legacy(plans):
-    """The plain form of kernel 8 on the whole plan: projective coordinates
-    equal to the JAX legacy path's mod p (so to the JAX fused kernel's)."""
+    """The plain forms of the fused path on the whole plan, with pieces as
+    long as the longest bucket (one piece a bucket, so the fold adds
+    nothing): projective coordinates equal to the JAX legacy path's mod p
+    (so to the JAX fused kernel's).  Shorter pieces give the same points in
+    other coordinates (test_pieces_shorter_than_buckets_give_the_same_points)."""
     plan = plans["plan"]
-    assert int(plan.lens.min()) == 0 and int(plan.lens.max()) > 1
-    got = fused.accumulate_buckets_fused(plans["gathered"], plan.starts, plan.lens)
+    longest = int(plan.lens.max())
+    assert int(plan.lens.min()) == 0 and longest > 1
+    got = fused.accumulate_buckets_fused(plans["gathered"], plan.starts,
+                                         plan.lens, piece=longest)
     assert got.shape == (39, NWIN * H)
     assert torch.equal(got, plans["want"])
 
@@ -149,8 +157,29 @@ def test_windowed_matches_single_dispatch(plans):
     longest bucket's rounds): the single dispatch's buckets."""
     plan, nw = plans["plan"], 12
     got = fused.accumulate_buckets_windowed(
-        plans["rows"], plan.sorted_vals, plan.starts[:nw * H], plan.lens[:nw * H], nw)
+        plans["rows"], plan.sorted_vals, plan.starts[:nw * H], plan.lens[:nw * H],
+        nw, piece=int(plan.lens.max()))
     assert torch.equal(got, plans["want"][:, :nw * H])
+
+
+@pytest.mark.parametrize("piece", [2, 4])
+def test_pieces_shorter_than_buckets_give_the_same_points(plans, piece):
+    """Pieces of 2 or 4 rows, in one pass and window by window: buckets no
+    longer than a piece keep the JAX legacy sums word for word; every
+    bucket is the same point (its pieces are folded in another order than
+    one chain of adds, so longer buckets have other coordinates)."""
+    plan = plans["plan"]
+    short = plan.lens <= piece
+    assert short.any() and (~short).any()
+    got = fused.accumulate_buckets_fused(plans["gathered"], plan.starts,
+                                         plan.lens, piece=piece, max_len=N)
+    assert torch.equal(got[:, short], plans["want"][:, short])
+    same_points(got, plans["want"], C.G1)
+    nw = 12
+    win = fused.accumulate_buckets_windowed(
+        plans["rows"], plan.sorted_vals, plan.starts[:nw * H],
+        plan.lens[:nw * H], nw, piece=piece)
+    assert torch.equal(win, got[:, :nw * H])
 
 
 def test_fused_wrapper_checks_its_operands(plans):
@@ -200,7 +229,7 @@ def test_fused_engine_windowed_branch(case, monkeypatch):
     calls = []
     real = cuzk.accumulate_buckets_windowed
     monkeypatch.setattr(cuzk, "accumulate_buckets_windowed",
-                        lambda *a: calls.append(1) or real(*a))
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
     n = 32
     got = engine(smvp_mode="fused", chunk_size=9).compute_msm(
         case["aff"][:n], case["scalars"][:n])
@@ -405,7 +434,7 @@ def no_host_reads(monkeypatch, plain_modules):
             state["on"] = False
 
 
-@pytest.mark.parametrize("mode", ["tree", "stream"])
+@pytest.mark.parametrize("mode", ["tree", "stream", "fused"])
 def test_batch_equals_per_set_msm_and_oracle(case, sets, mode, monkeypatch):
     """compute_msm_batch == compute_msm per set == oracle; the point table
     is built once for the batch; the per-set stage reads nothing back."""
@@ -416,7 +445,8 @@ def test_batch_equals_per_set_msm_and_oracle(case, sets, mode, monkeypatch):
         assert (got["x"], got["y"]) == crv.g1_to_affine(
             naive_msm(case["pts"], s, G1))
 
-    built = {"mont_point_table": 0, "build_signed_table": 0}
+    built = {"mont_point_table": 0,
+             "make_wide_rows" if mode == "fused" else "build_signed_table": 0}
     for name in built:
         real = getattr(cuzk, name)
 
@@ -428,11 +458,12 @@ def test_batch_equals_per_set_msm_and_oracle(case, sets, mode, monkeypatch):
 
     def guarded(self, *a):
         from webgpu_msm_bls12_377_tpu_torch.ops import kernels
-        with no_host_reads(monkeypatch, (kernels, smvp_stream, smvp_tree)):
+        with no_host_reads(monkeypatch,
+                           (kernels, smvp_stream, smvp_tree, fused)):
             return real_sets(self, *a)
     monkeypatch.setattr(CuzkMsmEngine, "_batch_sets", guarded)
     assert eng.compute_msm_batch(case["aff"], sets) == singles
-    assert built == {"mont_point_table": 1, "build_signed_table": 1}
+    assert set(built.values()) == {1}
 
 
 def test_the_host_read_guard_catches_a_readback(case, monkeypatch):
@@ -445,13 +476,21 @@ def test_the_host_read_guard_catches_a_readback(case, monkeypatch):
             eng.compute_msm(case["aff"], case["scalars"])
 
 
-def test_batch_on_other_paths_loops_compute_msm(case, sets):
-    """Fused and legacy batches are a loop of compute_msm."""
-    eng = engine()  # auto: chunk 4 -> fused
-    assert eng._select_smvp(CHUNK, N) == "fused"
+def test_batch_on_other_paths_loops_compute_msm(case, sets, monkeypatch):
+    """A legacy batch is a loop of compute_msm; the default path at this
+    size (fused) runs the pipelined batch (its per-set stage above), with
+    the same results as compute_msm per set."""
     n = 16
-    got = eng.compute_msm_batch(case["aff"][:n], [s[:n] for s in sets[:2]])
-    assert got == [eng.compute_msm(case["aff"][:n], s[:n]) for s in sets[:2]]
+    for eng, looped in ((engine(smvp_mode="legacy"), True), (engine(), False)):
+        calls = []
+        real = CuzkMsmEngine._batch_sets
+        monkeypatch.setattr(CuzkMsmEngine, "_batch_sets",
+                            lambda self, *a: calls.append(1) or real(self, *a))
+        got = eng.compute_msm_batch(case["aff"][:n], [s[:n] for s in sets[:2]])
+        monkeypatch.undo()
+        assert calls == ([] if looped else [1])
+        assert got == [eng.compute_msm(case["aff"][:n], s[:n]) for s in sets[:2]]
+    assert engine()._select_smvp(CHUNK, N) == "fused"
 
 
 def test_batch_arguments(case, sets):
@@ -482,5 +521,6 @@ def test_fused_buckets_match_jax_fused_kernel_interpret(plans):
     want = from_jax_limbs(np.concatenate([np.asarray(c) for c in out]),
                           montgomery=True)
     plan = plans["plan"]
-    got = fused.accumulate_buckets_fused(plans["gathered"], plan.starts, plan.lens)
+    got = fused.accumulate_buckets_fused(plans["gathered"], plan.starts,
+                                         plan.lens, piece=int(plan.lens.max()))
     assert torch.equal(got, want)

@@ -161,7 +161,10 @@ def test_tree_table_matches_jax(stage):
     assert got.shape == (cv.group.aff_rows, N)
     assert torch.equal(got, want)
     jt = np.asarray(jst.build_tree_table(cv.jgroup, stage["table"]))
-    assert torch.equal(stage["ptab"], cv.carry(jt[:2 * N, :cv.k * cv.w].T))
+    assert torch.equal(stage["ptab"][:, :cv.group.aff_rows].T,
+                       cv.carry(jt[:2 * N, :cv.k * cv.w].T))
+    assert stage["ptab"].shape == (2 * N, 32)
+    assert not stage["ptab"][:, cv.group.aff_rows:].any()
 
 
 @pytest.mark.parametrize("last", [False, True])

@@ -1,14 +1,25 @@
-"""PyTorch and CUDA port of the MSM engines (BLS12-377 G1: the cuZK engine's
-tree (hybrid and pure), stream, fused and legacy paths and its batch mode
-over a fixed point set, Pippenger and the naive baseline; Twisted Edwards
-BLS12: the tree and stream paths and batch mode).
+"""PyTorch and CUDA port of the MSM engines for BLS12-377 G1 and Twisted
+Edwards BLS12: on either curve, the cuZK engine's tree (hybrid and pure),
+stream, fused and legacy paths and its batch mode over a fixed point set,
+and the Pippenger and naive baseline engines.
 
 The JAX package webgpu_msm_bls12_377_tpu is the reference this port is
 tested against; the port imports nothing of it and no JAX.  Kernels are
 hand-written CUDA C++ for sm_90a (csrc/), built at first launch.
+
+The reference's MontParams and compute_misc_params are not exported: they
+describe its w-bit limbs (nsafe, Barrett constants), which the port's
+32-bit words do not use; params.py keeps the port's own MontParams under
+that module's name only.
 """
 
 from .api import compute_msm, compute_msm_edwards
-from .params import CurveId
+from .params import BLS12_377_BASE_FIELD, EDWARDS_BLS12_BASE_FIELD, CurveId
 
-__all__ = ["compute_msm", "compute_msm_edwards", "CurveId"]
+__all__ = [
+    "BLS12_377_BASE_FIELD",
+    "EDWARDS_BLS12_BASE_FIELD",
+    "CurveId",
+    "compute_msm",
+    "compute_msm_edwards",
+]

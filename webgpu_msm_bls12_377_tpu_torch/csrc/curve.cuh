@@ -24,8 +24,8 @@
 // Every kernel is written against one vocabulary that both curves define:
 // Point, Affine, pt_zero, pt_from_affine, pt_add_affine_lazy,
 // pt_add_mixed_lazy, pt_add_lazy, pt_double_lazy, pt_canon, pt_add,
-// pt_add_mixed, pt_double, pt_neg_affine, pt_load, pt_store, aff_load
-// and load_signed_aff.
+// pt_add_mixed, pt_double, pt_neg_affine, pt_load, pt_store and aff_load;
+// the row loaders at the end (aff_load_row, load_signed_aff) serve both.
 #pragma once
 #include "field.cuh"
 
@@ -46,7 +46,7 @@ __device__ __forceinline__ void fe_store(int32_t* plane, size_t ncols,
 }
 
 // A sorted entry stream holds point index | positive-sign bit 30; the
-// signed table's columns [0, N) hold the points, [N, 2N) their negatives.
+// signed table's rows [0, N) hold the points, [N, 2N) their negatives.
 #define SIGN_BIT 30
 #define IDX_MASK ((1 << SIGN_BIT) - 1)
 
@@ -327,18 +327,6 @@ __device__ __forceinline__ void aff_load(Affine& a, const int32_t* plane,
   fe_load(a.y, plane, ncols, NW, j);
 }
 
-// Entry i of a sorted entry stream -> its affine (x, y), Montgomery, from
-// the (26, 2N) signed table: columns [0, N) hold (x, y), [N, 2N) (x, -y).
-__device__ __forceinline__ void load_signed_aff(Affine& a,
-                                                const int32_t* table,
-                                                const int32_t* sorted_vals,
-                                                long long n_points,
-                                                long long i) {
-  const long long col = signed_col(sorted_vals, n_points, i);
-  fe_load(a.x, table, 2 * n_points, 0, col);
-  fe_load(a.y, table, 2 * n_points, NW, col);
-}
-
 #else  // MSM_CURVE_ED
 
 // -- Twisted Edwards BLS12, extended coordinates ---------------------------
@@ -548,18 +536,47 @@ __device__ __forceinline__ void aff_load(Affine& a, const int32_t* plane,
   fe_load(a.t, plane, ncols, 2 * NW, j);
 }
 
-// Entry i of a sorted entry stream -> its affine (x, y, t), Montgomery,
-// from the (27, 2N) signed table: columns [0, N) hold (x, y, t), [N, 2N)
-// (-x, y, -t).
+#endif  // MSM_CURVE_ED
+
+// -- Row-major point rows, both curves ---------------------------------------
+//
+// A row is ROW_WORDS = 32 int32 words: an affine point's coordinates in
+// Affine's word order (G1 x, y: words 0..25; Edwards x, y, t: 0..26), then
+// zeros.  128 bytes keep every row 16-byte aligned, so a row's first 28
+// words (112 bytes, 4 sectors) are seven 16-byte loads.  The signed table
+// (ops/smvp_stream.py:build_signed_table) is (2N, ROW_WORDS): row j < N
+// holds point j, row N + j its negative; the fused path's pre-gathered rows
+// (ops/smvp_kernel.py:pregather_signed) have the same format.
+#define ROW_WORDS 32
+#define ROW_LOADS 7  // 16-byte loads that cover a row's coordinates
+
+static_assert(sizeof(Affine) <= ROW_LOADS * 16, "an affine point fits a row");
+
+// Row `row` of a row-major (rows, ROW_WORDS) array -> its affine point.
+__device__ __forceinline__ void aff_load_row(Affine& a, const int32_t* rows,
+                                             long long row) {
+  u32 w[4 * ROW_LOADS];
+  const int4* v = reinterpret_cast<const int4*>(rows + row * ROW_WORDS);
+#pragma unroll
+  for (int i = 0; i < ROW_LOADS; ++i) {
+    const int4 q = __ldg(v + i);
+    w[4 * i] = (u32)q.x;
+    w[4 * i + 1] = (u32)q.y;
+    w[4 * i + 2] = (u32)q.z;
+    w[4 * i + 3] = (u32)q.w;
+  }
+  u32* d = reinterpret_cast<u32*>(&a);  // Affine's words, in row order
+#pragma unroll
+  for (int k = 0; k < (int)(sizeof(Affine) / 4); ++k) d[k] = w[k];
+}
+
+// Entry i of a sorted entry stream -> its signed affine point from the
+// (2N, ROW_WORDS) signed table: G1 (x, y) or (x, -y), Edwards (x, y, t) or
+// (-x, y, -t), Montgomery form.
 __device__ __forceinline__ void load_signed_aff(Affine& a,
                                                 const int32_t* table,
                                                 const int32_t* sorted_vals,
                                                 long long n_points,
                                                 long long i) {
-  const long long col = signed_col(sorted_vals, n_points, i);
-  fe_load(a.x, table, 2 * n_points, 0, col);
-  fe_load(a.y, table, 2 * n_points, NW, col);
-  fe_load(a.t, table, 2 * n_points, 2 * NW, col);
+  aff_load_row(a, table, signed_col(sorted_vals, n_points, i));
 }
-
-#endif  // MSM_CURVE_ED

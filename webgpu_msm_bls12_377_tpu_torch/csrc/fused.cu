@@ -1,7 +1,7 @@
-// Kernel 8: the fused segment SMVP.  Per bucket, the canonical complete
-// mixed-add sum of its contiguous pre-gathered signed rows.  Built for G1
-// (RCB Alg. 8) and, with -DMSM_CURVE_ED, for Edwards (hwcd; curve.cuh's
-// vocabulary).
+// Kernel 8: the fused segment SMVP's first pass.  Per segment, the
+// canonical complete mixed-add sum of its contiguous pre-gathered signed
+// rows.  Built for G1 (RCB Alg. 8) and, with -DMSM_CURVE_ED, for Edwards
+// (hwcd; curve.cuh's vocabulary).
 //
 // Replaces ops/smvp_kernel.py:accumulate_buckets_fused of the JAX package
 // (kernel body _kernel_body).  On the TPU that kernel is a grid over
@@ -9,35 +9,41 @@
 // of fixed 32-row tiles of 128-word rows into VMEM (with a semaphore, pad
 // rows behind the last row and a clamp that keeps the last tile in bounds),
 // and the block then runs as many masked lockstep rounds as its longest
-// bucket, a count that rides in as a scalar prefetch.  Here a thread owns
-// one bucket and its trip count is its own length: thread b walks rows
-// starts[b] .. starts[b] + lens[b] - 1 of the pre-gathered array
-// (ops/smvp_kernel.py:pregather_signed: the digit's sign is already applied,
-// to y for G1, to x and t for Edwards) and writes column b of the (39, nb)
-// G1 or (36, nb) Edwards output, in the order of starts.  No tiles, pad
-// rows, clamp, semaphore, per-block reshape, round counts or masks exist on
-// this path, and no lane constraint: any bucket count runs.
+// bucket, a count that rides in as a scalar prefetch.  One sequential core
+// runs those rounds; carried over one thread a bucket, the chain of the
+// longest bucket (about n/2 entries in the top window of chunk 4) leaves
+// the card nearly empty (512 buckets: 4 blocks on 132 SMs) and its latency
+// is the time.  So the port cuts every bucket's segment into pieces of at
+// most PIECE rows (ops/smvp_kernel.py:piece_plan): this kernel gives each
+// piece one thread, thread s walks rows starts[s] .. starts[s] + lens[s] -
+// 1 of the pre-gathered array (ops/smvp_kernel.py:pregather_signed: the
+// digit's sign is already applied, to y for G1, to x and t for Edwards) and
+// writes column s of the (39, ns) G1 or (36, ns) Edwards output, and
+// kernel 2's full mode then folds each bucket's pieces pairwise
+// (ops/smvp_kernel.py:fold_pieces).  No tiles, pad rows, clamp, semaphore,
+// per-block reshape, round counts or masks exist on this path, and no lane
+// constraint: any segment count runs.
 //
-// A row is 32 words (128 bytes): G1 x in words 0..12, y in 13..25, six
-// zero words; Edwards x in 0..8, y in 9..17, t in 18..26, five zero words.
-// The TPU's 128-word row existed for its DMA's lane tiling; 32 is the least
-// width that keeps every row 16-byte aligned, so a thread reads a row's
-// first 28 words as seven 16-byte loads (112 bytes).
+// A row is 32 words (128 bytes; curve.cuh, ROW_WORDS): G1 x in words
+// 0..12, y in 13..25, six zero words; Edwards x in 0..8, y in 9..17, t in
+// 18..26, five zero words.  The TPU's 128-word row existed for its DMA's
+// lane tiling; 32 is the least width that keeps every row 16-byte aligned,
+// so a thread reads a row's first 28 words as seven 16-byte loads (112
+// bytes).
 //
-// The sum starts from the identity and adds the rows in order with the
-// canonical complete add, as the TPU kernel and the legacy path (kernel 6)
-// do, so all three give the same projective coordinates, and canonical
-// values have one representation: the result equals the plain form bit for
-// bit.  Empty buckets stay the identity.
+// A segment's sum starts from the identity and adds the rows in order with
+// the canonical complete add, as the TPU kernel and the legacy path
+// (kernel 6) do for a whole bucket, and canonical values have one
+// representation: the result equals the plain form bit for bit.  Empty
+// segments stay the identity.
 //
 // Bound on this card: products.  Every entry is one mixed add of 3,718
 // word products for G1 (11 Montgomery products at 13 words) or 1,458 for
 // Edwards (9 at 9 words); the add into the identity is computed, as the
-// function says, and counted.  Bytes: 112 loaded per entry, the bucket's
+// function says, and counted.  Bytes: 112 loaded per entry, the segment's
 // start and length and its output point (144 bytes G1, 128 Edwards, at 12
-// and 8 significant words a coordinate) per bucket.  In practice the loop
-// is a chain of dependent adds: with few buckets (512 at chunk 4) the card
-// is nearly empty and the time is the chain's latency.
+// and 8 significant words a coordinate) per segment.  In practice each
+// thread's loop is a chain of at most PIECE dependent adds.
 //
 // The add sits in a __noinline__ helper, as in packed.cu and stream.cu:
 // nvcc 12.8's cicc crashes on a runtime-length loop around an inlined
@@ -45,7 +51,6 @@
 #include "curve.cuh"
 
 #define THREADS 128
-#define ROW_WORDS 32
 
 __device__ __noinline__ void add_row(Point& acc,
                                      const int32_t* __restrict__ row) {
@@ -81,7 +86,7 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // rows: (count, 32) row-major signed rows; starts/lens: (nb,) segments of
-// rows; out: the (39|36, nb) canonical bucket plane.
+// rows; out: the (39|36, nb) canonical plane of segment sums.
 extern "C" int msm_fused_buckets(const int32_t* rows, const int32_t* starts,
                                  const int32_t* lens, int32_t* out,
                                  long long nb, cudaStream_t stream) {

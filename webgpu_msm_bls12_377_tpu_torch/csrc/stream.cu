@@ -20,16 +20,17 @@
 // The sum starts from the identity and adds every entry with the mixed
 // lazy add, as the TPU kernel does, so both produce the same projective
 // coordinates mod p.  Built for G1 and, with -DMSM_CURVE_ED, for Edwards
-// (curve.cuh's vocabulary; table (27, 2N) of (x, y, t) and (-x, y, -t)).
+// (curve.cuh's vocabulary; rows (x, y, t) and (-x, y, -t)).
 //
 // Bound on this card: products.  A bucket of c entries needs c - 1 mixed
 // adds (G1 3,211 word products each, Edwards 1,458; the add into the
 // identity is not counted), against 100 (G1, 48 bytes a coordinate) or
 // 100 (Edwards, 32 bytes a coordinate) bytes read per entry (4 of
 // sorted_vals, the rest of the table) and 152 (G1) or 136 (Edwards) bytes
-// per bucket.  In practice the table reads are scattered
-// columns of a limb-major plane (one 4-byte read per word) and a warp's
-// lanes run different trip counts.
+// per bucket.  In practice the table reads are scattered rows of the
+// row-major signed table (seven 16-byte loads, 4 sectors, an entry), a
+// warp's lanes run different trip counts, and the longest bucket is one
+// thread's chain of dependent adds.
 //
 // The add sits in a __noinline__ helper, as in packed.cu: nvcc 12.8's cicc
 // crashes on a runtime-length loop around an inlined point add.
@@ -62,7 +63,7 @@ __global__ void __launch_bounds__(128)
   pt_store(out, nb, r, acc);
 }
 
-// table: the (26|27, 2 * n_points) signed table.
+// table: the (2 * n_points, 32) row-major signed table.
 extern "C" int msm_stream_buckets(const int32_t* table, long long n_points,
                                   const int32_t* sorted_vals,
                                   const int32_t* starts_rk,

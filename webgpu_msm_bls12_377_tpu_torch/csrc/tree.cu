@@ -1,47 +1,58 @@
 // Kernel 2: one level of the packed bucket tree (the hybrid SMVP's levels
-// 1..K).
+// 1..K, every level of the pure tree, and the fused path's fold of a
+// bucket's pieces).  One thread per output node.
 //
 // Replaces ops/smvp_tree.py:run_tree_level of the JAX package (kernel body
-// _tree_kernel_body_build), modes "aff" (level 1) and "full" (levels 2..K).
-// Output node p of a level reads its children at childA = map[p] & CHILD
-// and childA + 1 of the previous level:
+// _tree_kernel_body_build), modes "aff" (level 1) and "full" (later
+// levels).  Output node p of a level reads its children at childA =
+// map[p] & CHILD and childA + 1 of the previous level:
 //   aff:  the previous level is the sorted entry stream itself.  Child i
 //         is sorted_vals[i] (point index | positive-sign bit 30), read
-//         from the signed table: rows [0, N) hold (x, y), rows [N, 2N)
-//         hold (x, -y).  Both-affine lazy RCB add; a single child is
-//         promoted with from_affine.
+//         from the row-major signed table (curve.cuh: rows [0, N) hold the
+//         points, rows [N, 2N) their negatives, 32 words a row).
+//         Both-affine lazy add; a single child is promoted with
+//         from_affine.
 //   full: the previous level is a packed (39, T) plane of lazy projective
-//         nodes.  Full lazy RCB add; a single child is copied.
+//         nodes.  Full lazy add; a single child is copied.
 // FLAG_INVALID slots (past the level's real node count) write the
 // identity; LAST canonicalizes every output.  Built for G1 and, with
-// -DMSM_CURVE_ED, for Edwards (curve.cuh's vocabulary): the signed table
-// is then (27, 2N) of (x, y, t) and (-x, y, -t), nodes (36, T) extended
-// points, and the adds the hwcd forms.
+// -DMSM_CURVE_ED, for Edwards (curve.cuh's vocabulary): rows then hold
+// (x, y, t) and (-x, y, -t), nodes (36, T) extended points, and the adds
+// are the hwcd forms.
 //
 // Bound on this card: a G1 aff node costs 2,873 word products (4
 // Montgomery products, 3 paired) for ~344 bytes moved (two 4-byte
 // sorted_vals, two 96-byte table rows, one 144-byte node: values below
 // 20p < 2^382 need 12 of a coordinate's 13 words); a full node 3,549 for
-// 432 bytes.  Edwards: 1,458 word products (9 products of 162)
-// for ~328 bytes (two 96-byte rows, one 128-byte node: values below 8p <
-// 2^256 need 8 of a coordinate's 9 words), a full node 1,620 for 384.  At the HBM rate and the float32 multiply-add rate the two
-// limits are within 1.5x, bytes the larger.  In practice the kernel runs
-// far above both: every word product with its carries is several integer
-// instructions, and a thread's points hold ~230 registers, so few warps
-// hide the latency.  Design: one thread per output node, so the
-// TPU's tile windows, window_gather and tile-base maps are not needed;
-// children are read by absolute index.  Reading level 1's children
-// through sorted_vals skips materializing the level-0 stream (the JAX
-// package's gather_level0).  Neighbouring nodes have neighbouring
-// children, so the limb-major loads stay mostly coalesced.
+// 432 bytes.  Edwards: 1,458 word products (9 products of 162) for ~328
+// bytes (two 96-byte rows, one 128-byte node: values below 8p < 2^256
+// need 8 of a coordinate's 9 words), a full node 1,620 for 384.  At the
+// HBM rate and the float32 multiply-add rate the two limits are within
+// 1.5x, bytes the larger.
+//
+// Level 1's children are points in sorted-bucket order, so their table
+// rows are scattered over a table (268 MB at 2^20 G1) far larger than the
+// 50 MB L2.  A limb-major table cost one 32-byte sector per word read (26
+// or 27 a child); a row is 4 sectors (seven 16-byte loads,
+// curve.cuh:load_signed_aff), which cut level 1 at 2^20 by 2.8x (G1) and
+// 4.2x (Edwards) on an H100.  A persistent form that copied each thread's
+// next child rows into a double-buffered shared-memory ring with cp.async
+// while it added the current ones measured no faster on G1 (248
+// registers: the same 2 blocks a SM) and ~19 % slower on Edwards (the
+// 56 KB ring cost a block a SM), so each node keeps one thread.
+//
+// The full levels also fold the fused path's pieces
+// (ops/smvp_kernel.py:fold_pieces).
 #include "curve.cuh"
 
 #define FLAG_INVALID (1 << 29)
 #define FLAG_SINGLE (1 << 30)
 #define CHILD_MASK (FLAG_INVALID - 1)
 
+#define THREADS 128
+
 template <bool AFF, bool LAST>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(THREADS)
     tree_level_kernel(const int32_t* __restrict__ in, long long in_cols,
                       const int32_t* __restrict__ sorted_vals,
                       const int32_t* __restrict__ level_map,
@@ -83,14 +94,13 @@ static int launch(const int32_t* in, long long in_cols,
                   const int32_t* sorted_vals, const int32_t* level_map,
                   int32_t* out, long long t_out, cudaStream_t stream) {
   if (t_out == 0) return 0;
-  const int threads = 128;
-  const long long blocks = (t_out + threads - 1) / threads;
-  tree_level_kernel<AFF, LAST><<<(unsigned)blocks, threads, 0, stream>>>(
+  const long long blocks = (t_out + THREADS - 1) / THREADS;
+  tree_level_kernel<AFF, LAST><<<(unsigned)blocks, THREADS, 0, stream>>>(
       in, in_cols, sorted_vals, level_map, out, t_out);
   return MSM_LAUNCH_STATUS();
 }
 
-// aff: in is the (26|27, 2N) signed table, in_cols = N (points per sign).
+// aff: table is the (2N, 32) signed table, n_points = N.
 extern "C" int msm_tree_level_aff(const int32_t* table, long long n_points,
                                   const int32_t* sorted_vals,
                                   const int32_t* level_map, int32_t* out,

@@ -19,8 +19,10 @@ compute_msm(points, scalars) -> {"x": int, "y": int} runs, on one device:
        kernel 5 over the signed table and the sorted entry stream;
      - "fused" (where all buckets fill whole 256-lane blocks, e.g. the
        default chunk 4 below 2^16): the sorted rows gathered once, then
-       kernel 8 over each bucket's contiguous rows, window by window where
-       a window's buckets fill whole blocks, else in one launch;
+       kernel 8 over pieces of at most PIECE of each bucket's contiguous
+       rows and kernel 2's full levels folding each bucket's pieces
+       (ops/smvp_kernel.py), window by window where a window's buckets
+       fill whole blocks, else in one pass of each;
      - "legacy" (otherwise, and PippengerMsmEngine): per window group,
        lockstep rounds of kernel 6, the group's round count read back
        once as the per-window maxima;
@@ -30,8 +32,9 @@ compute_msm(points, scalars) -> {"x": int, "y": int} runs, on one device:
   5. Montgomery exit (kernel 1) and one readback of num_windows points;
   6. Horner across windows on the host, with Python integers.
 compute_msm_batch(points, [scalars, ...]) runs step 1 once and steps 2-5
-per scalar set without the host waiting for the device between sets, then
-reads every set's window sums back in one copy.
+per scalar set without the host waiting for the device between sets (tree,
+stream and fused paths), then reads every set's window sums back in one
+copy.
 PyTorch runs eagerly, so the JAX package's plan/main program split, its
 size classes and their host readbacks, and its compile caches have no
 counterpart here; the legacy path's readback stays, since it fixes how
@@ -333,20 +336,19 @@ class CuzkMsmEngine:
 
     def _smvp_fused(self, rows, plan, chunk_size, num_windows):
         n, group = rows.shape[0], self.group
+        order = self._bpr_order(num_windows, chunk_size)
         if windowed_supported(plan.starts.shape[0], num_windows, n):
             buckets = accumulate_buckets_windowed(
                 rows, plan.sorted_vals, plan.starts, plan.lens, num_windows,
-                group
+                group, order=order
             )
         else:
             buckets = accumulate_buckets_fused(
                 pregather_signed(rows, plan.sorted_vals, group), plan.starts,
-                plan.lens, group
+                plan.lens, group, max_len=n, order=order
             )
-        order = self._bpr_order(num_windows, chunk_size)
         return reduce_buckets_prearranged(
-            buckets[:, order], num_windows, chunk_size, self.num_bpr_threads,
-            group
+            buckets, num_windows, chunk_size, self.num_bpr_threads, group
         )
 
     @staticmethod
@@ -406,13 +408,14 @@ class CuzkMsmEngine:
     ) -> list[dict[str, int]]:
         """Batched MSM over a fixed point set: one result per scalar set.
 
-        On the tree and stream paths the points are copied, converted and
-        tabled once; each set then costs its scalar copy, plan, SMVP, BPR
-        and Montgomery exit, enqueued without the host waiting for the
-        device, and every set's window sums come back in one copy before
-        the host Horner.  The other paths run compute_msm per set.  devices
-        may name the engine's own device; a pool of more than one is not
-        ported (ROADMAP item 16)."""
+        On the tree, stream and fused paths the points are copied,
+        converted and tabled once; each set then costs its scalar copy,
+        plan, SMVP, BPR and Montgomery exit, enqueued without the host
+        waiting for the device, and every set's window sums come back in
+        one copy before the host Horner.  The legacy path, whose round
+        counts are read back, runs compute_msm per set.  devices may name
+        the engine's own device; a pool of more than one is not ported
+        (ROADMAP item 16)."""
         if devices is not None and len(devices) > 1:
             raise NotImplementedError(
                 "set-parallel batches over a device pool are not ported: "
@@ -427,7 +430,7 @@ class CuzkMsmEngine:
         n = point_words.shape[-1]
         chunk_size = self._chunk_for(n)
         path = self._select_smvp(chunk_size, n)
-        if path not in ("tree", "stream"):
+        if path not in ("tree", "stream", "fused"):
             return [self.compute_msm(point_words, sc) for sc in scalars_batch]
         sws = [self._prepare_scalars(sc) for sc in scalars_batch]
         for sw in sws:

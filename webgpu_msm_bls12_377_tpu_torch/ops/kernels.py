@@ -122,13 +122,14 @@ def _build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build_all() -> tuple[Path, float]:
-    """Compile every library that is not built yet, in parallel.
+def build_all(out_dir: Path | None = None) -> tuple[Path, float]:
+    """Compile every library that is not built yet in out_dir (default:
+    this checkout's build directory of these sources), in parallel.
 
     Returns (build directory, seconds spent compiling).  Each library's
     compiler output (ptxas registers and spills per kernel) is kept
     beside it as <library>.log."""
-    out_dir = _build_dir()
+    out_dir = _build_dir() if out_dir is None else out_dir
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
@@ -154,6 +155,32 @@ def build_all() -> tuple[Path, float]:
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
     return out_dir, time.perf_counter() - t0
+
+
+def rebuild() -> tuple[Path, float]:
+    """Compile every library again from csrc/ (compute_msm's
+    force_recompile) and forget the loaded ones, so that the next launch
+    loads the new builds.
+
+    The libraries are built in a fresh directory and each is then moved
+    over its old build with one rename: another process of this checkout
+    that builds or loads them meanwhile finds a whole library, old or new,
+    and never a missing one.  A process that has loaded them keeps the
+    copies it loaded, which the same sources make identical."""
+    out_dir = _build_dir()
+    fresh = out_dir.with_name(f"{out_dir.name}.rebuild{os.getpid()}")
+    with _lock:
+        shutil.rmtree(fresh, ignore_errors=True)
+        try:
+            _, secs = build_all(fresh)
+            out_dir.mkdir(parents=True, exist_ok=True)
+            for name, _, _ in LIBRARIES:
+                for f in (f"{name}.log", f"libmsm_{name}.so"):
+                    os.replace(fresh / f, out_dir / f)
+        finally:
+            shutil.rmtree(fresh, ignore_errors=True)
+        _libs.clear()
+    return out_dir, secs
 
 
 def _lib(source: str) -> ctypes.CDLL:

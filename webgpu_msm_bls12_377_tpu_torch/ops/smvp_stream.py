@@ -31,6 +31,9 @@ from .kernels import check_plane, launch, on_cuda
 
 #: lanes of one slab on the TPU; stream_supported keeps its policy
 TPU_SLAB_LANES = 256
+#: words of one signed-table row: G1 x, y and six zero words; Edwards x, y,
+#: t and five zero words (the fused path's row, ops/smvp_kernel.py)
+ROW_WORDS = 32
 
 
 def stream_supported(chunk_size: int) -> bool:
@@ -41,22 +44,37 @@ def stream_supported(chunk_size: int) -> bool:
 
 
 def build_signed_table(table: torch.Tensor, group=G1) -> torch.Tensor:
-    """Montgomery affine table -> signed table of twice the columns:
-    columns [0, N) hold the points, columns [N, 2N) their negatives
-    (G1: (26, N) (x; y) -> (x, -y); Edwards: (27, N) (x; y; t) ->
-    (-x, y, -t)).  One table serves the stream kernel and tree level 1."""
-    check_plane(table, group.aff_rows)
+    """Montgomery affine table -> row-major signed table (2N, ROW_WORDS)
+    int32: rows [0, N) hold the points, rows [N, 2N) their negatives
+    (G1: (x, y), then (x, -y); Edwards: (x, y, t), then (-x, y, -t)), the
+    affine coordinates in words [0, aff_rows) and zeros after them (the
+    fused path's 32-word row, 16-byte aligned, so a kernel reads a row as
+    seven 16-byte loads).  One table serves the stream kernel and tree
+    level 1."""
+    n = check_plane(table, group.aff_rows)
     neg = C.merge(group.neg_affine(group.split_aff(table)))
-    return torch.cat([table, neg], dim=1).contiguous()
+    out = torch.zeros((2 * n, ROW_WORDS), dtype=torch.int32,
+                      device=table.device)
+    out[:n, :group.aff_rows] = table.T
+    out[n:, :group.aff_rows] = neg.T
+    return out
+
+
+def check_signed_table(table: torch.Tensor) -> int:
+    """Points of a signed table (2N, ROW_WORDS): N."""
+    if table.dim() != 2 or table.shape[1] != ROW_WORDS or table.shape[0] % 2:
+        raise ValueError(
+            f"expected a (2N, {ROW_WORDS}) signed table, got {tuple(table.shape)}")
+    return table.shape[0] // 2
 
 
 def signed_rows(table: torch.Tensor, sorted_vals: torch.Tensor, i, group=G1):
     """Affine coordinates of sorted-stream entries i from the signed
     table."""
-    n = table.shape[1] // 2
+    n = check_signed_table(table)
     v = sorted_vals[i].to(torch.int64)
-    col = (v & IDX_MASK) + torch.where(((v >> SIGN_BIT) & 1) == 1, 0, n)
-    return group.split_aff(table[:, col])
+    row = (v & IDX_MASK) + torch.where(((v >> SIGN_BIT) & 1) == 1, 0, n)
+    return group.split_aff(table[row, :group.aff_rows].T)
 
 
 class StreamLayout(NamedTuple):
@@ -115,12 +133,12 @@ def accumulate_buckets_streamed(
     signed_table: torch.Tensor, sorted_vals: torch.Tensor,
     layout: StreamLayout, group=G1,
 ) -> torch.Tensor:
-    """Signed table ((26|27, 2N)), sorted entry stream -> (39|36, B)
+    """Signed table ((2N, 32)), sorted entry stream -> (39|36, B)
     canonical bucket sums, column r the bucket of rank r (layout order):
     per bucket, the lazy mixed-add sum, from the identity, of its entries'
     signed points in stream order.  Any bucket length and any chunk size
     run."""
-    check_plane(signed_table, group.aff_rows)
+    n_points = check_signed_table(signed_table)
     starts, lens = layout.starts_rk, layout.lens_rk
     if not on_cuda(signed_table, sorted_vals, starts, lens):
         return accumulate_buckets_streamed_plain(
@@ -131,7 +149,7 @@ def accumulate_buckets_streamed(
                       device=signed_table.device)
     tag = group.ctx.tag
     launch("stream" + tag, "msm_stream_buckets", "stream_buckets" + tag, nb,
-           signed_table.data_ptr(), signed_table.shape[1] // 2,
+           signed_table.data_ptr(), n_points,
            sorted_vals.data_ptr(), starts.data_ptr(), lens.data_ptr(),
            out.data_ptr(), nb)
     return out

@@ -39,6 +39,7 @@ from .kernels import check_plane, launch, on_cuda
 from .smvp_stream import (
     StreamLayout,
     build_stream_layout,
+    check_signed_table,
     packed_finish,
     signed_rows,
 )
@@ -209,12 +210,13 @@ def run_tree_level(
 ) -> torch.Tensor:
     """One tree level -> (39|36, len(level_map)) packed lazy node plane.
 
-    mode "aff": arr_in is the (26|27, 2N) signed table and sorted_vals the
-    sorted entry stream the map points into.  mode "full": arr_in is the
-    previous level's (39|36, T) plane.  last canonicalizes the outputs."""
+    mode "aff": arr_in is the (2N, 32) row-major signed table and
+    sorted_vals the sorted entry stream the map points into.  mode "full":
+    arr_in is the previous level's (39|36, T) plane.  last canonicalizes
+    the outputs."""
     t_out = level_map.shape[0]
     if mode == "aff":
-        check_plane(arr_in, group.aff_rows)
+        n_points = check_signed_table(arr_in)
         ops = (arr_in, level_map, sorted_vals)
     elif mode == "full":
         check_plane(arr_in, group.rows)
@@ -229,9 +231,8 @@ def run_tree_level(
     tag = group.ctx.tag
     if mode == "aff":
         launch("tree" + tag, "msm_tree_level_aff", "tree_level_aff" + tag,
-               t_out, arr_in.data_ptr(), arr_in.shape[1] // 2,
-               sorted_vals.data_ptr(), level_map.data_ptr(), out.data_ptr(),
-               t_out, int(last))
+               t_out, arr_in.data_ptr(), n_points, sorted_vals.data_ptr(),
+               level_map.data_ptr(), out.data_ptr(), t_out, int(last))
     else:
         launch("tree" + tag, "msm_tree_level_full", "tree_level_full" + tag,
                t_out, arr_in.data_ptr(), arr_in.shape[1], level_map.data_ptr(),
