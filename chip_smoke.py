@@ -49,10 +49,10 @@ Phases, each of which fails the run on any error:
      which must agree bit for bit: per-kernel time, plain time and the
      bound (least time for the same work on an H100 SXM); the stream
      kernel five more times.  The plain forms of the lane-wise kernels (1, the
-     BPR and canonical families, the legacy round) are replayed from CUDA
-     graphs, one captured per shape, and kernel 8's round from one graph a
-     launch (fused_plain_graphed); phase 2 holds the replays against the
-     plain forms run eagerly;
+     BPR and canonical families but BPR stage 1, the legacy round) are
+     replayed from CUDA graphs, one captured per shape, and kernel 8's
+     round from one graph a launch (fused_plain_graphed); phase 2 holds
+     the replays against the plain forms run eagerly;
   5. one more 2^20, 2^20 from wire bytes, 2^17, 2^16, 2^14, Edwards 2^20
      (also from wire bytes) and Edwards 2^14 MSM
      with every engine stage fenced and timed, and one more 2^20 batch
@@ -129,8 +129,8 @@ KERNELS = {
                         "webgpu_msm_bls12_377_tpu/ops/smvp_tree.py:416"),
     "packed_finish": ("webgpu_msm_bls12_377_tpu_torch/csrc/packed.cu",
                       "webgpu_msm_bls12_377_tpu/ops/smvp_stream.py:475"),
-    "bpr_running_add": ("webgpu_msm_bls12_377_tpu_torch/csrc/bpr.cu",
-                        "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:451"),
+    "bpr_stage1": ("webgpu_msm_bls12_377_tpu_torch/csrc/bpr.cu",
+                   "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:451"),
     "bpr_double": ("webgpu_msm_bls12_377_tpu_torch/csrc/bpr.cu",
                    "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:383"),
     "bpr_masked_add_double": ("webgpu_msm_bls12_377_tpu_torch/csrc/bpr.cu",
@@ -150,7 +150,7 @@ KERNELS = {
     "fused_buckets": ("webgpu_msm_bls12_377_tpu_torch/csrc/fused.cu",
                       "webgpu_msm_bls12_377_tpu/ops/smvp_kernel.py:223"),
 }
-BPR = ("bpr_running_add", "bpr_double", "bpr_masked_add_double", "bpr_add")
+BPR = ("bpr_stage1", "bpr_double", "bpr_masked_add_double", "bpr_add")
 # the Edwards build (-DMSM_CURVE_ED) of every source, and the lane-wise
 # product of its point prep (t = x*y: an XLA product in the JAX package,
 # outside any Pallas kernel)
@@ -168,10 +168,11 @@ PATHS = {
     "legacy": ("masked_add_mixed", "mont_mul_const", *BPR),
     "naive": ("masked_add_and_double", "fused_add", "mont_mul_const"),
     # no engine of either package calls fused_running_add: the chain
-    # drives it, beside the lazy running add it must agree with mod p
-    "running_sum": ("fused_running_add", "bpr_running_add"),
+    # drives it, beside BPR stage 1 on the same steps, whose g must be the
+    # same points
+    "running_sum": ("fused_running_add", "bpr_stage1"),
     # default options at 2^10 and 2^14: chunk 4 has 8 buckets a window,
-    # one per BPR lane, so BPR runs no running add and no pre-double; the
+    # one per BPR lane, so BPR runs no stage 1 and no pre-double; the
     # fused kernel's row is the 2^10 run's (phase 4 times the 2^14 run
     # too); the fused paths fold each bucket's pieces with kernel 2's full
     # levels
@@ -196,7 +197,7 @@ PATHS = {
     # 2^10), and the 2^14 case forced through legacy
     "ed_legacy": ("masked_add_mixed_ed", *PREP_ED, *BPR_ED),
     "ed_naive": ("masked_add_and_double_ed", "fused_add_ed", *PREP_ED),
-    "ed_running_sum": ("fused_running_add_ed", "bpr_running_add_ed"),
+    "ed_running_sum": ("fused_running_add_ed", "bpr_stage1_ed"),
     "ed_fused_10": ("fused_buckets_ed", "tree_level_full_ed", *PREP_ED,
                     "bpr_masked_add_double_ed", "bpr_add_ed"),
 }
@@ -239,8 +240,10 @@ def rand_plane(rng, rows, n, bound, nw=13):
 def lazy_kernel_cases(rng, group, n=4096):
     """Phase 2 for the kernels both curves build: kernel 1 (entry and
     exit; for Edwards also the lane-wise product), the BPR family on lazy
-    operands, and on a small real plan (2048 points, chunk 8, K = 2) tree
-    levels 1 and 2, the packed finish and the stream kernel.  Returns (cases, Montgomery table, signed table,
+    operands (stage 1 at bpt 1, 2 and 8, split 1 to 4), and on a small
+    real plan (2048 points, chunk 8, K = 2) tree levels 1 and 2 (level 2
+    also as node rows), the packed finish on those rows and the stream
+    kernel.  Returns (cases, Montgomery table, signed table,
     plan, windows)."""
     import torch
 
@@ -266,9 +269,18 @@ def lazy_kernel_cases(rng, group, n=4096):
     m, g, b = (rand_plane(rng, group.rows, n, bound, nw) for _ in range(3))
     bits = torch.randint(0, 2, (n,), dtype=torch.int32,
                          generator=torch.Generator().manual_seed(1)).to(DEV)
-    pairs = [
-        ("bpr_running_add", K.bpr_running_add(m, g, b, group),
-         K.running_add_plain(m, g, b, group)),
+    # stage 1 over 2,048 lanes, the steps drawn from m, g and b: no steps
+    # (bpt 1), sub-walks of one step (bpt 2, split 2), the unsplit walk and
+    # a split one with its doublings (bpt 8, split 1 and 4)
+    pool = torch.cat([m, g, b], dim=1)
+    pairs = []
+    for bpt, split in ((1, 1), (2, 2), (8, 1), (8, 4)):
+        pick = torch.randint(0, 3 * n, (bpt * 2048,),
+                             generator=torch.Generator().manual_seed(bpt))
+        steps = pool[:, pick.to(DEV)].contiguous()
+        pairs.append(("bpr_stage1", K.bpr_stage1(steps, bpt, split, group),
+                      K.bpr_stage1_plain(steps, bpt, split, group)))
+    pairs += [
         ("bpr_double", K.bpr_double(m, group), K.double_plain(m, group)),
         ("bpr_masked_add_double", K.bpr_masked_add_double(m, g, bits, group),
          K.masked_add_double_plain(m, g, bits, group)),
@@ -316,7 +328,11 @@ def lazy_kernel_cases(rng, group, n=4096):
                       T.run_tree_level(lvl1, map2, "full", last, group=group),
                       T.tree_level_plain(lvl1, map2, "full", last,
                                          group=group)))
-    lvl2 = T.run_tree_level(lvl1, map2, "full", group=group)
+    cases.append(("tree_level_full" + tag,
+                  T.run_tree_level(lvl1, map2, "full", group=group, rows=True),
+                  T.tree_level_plain(lvl1, map2, "full", False, group=group,
+                                     rows=True)))
+    lvl2 = T.run_tree_level(lvl1, map2, "full", group=group, rows=True)
     cases.append(("packed_finish" + tag, S.packed_finish(lvl2, hp.layout, group),
                   S.packed_finish_plain(lvl2, hp.layout.starts_rk,
                                         hp.layout.lens_rk, group)))
@@ -818,17 +834,33 @@ def naive_msm(pw, sw, curve="bls12_377"):
     return to_affine(NaiveMsmEngine(CurveId(curve)).build_fn()(pw, sw), curve)
 
 
+def same_points_on_card(a, b, group):
+    """Two canonical projective planes hold the same points lane by lane:
+    X1 Z2 = X2 Z1 and Y1 Z2 = Y2 Z1 mod p (Z the last coordinate), with
+    canonical Montgomery products on the card."""
+    import torch
+
+    from webgpu_msm_bls12_377_tpu_torch.ops import field as F
+
+    ctx, pa, pb = group.ctx, group.split(a), group.split(b)
+    return all(torch.equal(F.mont_mul_canon(pa[c], pb[-1], ctx),
+                           F.mont_mul_canon(pb[c], pa[-1], ctx))
+               for c in (0, 1))
+
+
 def running_sum_chain(pw, curve="bls12_377", steps=8):
     """`steps` canonical running-sum steps (fused_running_add) over all
     points of a case, from the identity, with b_t the table rolled by t
-    lanes; the lazy running add on the same operands must give the same
-    canonical coordinates.  Returns lane 0 of g as the affine {"x", "y"}."""
+    lanes; BPR stage 1 over the same steps (bpt = steps, a lane a point,
+    the engine's split) must give the same points as g.  Returns lane 0
+    of g as the affine {"x", "y"}."""
     import torch
 
     from webgpu_msm_bls12_377_tpu_torch.models.cuzk import (
         mont_point_table,
         words_to_device,
     )
+    from webgpu_msm_bls12_377_tpu_torch.ops import bpr
     from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
     from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
     from webgpu_msm_bls12_377_tpu_torch.params import CurveId
@@ -836,14 +868,19 @@ def running_sum_chain(pw, curve="bls12_377", steps=8):
     group = C.group_ops(CurveId(curve))
     table = mont_point_table(words_to_device(pw, torch.device(DEV)), group)
     pts = C.merge(group.from_affine(group.split_aff(table)))
-    m = g = lm = lg = C.merge(group.zero(pts.shape[1], DEV))
+    m = g = C.merge(group.zero(pts.shape[1], DEV))
+    walk = []
     for t in range(steps):
         b = torch.roll(pts, t, dims=1).contiguous()
         m, g = K.fused_running_add(m, g, b, group)
-        lm, lg = K.bpr_running_add(lm, lg, b, group)
+        walk.append(b)
+    lanes = pts.shape[1]
+    _, lg = K.bpr_stage1(torch.cat(walk, dim=1), steps,
+                         bpr.stage1_split(lanes, steps, group), group)
     lazy = C.merge(group.canon(group.split(lg)))
-    if not torch.equal(g, lazy):
-        raise SystemExit("running-sum chain: canonical and lazy forms differ")
+    if not same_points_on_card(g, lazy, group):
+        raise SystemExit("running-sum chain: the canonical steps and BPR "
+                         "stage 1 give other points")
     # Montgomery coordinates are the plain ones scaled by R: the same
     # projective point
     return to_affine(g, curve)
@@ -1169,7 +1206,8 @@ def timed_paths(inputs, ed_inputs):
         return record("mont_mul_lanes_ed", K_MML, MML_PLAIN,
                       (a, b), n * w["mm"], 3 * 4 * w["cw"] * n)
 
-    def tree(arr_in, level_map, mode, last=False, sorted_vals=None, group=G1):
+    def tree(arr_in, level_map, mode, last=False, sorted_vals=None, group=G1,
+             rows=False):
         w = WORK[group.ctx.tag]
         m = level_map.to(torch.int64)
         invalid = (m & T.FLAG_INVALID) != 0
@@ -1184,7 +1222,7 @@ def timed_paths(inputs, ed_inputs):
             muls, nbytes = pairs * w["add_full"], reads * w["pt"] + t * (4 + w["pt"])
         return record(f"tree_level_{mode}" + group.ctx.tag, K_TREE,
                       T.tree_level_plain,
-                      (arr_in, level_map, mode, last, sorted_vals, group),
+                      (arr_in, level_map, mode, last, sorted_vals, group, rows),
                       muls, nbytes)
 
     def bucket_work(lens, add_muls, entry_bytes, pt):
@@ -1194,14 +1232,26 @@ def timed_paths(inputs, ed_inputs):
         adds = int((lens.to(torch.int64) - 1).clamp(min=0).sum())
         return adds * add_muls, entries * entry_bytes + nb * (8 + pt)
 
-    def finish(plane, layout, group=G1):
+    def finish(rows, layout, group=G1):
         w = WORK[group.ctx.tag]
         return record(
             "packed_finish" + group.ctx.tag,
-            lambda p, s, l, g: K_FINISH(p, layout, g),
+            lambda r, s, l, g: K_FINISH(r, layout, g),
             S.packed_finish_plain,
-            (plane, layout.starts_rk, layout.lens_rk, group),
+            (rows, layout.starts_rk, layout.lens_rk, group),
             *bucket_work(layout.lens_rk, w["add_full"], w["pt"], w["pt"]))
+
+    def stage1(buckets, bpt, split, group=G1):
+        # the function's work: a lane's bpt - 1 running adds (two full adds
+        # each, as the unsplit walk), every step's bucket read once, m and
+        # g written once; the plain form runs eagerly (one call a path: a
+        # CUDA graph would be captured for a single replay)
+        w, lanes = WORK[group.ctx.tag], buckets.shape[1] // bpt
+        return record("bpr_stage1" + group.ctx.tag, K_STAGE1,
+                      K.bpr_stage1_plain,
+                      (buckets, bpt, split, group),
+                      2 * (bpt - 1) * lanes * w["add_full"],
+                      (bpt + 2) * lanes * w["pt"])
 
     def stream(table, sorted_vals, layout, group=G1):
         w = WORK[group.ctx.tag]
@@ -1246,9 +1296,6 @@ def timed_paths(inputs, ed_inputs):
                           muls(n, w, *planes), nbytes(n, w, *planes))
         return run
 
-    running = lanes(K.bpr_running_add, K.running_add_plain, "bpr_running_add",
-                    3, lambda n, w, *a: 2 * n * w["add_full"],
-                    lambda n, w, *a: 5 * w["pt"] * n)
     double = lanes(K.bpr_double, K.double_plain, "bpr_double", 1,
                    lambda n, w, *a: n * w["dbl"], lambda n, w, *a: 2 * w["pt"] * n)
     masked = lanes(K.bpr_masked_add_double, K.masked_add_double_plain,
@@ -1282,8 +1329,8 @@ def timed_paths(inputs, ed_inputs):
     K_MMC, K_MML, K_TREE = K.mont_mul_const, K.mont_mul_lanes, T.run_tree_level
     MMC_PLAIN = graphed(K.mont_mul_const_plain)
     MML_PLAIN = graphed(K.mont_mul_lanes_plain)
+    K_FINISH, K_STAGE1 = T.packed_finish, K.bpr_stage1
     replays += [MMC_PLAIN, MML_PLAIN]
-    K_FINISH = T.packed_finish
     K_STREAM, K_FUSED = S.accumulate_buckets_streamed, SK.fused_segments
     patches = [
         (convert, "mont_mul_const", mmc), (cuzk, "mont_mul_const", mmc),
@@ -1291,11 +1338,11 @@ def timed_paths(inputs, ed_inputs):
         (T, "run_tree_level", tree), (T, "packed_finish", finish),
         (cuzk, "accumulate_buckets_streamed", stream),
         (SK, "fused_segments", fusedk),
-        (bpr, "bpr_running_add", running), (bpr, "bpr_double", double),
+        (bpr, "bpr_stage1", stage1), (bpr, "bpr_double", double),
         (bpr, "bpr_masked_add_double", masked), (bpr, "bpr_add", add),
         (buckets, "masked_add_mixed", mixed),
         (naive, "fused_add", cadd), (naive, "masked_add_and_double", cmasked),
-        (K, "fused_running_add", crunning), (K, "bpr_running_add", running),
+        (K, "fused_running_add", crunning), (K, "bpr_stage1", stage1),
     ]
     runs = (("tree", run_msm, inputs[20]), ("stream", run_msm, inputs[17]),
             ("legacy", pippenger_msm, inputs[16]),

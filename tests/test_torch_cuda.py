@@ -97,13 +97,14 @@ def test_bpr_family(dev, group):
                           dev, ctx.nw) for _ in range(3))
     bits = torch.randint(0, 2, (LANES,), dtype=torch.int32,
                          generator=torch.Generator().manual_seed(0)).to(dev)
+    steps = torch.cat([m, g, b, m], dim=1)  # bpt 4
     K.reset_launches()
-    same(K.bpr_running_add(m, g, b, group), K.running_add_plain(m, g, b, group))
+    same(K.bpr_stage1(steps, 4, 2, group), K.bpr_stage1_plain(steps, 4, 2, group))
     same(K.bpr_double(m, group), K.double_plain(m, group))
     same(K.bpr_masked_add_double(m, g, bits, group),
          K.masked_add_double_plain(m, g, bits, group))
     same(K.bpr_add(m, b, group), K.add_plain(m, b, group))
-    names = ("bpr_running_add", "bpr_double", "bpr_masked_add_double", "bpr_add")
+    names = ("bpr_stage1", "bpr_double", "bpr_masked_add_double", "bpr_add")
     assert all(K.launches[k + tag] == 1 for k in names)
     other = "_ed" if group is C.G1 else ""
     assert not any(K.launches[k + other] for k in names)
@@ -151,7 +152,9 @@ def test_tree_levels_and_finish(dev, group):
     for last in (False, True):
         same(T.run_tree_level(lvl1, map2, "full", last, group=group),
              T.tree_level_plain(lvl1, map2, "full", last, group=group))
-    lvl2 = T.run_tree_level(lvl1, map2, "full", group=group)
+    same(T.run_tree_level(lvl1, map2, "full", group=group, rows=True),
+         T.tree_level_plain(lvl1, map2, "full", False, group=group, rows=True))
+    lvl2 = T.run_tree_level(lvl1, map2, "full", group=group, rows=True)
     same(S.packed_finish(lvl2, hp.layout, group),
          S.packed_finish_plain(lvl2, hp.layout.starts_rk, hp.layout.lens_rk,
                                group))
@@ -194,6 +197,81 @@ def test_tree_level_aff_random_map(dev, group, t_out):
              T.tree_level_plain(table, level_map, "aff", last, sorted_vals,
                                 group))
         assert K.launches["tree_level_aff" + ctx.tag] == 1
+
+
+@GROUPS
+@pytest.mark.parametrize("lanes", [1000, 9000], ids=["small", "large"])
+def test_bpr_stage1_against_plain(dev, group, lanes):
+    """BPR stage 1 in one launch against its plain form on lazy operands,
+    for every split at bpt 1, 2, 8 and 64 (bpt < split runs no case: the
+    wrapper refuses it): below one block a SM and, at 9,000 lanes split 4
+    or 8, more threads than the card holds at once; a ragged last block."""
+    ctx, tag = group.ctx, group.ctx.tag
+    rng = random.Random(f"k-stage1{tag}{lanes}")
+    bound = lazy_bound(group) * ctx.p
+    cols = rand_plane(rng, group.rows, 64, bound, dev, ctx.nw)
+    K.reset_launches()
+    runs = 0
+    for bpt in (1, 2, 8, 64):
+        # columns drawn from a pool of random lazy points: every step of
+        # every lane a point below the lazy bound
+        idx = torch.randint(0, 64, (bpt * lanes,),
+                            generator=torch.Generator().manual_seed(bpt))
+        steps = cols[:, idx.to(dev)].contiguous()
+        for split in (1, 2, 4, 8):
+            if split > bpt:
+                with pytest.raises(ValueError):
+                    K.bpr_stage1(steps, bpt, split, group)
+                continue
+            same(K.bpr_stage1(steps, bpt, split, group),
+                 K.bpr_stage1_plain(steps, bpt, split, group))
+            runs += 1
+    assert K.launches["bpr_stage1" + tag] == runs
+
+
+@GROUPS
+@pytest.mark.parametrize("t_out", [1000, 3 * 132 * 2 * 128 + 77],
+                         ids=["small", "large"])
+def test_node_rows_and_finish_random(dev, group, t_out):
+    """Tree levels writing node rows (aff and full) against their plain
+    forms, then the finish on those rows over random layouts in sorted
+    and in natural (window-major) order: empty buckets,
+    one bucket of 130 nodes (longer than a block), fewer buckets than a
+    block a SM and more than the card holds at once."""
+    ctx, tag = group.ctx, group.ctx.tag
+    rng = np.random.default_rng(len(tag) * 1000 + t_out % 997)
+    pool = rand_plane(random.Random(t_out), group.rows, 4096,
+                      lazy_bound(group) * ctx.p, dev, ctx.nw)
+    cols = torch.as_tensor(rng.integers(0, 4096, 2 * t_out + 8), device=dev)
+    plane = pool[:, cols].contiguous()
+    pick = rng.integers(0, 2 * t_out + 8, size=t_out)
+    flags = rng.random(t_out)
+    level_map = np.where(flags < 0.1, T.FLAG_INVALID,
+                         np.where(flags < 0.3, pick | T.FLAG_SINGLE,
+                                  np.minimum(pick, 2 * t_out + 6)))
+    level_map = torch.as_tensor(level_map.astype(np.int32), device=dev)
+    K.reset_launches()
+    rows = T.run_tree_level(plane, level_map, "full", group=group, rows=True)
+    same(rows, T.tree_level_plain(plane, level_map, "full", False, group=group,
+                                  rows=True))
+    assert rows.shape == (t_out, S.node_words(group))
+    nb = t_out // 6
+    lens = rng.integers(0, 12, size=nb)
+    lens[rng.random(nb) < 0.2] = 0
+    lens[nb // 2] = 130
+    starts = rng.integers(0, t_out - lens + 1)
+    for order in ("natural", "sorted"):
+        perm = (np.arange(nb) if order == "natural"
+                else np.argsort(-lens, kind="stable"))
+        layout = S.StreamLayout(
+            starts_rk=torch.as_tensor(starts[perm].astype(np.int32), device=dev),
+            lens_rk=torch.as_tensor(lens[perm].astype(np.int32), device=dev),
+            perm=torch.as_tensor(np.argsort(perm).astype(np.int32), device=dev))
+        want = S.packed_finish_plain(rows, layout.starts_rk, layout.lens_rk,
+                                     group)
+        same(S.packed_finish(rows, layout, group), want)
+    assert K.launches["tree_level_full" + tag] == 1
+    assert K.launches["packed_finish" + tag] == 2
 
 
 def test_stream_duplicate_heavy_bucket(dev):
@@ -454,7 +532,7 @@ def test_engine_on_the_card_matches_oracle(dev):
     assert (got["x"], got["y"]) == crv.g1_to_affine(naive_msm(pts, scalars, G1))
     assert all(K.launches[k] > 0 for k in
                ("mont_mul_const", "tree_level_aff", "tree_level_full",
-                "packed_finish", "bpr_running_add", "bpr_double",
+                "packed_finish", "bpr_stage1", "bpr_double",
                 "bpr_masked_add_double", "bpr_add"))
 
 

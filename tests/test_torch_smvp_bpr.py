@@ -36,6 +36,8 @@ from webgpu_msm_bls12_377_tpu_torch.ops import smvp_stream, smvp_tree
 from webgpu_msm_bls12_377_tpu_torch.ops.convert import from_jax_limbs, ints_to_words
 from webgpu_msm_bls12_377_tpu_torch.reference import curve as crv
 
+from test_torch_fused_pieces import same_points
+
 # tiny tensors: one intra-op thread avoids oversubscribing the CPU
 # beside the other test workers
 torch.set_num_threads(1)
@@ -211,8 +213,8 @@ def test_packed_finish_and_permute_match_jax(stage, levels):
         node = take(lvl2, np.where(t < lens, starts + t, 0))
         acc = jcurve.select(live, add(acc, node), acc)
     jblocks = jax.jit(jg.canon)(acc)
-    blocks = smvp_stream.packed_finish(cv.carry(lvl2), stage["ph"].layout,
-                                       cv.group)
+    rows = smvp_stream.node_rows(cv.carry(lvl2), cv.group)
+    blocks = smvp_stream.packed_finish(rows, stage["ph"].layout, cv.group)
     assert (cv.mod_p(blocks) == cv.mod_p(cv.carry(jblocks))).all()
     order = bpr.bpr_order(NW, CHUNK, THREADS)
     jperm = jss.permute_buckets(jg, jnp.concatenate(list(jblocks)), layout,
@@ -222,26 +224,118 @@ def test_packed_finish_and_permute_match_jax(stage, levels):
     assert torch.equal(got, cv.carry(jperm))
 
 
-def test_bpr_matches_jax(stage):
-    """reduce_buckets_prearranged on JAX-produced canonical buckets
-    (random multiples of table points, with empty buckets)."""
+def jax_finish(jg, lvl, starts, lens):
+    """The JAX finish's order of adds in jnp: per bucket its nodes from
+    the identity, canonicalized once."""
+    add = jax.jit(jg.add_lazy)
+    acc = jg.zero((starts.shape[0],))
+    for t in range(int(lens.max())):
+        live = jnp.asarray(t < lens)
+        node = take(lvl, np.where(t < lens, starts + t, 0))
+        acc = jcurve.select(live, add(acc, node), acc)
+    return jax.jit(jg.canon)(acc)
+
+
+def test_packed_finish_long_and_empty_buckets_match_jax(stage, levels):
+    """The finish on node rows over a hand-made layout, in no particular
+    order: empty buckets, buckets of one node, a bucket of 200 nodes
+    (longer than a block of threads) and buckets that overlap, against the
+    JAX finish's adds on the same nodes, word for word mod p."""
     cv, jg = stage["cv"], stage["cv"].jgroup
-    rng = np.random.default_rng(4)
-    h = 1 << (CHUNK - 1)
-    jtab = stage["table"]
-    idx = rng.integers(0, N, size=NW * h)
-    pts = jg.from_affine(tuple(jnp.take(jtab[c], idx, axis=1)
+    lvl2, t2 = levels["lvl2"], levels["t2"]
+    rng = np.random.default_rng(7)
+    nb = 300
+    lens = rng.integers(0, 12, size=nb)
+    lens[rng.random(nb) < 0.2] = 0
+    lens[:3] = (1, 200, 0)
+    starts = rng.integers(0, t2 - lens + 1)
+    want = cv.carry(jax_finish(jg, lvl2, starts, lens))
+    layout = smvp_stream.StreamLayout(
+        starts_rk=torch.as_tensor(starts, dtype=torch.int32),
+        lens_rk=torch.as_tensor(lens, dtype=torch.int32),
+        perm=torch.arange(nb, dtype=torch.int32))
+    rows = smvp_stream.node_rows(cv.carry(lvl2), cv.group)
+    got = smvp_stream.packed_finish(rows, layout, cv.group)
+    assert got.shape == (cv.group.rows, nb)
+    assert (cv.mod_p(got) == cv.mod_p(want)).all()
+    zero = cv.mod_p(C.merge(cv.group.zero(1)))[:, 0]
+    assert all((cv.mod_p(got[:, [j]])[:, 0] == zero).all()
+               for j in np.flatnonzero(lens == 0))
+
+
+def test_node_rows_round_trip(stage, levels):
+    """node_rows: row j holds column j's words, then zeros to a multiple
+    of four words (G1 40, Edwards 36), the csrc/curve.cuh node layout."""
+    cv = stage["cv"]
+    plane = cv.carry(levels["lvl1"])
+    rows = smvp_stream.node_rows(plane, cv.group)
+    assert rows.shape == (plane.shape[1], 40 if cv is G1 else 36)
+    assert torch.equal(rows[:, :cv.group.rows].T, plane)
+    assert not rows[:, cv.group.rows:].any()
+
+
+def bpr_case(cv, table, chunk, threads, seed=4):
+    """Random multiples of table points (20 % empty buckets) in BPR walk
+    order for NW windows of 2^(chunk-1) buckets, as JAX and port planes."""
+    jg = cv.jgroup
+    nw = decompose.num_windows_for(chunk)
+    h = 1 << (chunk - 1)
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, N, size=nw * h)
+    pts = jg.from_affine(tuple(jnp.take(table[c], idx, axis=1)
                                for c in range(cv.k)))
     pts = jax.jit(lambda p: jg.canon(jg.double_lazy(p)))(pts)
-    empty = jnp.asarray(rng.random(NW * h) < 0.2)
-    pts = jcurve.select(empty, jg.zero((NW * h,)), pts)
-    order = bpr.bpr_order(NW, CHUNK, THREADS)
+    empty = jnp.asarray(rng.random(nw * h) < 0.2)
+    pts = jcurve.select(empty, jg.zero((nw * h,)), pts)
+    order = bpr.bpr_order(nw, chunk, threads)
     jb = take(pts, order.reshape(-1))
+    return nw, jb, cv.carry(jb)
+
+
+def test_bpr_matches_jax(stage):
+    """reduce_buckets_prearranged on JAX-produced canonical buckets
+    (random multiples of table points, with empty buckets), at this
+    shape's default split (bpt 2: sub-walks of one step): word for
+    word."""
+    cv, jg = stage["cv"], stage["cv"].jgroup
+    _, jb, pb = bpr_case(cv, stage["table"], CHUNK, THREADS)
     want = jbpr.reduce_buckets_prearranged(jg, jb, NW, CHUNK, THREADS)
-    got = bpr.reduce_buckets_prearranged(cv.carry(jb), NW, CHUNK, THREADS,
-                                         cv.group)
+    got = bpr.reduce_buckets_prearranged(pb, NW, CHUNK, THREADS, cv.group)
     assert got.shape == (cv.group.rows, NW)
     assert torch.equal(got, cv.carry(want))
+
+
+_JAX_BPR = {}
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+@pytest.mark.parametrize("chunk,threads", [(4, 8), (4, 4), (6, 4)],
+                         ids=["bpt1", "bpt2", "bpt8"])
+def test_bpr_split_matches_jax(stage, chunk, threads, split, monkeypatch):
+    """Stage 1 split into sub-walks (bpr_stage1, its plain form here),
+    against the JAX reduction of the same buckets: the same points, and
+    the same words where the sub-walks are one step each (q = 1: the
+    combine then repeats the walk's adds, the last with its operands
+    swapped, and the lazy add is symmetric) or the walk is not split;
+    other projective coordinates otherwise.  bpt 1 has no steps; a split
+    above bpt is cut to bpt, as stage1_split cuts it (bpt sub-walks of
+    one step)."""
+    cv, jg = stage["cv"], stage["cv"].jgroup
+    nw, jb, pb = bpr_case(cv, stage["table"], chunk, threads)
+    key = (cv.group.ctx.tag, chunk, threads)
+    if key not in _JAX_BPR:
+        _JAX_BPR[key] = cv.carry(
+            jbpr.reduce_buckets_prearranged(jg, jb, nw, chunk, threads))
+    want = _JAX_BPR[key]
+    bpt = (1 << (chunk - 1)) // threads
+    monkeypatch.setattr(bpr, "stage1_split",
+                        lambda lanes, bpt, group: min(split, bpt))
+    got = bpr.reduce_buckets_prearranged(pb, nw, chunk, threads, cv.group)
+    if split == 1 or split >= bpt:
+        assert torch.equal(got, want)
+    else:
+        assert not torch.equal(got, want)
+        same_points(got, want, cv.group)
 
 
 @pytest.mark.parametrize("stage", [ED], ids=["ed"], indirect=True)
@@ -278,3 +372,20 @@ def test_stream_and_tree_bucket_sums_match_jax_legacy(stage):
                                         k, cv.group)
         got = smvp_stream.permute_buckets(tb, hp.layout, group=cv.group)
         assert affine(got) == affine(want)
+
+
+@pytest.mark.parametrize("lanes,bpt,want_g1,want_ed", [
+    (16 * 512, 64, 4, 4),   # 2^20, chunk 16: 8,192 lanes
+    (17 * 512, 32, 2, 4),   # 2^16-2^18, chunk 15: 8,704 lanes
+    (64 * 8, 1, 1, 1),      # chunk 4, 8 threads: no steps
+    (64 * 4, 2, 2, 2),      # chunk 4, 4 threads: a split above bpt is cut
+    (40_000, 64, 1, 1),     # the lanes alone fill the card
+])
+def test_stage1_split_fills_the_card_in_one_wave(lanes, bpt, want_g1, want_ed):
+    """The default split: the largest power of two, at most bpt and
+    MAX_SPLIT, with lanes * split within the threads an H100 holds at
+    once at bpr_stage1's registers (G1 2 blocks a SM, Edwards 3)."""
+    assert bpr.stage1_split(lanes, bpt, C.G1) == want_g1
+    assert bpr.stage1_split(lanes, bpt, C.EDWARDS) == want_ed
+    for group, split in ((C.G1, want_g1), (C.EDWARDS, want_ed)):
+        assert lanes * split <= bpr.STAGE1_RESIDENT[group.ctx.tag] or split == 1

@@ -580,3 +580,47 @@ __device__ __forceinline__ void load_signed_aff(Affine& a,
                                                 long long i) {
   aff_load_row(a, table, signed_col(sorted_vals, n_points, i));
 }
+
+// -- Node rows, both curves ----------------------------------------------------
+//
+// A lazy projective point as one row-major node of NODE_WORDS int32 words:
+// its coordinates in Point's word order (the plane's row order: G1 x, y,
+// z; Edwards x, y, t, z), then zeros up to a multiple of four words (G1
+// 39 + 1 = 40 words, 160 bytes; Edwards 36, 144 bytes), so a node is
+// NODE_LOADS 16-byte loads.  The hybrid tree's last level writes its nodes
+// as rows (tree.cu, out mode OUT_ROWS) for the finish (packed.cu), which
+// reads a node's five sectors instead of one sector a word of a
+// limb-major plane.  ops/smvp_stream.py:node_rows is the plain form.
+#define NODE_LOADS ((int)((sizeof(Point) + 15) / 16))
+#define NODE_WORDS (4 * NODE_LOADS)
+
+__device__ __forceinline__ void pt_load_row(Point& r, const int32_t* rows,
+                                            long long j) {
+  u32 w[NODE_WORDS];
+  const int4* v = reinterpret_cast<const int4*>(rows + j * NODE_WORDS);
+#pragma unroll
+  for (int i = 0; i < NODE_LOADS; ++i) {
+    const int4 q = __ldg(v + i);
+    w[4 * i] = (u32)q.x;
+    w[4 * i + 1] = (u32)q.y;
+    w[4 * i + 2] = (u32)q.z;
+    w[4 * i + 3] = (u32)q.w;
+  }
+  u32* d = reinterpret_cast<u32*>(&r);  // Point's words, in row order
+#pragma unroll
+  for (int k = 0; k < (int)(sizeof(Point) / 4); ++k) d[k] = w[k];
+}
+
+__device__ __forceinline__ void pt_store_row(int32_t* rows, long long j,
+                                             const Point& a) {
+  u32 w[NODE_WORDS];
+  const u32* s = reinterpret_cast<const u32*>(&a);
+#pragma unroll
+  for (int k = 0; k < NODE_WORDS; ++k)
+    w[k] = k < (int)(sizeof(Point) / 4) ? s[k] : 0u;
+  int4* v = reinterpret_cast<int4*>(rows + j * NODE_WORDS);
+#pragma unroll
+  for (int i = 0; i < NODE_LOADS; ++i)
+    v[i] = make_int4((int)w[4 * i], (int)w[4 * i + 1], (int)w[4 * i + 2],
+                     (int)w[4 * i + 3]);
+}

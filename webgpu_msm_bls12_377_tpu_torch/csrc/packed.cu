@@ -6,59 +6,74 @@
 // sequential grid over 256-lane slabs whose accumulator block stays
 // resident from a block's first slab to its last.  Hopper blocks run in no
 // order, so here the sequential dimension becomes a loop inside one
-// thread: thread r owns bucket rank r of the length-sorted layout
-// (ops/smvp_stream.py:build_stream_layout), walks that bucket's len
-// contiguous nodes from start, and writes column r of the block-ordered
-// output that permute_buckets reads.  Ranks are sorted by length within
-// each window, so a warp's lanes run similar trip counts.  No slab gather,
-// slab flags or slab-count size class exist on this path.
-//
-// The sum starts from the identity and adds every node, as the TPU kernel
-// does, so both produce the same projective coordinates mod p.  Built for
-// G1 and, with -DMSM_CURVE_ED, for Edwards (curve.cuh's vocabulary).
+// thread: thread r owns output column r, the bucket whose level-K nodes
+// are rows [starts[r], starts[r] + lens[r]) of the (T_K, NODE_WORDS)
+// row-major node array that the last tree level writes (tree.cu OUT_ROWS),
+// and adds them from the identity in that order, as the TPU kernel does, so
+// both produce the same projective coordinates mod p.  The column order is
+// the caller's (the hybrid plan's layout; permute_buckets reorders).  No
+// slab gather, slab flags or slab-count size class exist on this path.
+// Built for G1 and, with -DMSM_CURVE_ED, for Edwards (curve.cuh's
+// vocabulary).
 //
 // Bound on this card: products.  A bucket of c nodes needs c - 1 full adds
 // (G1 3,549 word products each, Edwards 1,620; the add into the identity
 // is not counted), against 144 (G1, 48 bytes a coordinate) or 128
 // (Edwards, 32 bytes a coordinate) bytes read per node.
 //
+// What held it back: it read a node from the limb-major (39|36, T_K) plane
+// as 39 (36) separate words, and the neighbouring threads of a warp own
+// buckets far apart, so every word cost a 32-byte sector: 39 sectors a
+// node (1,248 bytes moved for 156 used).  A node row is NODE_LOADS 16-byte
+// loads over five sectors: at 2^20 on an H100 the finish fell from 17.5
+// to 7.8 ms (G1) and from 4.0 to 2.4 (Edwards).  The column order stays
+// the plan's length-sorted one: in natural order a warp's lanes run
+// unequal trip counts and the finish took 1.5-1.7x as long.  A two-slot
+// shared-memory ring that copied each thread's next node with cp.async
+// while it added the current one measured within 2 % (no gain) and was
+// dropped.
+//
 // The add sits in a __noinline__ helper: with the full add inlined into
 // the runtime-length loop, nvcc 12.8's cicc crashes (segmentation fault)
-// on this file.  The accumulator then lives in the thread's local memory
-// (L1-cached), one point-sized round trip per node added.
+// on this file.  The accumulator the helper updates lives in shared
+// memory, a point a thread (in local memory the finish ran 1-2 % slower
+// on G1).
 #include "curve.cuh"
 
-__device__ __noinline__ void add_node(Point& acc, const int32_t* plane,
-                                      long long t_cols, long long j) {
+#define THREADS 128
+
+__device__ __noinline__ void add_row(Point& acc, const int32_t* rows,
+                                     long long j) {
   Point node;
-  pt_load(node, plane, t_cols, j);
+  pt_load_row(node, rows, j);
   pt_add_lazy(acc, acc, node);
 }
 
-__global__ void __launch_bounds__(128)
-    packed_finish_kernel(const int32_t* __restrict__ plane, long long t_cols,
-                         const int32_t* __restrict__ starts_rk,
-                         const int32_t* __restrict__ lens_rk,
+__global__ void __launch_bounds__(THREADS)
+    packed_finish_kernel(const int32_t* __restrict__ rows,
+                         const int32_t* __restrict__ starts,
+                         const int32_t* __restrict__ lens,
                          int32_t* __restrict__ out, long long nb) {
+  __shared__ Point accs[THREADS];
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= nb) return;
-  const long long start = starts_rk[r];
-  const int len = lens_rk[r];
-  Point acc;
+  const long long start = starts[r];
+  const int len = lens[r];
+  Point& acc = accs[threadIdx.x];
   pt_zero(acc);
-  for (int t = 0; t < len; ++t) add_node(acc, plane, t_cols, start + t);
+  for (int t = 0; t < len; ++t) add_row(acc, rows, start + t);
   pt_canon(acc);
   pt_store(out, nb, r, acc);
 }
 
-extern "C" int msm_packed_finish(const int32_t* plane, long long t_cols,
-                                 const int32_t* starts_rk,
-                                 const int32_t* lens_rk, int32_t* out,
+// rows: the (T_K, NODE_WORDS) node rows; out: (39|36, nb), column r the
+// sum of bucket r's lens[r] nodes from starts[r].
+extern "C" int msm_packed_finish(const int32_t* rows, const int32_t* starts,
+                                 const int32_t* lens, int32_t* out,
                                  long long nb, cudaStream_t stream) {
   if (nb == 0) return 0;
-  const int threads = 128;
-  const long long blocks = (nb + threads - 1) / threads;
-  packed_finish_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-      plane, t_cols, starts_rk, lens_rk, out, nb);
+  const unsigned blocks = (unsigned)((nb + THREADS - 1) / THREADS);
+  packed_finish_kernel<<<blocks, THREADS, 0, stream>>>(rows, starts, lens,
+                                                       out, nb);
   return MSM_LAUNCH_STATUS();
 }

@@ -15,7 +15,11 @@
 //   full: the previous level is a packed (39, T) plane of lazy projective
 //         nodes.  Full lazy add; a single child is copied.
 // FLAG_INVALID slots (past the level's real node count) write the
-// identity; LAST canonicalizes every output.  Built for G1 and, with
+// identity.  The out mode picks the output: OUT_PLANE a (39|36, t_out)
+// limb-major plane of lazy nodes, OUT_CANON the same canonicalized (the
+// pure tree's last level), OUT_ROWS lazy nodes as (t_out, NODE_WORDS)
+// rows (curve.cuh; the hybrid tree's last level, which the finish reads
+// a node at a time).  Built for G1 and, with
 // -DMSM_CURVE_ED, for Edwards (curve.cuh's vocabulary): rows then hold
 // (x, y, t) and (-x, y, -t), nodes (36, T) extended points, and the adds
 // are the hwcd forms.
@@ -50,8 +54,11 @@
 #define CHILD_MASK (FLAG_INVALID - 1)
 
 #define THREADS 128
+#define OUT_PLANE 0
+#define OUT_CANON 1
+#define OUT_ROWS 2
 
-template <bool AFF, bool LAST>
+template <bool AFF, int OUT>
 __global__ void __launch_bounds__(THREADS)
     tree_level_kernel(const int32_t* __restrict__ in, long long in_cols,
                       const int32_t* __restrict__ sorted_vals,
@@ -85,40 +92,58 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
   }
-  if (LAST) pt_canon(r);
-  pt_store(out, t_out, p, r);
+  if (OUT == OUT_CANON) pt_canon(r);
+  if (OUT == OUT_ROWS)
+    pt_store_row(out, p, r);
+  else
+    pt_store(out, t_out, p, r);
 }
 
-template <bool AFF, bool LAST>
+template <bool AFF, int OUT>
 static int launch(const int32_t* in, long long in_cols,
                   const int32_t* sorted_vals, const int32_t* level_map,
                   int32_t* out, long long t_out, cudaStream_t stream) {
   if (t_out == 0) return 0;
   const long long blocks = (t_out + THREADS - 1) / THREADS;
-  tree_level_kernel<AFF, LAST><<<(unsigned)blocks, THREADS, 0, stream>>>(
+  tree_level_kernel<AFF, OUT><<<(unsigned)blocks, THREADS, 0, stream>>>(
       in, in_cols, sorted_vals, level_map, out, t_out);
   return MSM_LAUNCH_STATUS();
+}
+
+template <bool AFF>
+static int launch_mode(const int32_t* in, long long in_cols,
+                       const int32_t* sorted_vals, const int32_t* level_map,
+                       int32_t* out, long long t_out, int out_mode,
+                       cudaStream_t stream) {
+  switch (out_mode) {
+    case OUT_PLANE:
+      return launch<AFF, OUT_PLANE>(in, in_cols, sorted_vals, level_map, out,
+                                    t_out, stream);
+    case OUT_CANON:
+      return launch<AFF, OUT_CANON>(in, in_cols, sorted_vals, level_map, out,
+                                    t_out, stream);
+    case OUT_ROWS:
+      return launch<AFF, OUT_ROWS>(in, in_cols, sorted_vals, level_map, out,
+                                   t_out, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // aff: table is the (2N, 32) signed table, n_points = N.
 extern "C" int msm_tree_level_aff(const int32_t* table, long long n_points,
                                   const int32_t* sorted_vals,
                                   const int32_t* level_map, int32_t* out,
-                                  long long t_out, int last,
+                                  long long t_out, int out_mode,
                                   cudaStream_t stream) {
-  return last ? launch<true, true>(table, n_points, sorted_vals, level_map,
-                                   out, t_out, stream)
-              : launch<true, false>(table, n_points, sorted_vals, level_map,
-                                    out, t_out, stream);
+  return launch_mode<true>(table, n_points, sorted_vals, level_map, out,
+                           t_out, out_mode, stream);
 }
 
 // full: in is the (39|36, in_cols) packed plane of the previous level.
 extern "C" int msm_tree_level_full(const int32_t* in, long long in_cols,
                                    const int32_t* level_map, int32_t* out,
-                                   long long t_out, int last,
+                                   long long t_out, int out_mode,
                                    cudaStream_t stream) {
-  return last ? launch<false, true>(in, in_cols, nullptr, level_map, out,
-                                    t_out, stream)
-              : launch<false, false>(in, in_cols, nullptr, level_map, out,
-                                     t_out, stream);
+  return launch_mode<false>(in, in_cols, nullptr, level_map, out, t_out,
+                            out_mode, stream);
 }

@@ -2,7 +2,8 @@
 
 - stage 1: every (window, thread) lane walks its block of bpt buckets
   from the top down, keeping the running sums m (bucket total) and g
-  (weighted total): bpt - 1 launches of kernel 4's running add;
+  (weighted total): one launch of kernel 4's bpr_stage1, each lane's walk
+  split into stage1_split sub-walks so that the launch fills the card;
 - stage 2: g += m * s for the static per-lane scalar
   s = bpt * (num_threads - thread - 1) = k << b, b = log2(bpt): b lazy
   doublings of m, then a double-and-add over k's bits;
@@ -22,7 +23,20 @@ import torch
 
 from . import curve as C
 from .curve import G1
-from .kernels import bpr_add, bpr_double, bpr_masked_add_double, bpr_running_add
+from .kernels import (
+    MAX_SPLIT,
+    bpr_add,
+    bpr_double,
+    bpr_masked_add_double,
+    bpr_stage1,
+)
+
+#: stage-1 threads an H100 holds at once, by curve (ops/field.py tag):
+#: 132 SMs x 128 threads x the blocks a SM that bpr_stage1's registers
+#: allow (G1 255: 2; Edwards 168: 3).  stage1_split keeps lanes * split
+#: within it: a second, partial wave cost more than the shorter sub-walks
+#: saved (at 2^17 G1 split 4 ran 2.4 ms, split 2 1.8 ms).
+STAGE1_RESIDENT = {"": 132 * 128 * 2, "_ed": 132 * 128 * 3}
 
 
 def bpr_order(num_windows: int, chunk_size: int, num_threads: int) -> np.ndarray:
@@ -53,6 +67,17 @@ def bpr_order_on(
     return torch.as_tensor(order.reshape(-1), device=device).to(torch.int64)
 
 
+def stage1_split(lanes: int, bpt: int, group=G1) -> int:
+    """Sub-walks a lane's stage-1 walk is split into: the largest power
+    of two, at most bpt and MAX_SPLIT, that keeps lanes * split within
+    STAGE1_RESIDENT (1 where the lanes alone fill the card)."""
+    resident = STAGE1_RESIDENT[group.ctx.tag]
+    split = 1
+    while split * 2 <= min(bpt, MAX_SPLIT) and lanes * split * 2 <= resident:
+        split *= 2
+    return split
+
+
 def reduce_buckets_prearranged(
     buckets_bpr: torch.Tensor,
     num_windows: int,
@@ -64,17 +89,18 @@ def reduce_buckets_prearranged(
 
     buckets_bpr: (39|36, bpt*lanes) canonical plane, column st*lanes +
     lane = buckets[bpr_order[st, lane]].  Returns the (39|36, num_windows)
-    canonical window sums."""
+    canonical window sums: the JAX package's words where stage 1 runs
+    unsplit or in sub-walks of one step (stage1_split 1, or bpt), the
+    same points in other projective coordinates otherwise."""
     h = 1 << (chunk_size - 1)
     t_count = min(num_threads, h)
     bpt = h // t_count
     lanes = num_windows * t_count
-    # step-major (bpt, rows, lanes): every step's operand is contiguous
-    steps = buckets_bpr.reshape(group.rows, bpt, lanes).permute(1, 0, 2)
-    steps = steps.contiguous()
-    m = g = steps[0]
-    for st in range(1, bpt):
-        m, g = bpr_running_add(m, g, steps[st], group)
+    if bpt == 1:  # no steps: each lane's m and g are its one bucket
+        m = g = buckets_bpr
+    else:
+        m, g = bpr_stage1(buckets_bpr, bpt, stage1_split(lanes, bpt, group),
+                          group)
     return _bpr_stage2_and_fold(m, g, num_windows, t_count, bpt, group)
 
 

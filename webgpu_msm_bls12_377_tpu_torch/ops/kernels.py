@@ -1,7 +1,8 @@
 """CUDA kernel build, loading and launch accounting; the lane-wise
 kernels: 1 (constant product, and the Edwards lane-wise product), 4 (lazy
-BPR family), 6 (legacy SMVP round) and 7 (canonical add, double-and-add
-step, running-sum step).
+BPR family: stage 1 in one launch, double, double-and-add, add), 6
+(legacy SMVP round) and 7 (canonical add, double-and-add step,
+running-sum step).
 
 Every kernel source under csrc/ is compiled by nvcc for sm_90a into a
 shared library with a plain C interface, loaded with ctypes, and a second
@@ -71,10 +72,10 @@ _ARGTYPES = {
         "msm_tree_level_full": [_P, _I64, _P, _P, _I64, _INT, _P],
     },
     "packed": {
-        "msm_packed_finish": [_P, _I64, _P, _P, _P, _I64, _P],
+        "msm_packed_finish": [_P, _P, _P, _P, _I64, _P],
     },
     "bpr": {
-        "msm_bpr_running_add": [_P, _P, _P, _P, _P, _I64, _P],
+        "msm_bpr_stage1": [_P, _P, _P, _I64, _INT, _INT, _P],
         "msm_bpr_double": [_P, _P, _I64, _P],
         "msm_bpr_masked_add_double": [_P, _P, _P, _P, _P, _I64, _P],
         "msm_bpr_add": [_P, _P, _P, _I64, _P],
@@ -329,19 +330,68 @@ def add_plain(a, b, group=G1):
     return C.merge(group.add_lazy(group.split(a), group.split(b)))
 
 
-def bpr_running_add(m, g, b, group=G1):
-    """One BPR stage-1 step: (m + b, g + (m + b))."""
-    n = check_plane(m, group.rows)
-    for t in (g, b):
-        check_plane(t, group.rows, n)
-    if not on_cuda(m, g, b):
-        return running_add_plain(m, g, b, group)
-    m2, g2 = torch.empty_like(m), torch.empty_like(g)
+def bpr_stage1_plain(buckets, bpt, split, group=G1):
+    """Plain form of bpr_stage1, in its order of adds: the running add
+    over each sub-walk's q = bpt / split steps (lane-wise over all
+    sub-walks at once), then per lane a running add over m_0 .. m_{S-2}
+    (A the running sum, W the sum of A's values), m = A + m_{S-1}, log2 q
+    lazy doublings of W, g = ((g_0 + g_1) + ...) + g_{S-1} + W."""
+    rows, lanes = group.rows, buckets.shape[1] // bpt
+    q = bpt // split
+    walks = buckets.reshape(rows, split, q, lanes)
+    m = g = walks[:, :, 0].reshape(rows, split * lanes)
+    for i in range(1, q):
+        m, g = running_add_plain(
+            m, g, walks[:, :, i].reshape(rows, split * lanes), group)
+    if split > 1:
+        ms = [m[:, k * lanes:(k + 1) * lanes] for k in range(split)]
+        gs = [g[:, k * lanes:(k + 1) * lanes] for k in range(split)]
+        m = w = ms[0]
+        for k in range(1, split - 1):
+            m = add_plain(m, ms[k], group)
+            w = add_plain(w, m, group)
+        m = add_plain(m, ms[-1], group)
+        for _ in range(q.bit_length() - 1):
+            w = double_plain(w, group)
+        g = gs[0]
+        for k in range(1, split):
+            g = add_plain(g, gs[k], group)
+        g = add_plain(g, w, group)
+    return m.contiguous(), g.contiguous()
+
+
+#: the most sub-walks a lane's stage-1 walk is split into (a block holds
+#: 128 / split lanes)
+MAX_SPLIT = 8
+
+
+def bpr_stage1(buckets, bpt, split, group=G1):
+    """BPR stage 1 in one launch: buckets (39|36, bpt*lanes) in walk
+    order (column st*lanes + lane: the bucket lane consumes at step st) ->
+    (m, g), each (39|36, lanes): m the sum of a lane's bpt buckets, g the
+    sum over steps st of the sum of its buckets 0..st (the TPU's bpt - 1
+    running adds from m = g = step 0's bucket).  Each lane's walk runs as
+    `split` sub-walks (a power of two dividing bpt, at most MAX_SPLIT),
+    combined exactly; split = 1 is the TPU walk word for word, a larger
+    split gives the same points in other projective coordinates."""
+    if bpt < 1 or bpt & (bpt - 1):
+        raise ValueError(f"bpt must be a power of two, got {bpt}")
+    if split < 1 or split & (split - 1) or split > min(bpt, MAX_SPLIT):
+        raise ValueError(f"split must be a power of two <= min(bpt, "
+                         f"{MAX_SPLIT}), got {split}")
+    cols = check_plane(buckets, group.rows)
+    if cols % bpt:
+        raise ValueError(f"{cols} columns are not bpt = {bpt} steps")
+    lanes = cols // bpt
+    if not on_cuda(buckets):
+        return bpr_stage1_plain(buckets, bpt, split, group)
+    m = torch.empty((group.rows, lanes), dtype=torch.int32,
+                    device=buckets.device)
+    g = torch.empty_like(m)
     tag = group.ctx.tag
-    launch("bpr" + tag, "msm_bpr_running_add", "bpr_running_add" + tag, n,
-           m.data_ptr(), g.data_ptr(), b.data_ptr(), m2.data_ptr(),
-           g2.data_ptr(), n)
-    return m2, g2
+    launch("bpr" + tag, "msm_bpr_stage1", "bpr_stage1" + tag, lanes * split,
+           buckets.data_ptr(), m.data_ptr(), g.data_ptr(), lanes, bpt, split)
+    return m, g
 
 
 def bpr_double(a, group=G1):

@@ -7,10 +7,11 @@ sits beside buckets of similar length.  Kernels 3 and 5 give every real
 bucket one thread in that rank order; the sum it writes lands in column
 w*h + rank of a block-ordered plane that permute_buckets reorders.
 Kernel 5 (accumulate_buckets_streamed) sums a bucket's signed table
-points, kernel 3 (packed_finish) its level-K tree nodes.  Every function
-here serves both curves: it takes the group (ops/curve.py: G1, the
-default, or EDWARDS), whose planes are (26|39, .) for G1 and (27|36, .)
-for Edwards.
+points, kernel 3 (packed_finish) its level-K tree nodes, which the last
+tree level writes as rows (node_rows is the plain form of that layout).
+Every function here serves both curves: it takes the group
+(ops/curve.py: G1, the default, or EDWARDS), whose planes are (26|39, .)
+for G1 and (27|36, .) for Edwards.
 
 The JAX package streams 256-lane slabs through a sequential grid, whose
 slab maps live in the TPU's SMEM and cap the slab count
@@ -160,37 +161,58 @@ def accumulate_buckets_streamed(
 # ---------------------------------------------------------------------------
 
 
+def node_words(group=G1) -> int:
+    """Words of one node row (csrc/curve.cuh NODE_WORDS): the point's
+    rows rounded up to a multiple of four, G1 40, Edwards 36."""
+    return (group.rows + 3) // 4 * 4
+
+
+def node_rows(plane: torch.Tensor, group=G1) -> torch.Tensor:
+    """(39|36, T) limb-major node plane -> the (T, node_words) row-major
+    node array the finish reads: row j holds column j's words, then
+    zeros."""
+    t = check_plane(plane, group.rows)
+    out = torch.zeros((t, node_words(group)), dtype=torch.int32,
+                      device=plane.device)
+    out[:, :group.rows] = plane.T
+    return out
+
+
 def packed_finish_plain(
-    plane: torch.Tensor, starts_rk: torch.Tensor, lens_rk: torch.Tensor,
-    group=G1,
+    rows: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor, group=G1,
 ) -> torch.Tensor:
-    """Plain form of kernel 3 on (B,) rank-order starts/lens."""
-    starts = starts_rk.to(torch.int64)
-    lens = lens_rk.to(torch.int64)
-    acc = group.zero(starts.shape[0], plane.device)
+    """Plain form of kernel 3 on (B,) starts/lens: per column, the nodes
+    from the identity in row order."""
+    starts = starts.to(torch.int64)
+    lens = lens.to(torch.int64)
+    acc = group.zero(starts.shape[0], rows.device)
     max_len = int(lens.max()) if lens.numel() else 0
     for t in range(max_len):
         live = t < lens
         idx = torch.where(live, starts + t, 0)
-        new = group.add_lazy(acc, group.split(plane[:, idx]))
+        new = group.add_lazy(acc, group.split(rows[idx, :group.rows].T))
         acc = group.select(live, new, acc)
     return C.merge(group.canon(acc))
 
 
-def packed_finish(plane: torch.Tensor, layout: StreamLayout,
+def packed_finish(rows: torch.Tensor, layout: StreamLayout,
                   group=G1) -> torch.Tensor:
-    """(39|36, T_K) level-K plane -> (39|36, B) canonical bucket sums,
-    column r the bucket of rank r (layout order)."""
-    check_plane(plane, group.rows)
+    """(T_K, node_words) level-K node rows (the hybrid tree's last level)
+    -> (39|36, B) canonical bucket sums, column r the bucket of the
+    layout's column r: the sum of rows [starts_rk[r], starts_rk[r] +
+    lens_rk[r]) from the identity."""
+    w = node_words(group)
+    if rows.dim() != 2 or rows.shape[1] != w:
+        raise ValueError(f"expected (T, {w}) node rows, got {tuple(rows.shape)}")
     starts, lens = layout.starts_rk, layout.lens_rk
-    if not on_cuda(plane, starts, lens):
-        return packed_finish_plain(plane, starts, lens, group)
+    if not on_cuda(rows, starts, lens):
+        return packed_finish_plain(rows, starts, lens, group)
     nb = starts.shape[0]
-    out = torch.empty((group.rows, nb), dtype=torch.int32, device=plane.device)
+    out = torch.empty((group.rows, nb), dtype=torch.int32, device=rows.device)
     tag = group.ctx.tag
     launch("packed" + tag, "msm_packed_finish", "packed_finish" + tag, nb,
-           plane.data_ptr(), plane.shape[1], starts.data_ptr(),
-           lens.data_ptr(), out.data_ptr(), nb)
+           rows.data_ptr(), starts.data_ptr(), lens.data_ptr(),
+           out.data_ptr(), nb)
     return out
 
 

@@ -40,6 +40,8 @@ from .smvp_stream import (
     StreamLayout,
     build_stream_layout,
     check_signed_table,
+    node_rows,
+    node_words,
     packed_finish,
     signed_rows,
 )
@@ -175,7 +177,8 @@ def build_hybrid_plan(
 
 
 def tree_level_plain(
-    arr_in, level_map, mode: str, last: bool, sorted_vals=None, group=G1
+    arr_in, level_map, mode: str, last: bool, sorted_vals=None, group=G1,
+    rows: bool = False,
 ) -> torch.Tensor:
     """Plain form of kernel 2 (same arguments as run_tree_level)."""
     m = level_map.to(torch.int64)
@@ -197,7 +200,7 @@ def tree_level_plain(
     out = group.select(invalid, group.zero(m.shape[0], m.device), out)
     if last:
         out = group.canon(out)
-    return C.merge(out)
+    return node_rows(C.merge(out), group) if rows else C.merge(out)
 
 
 def run_tree_level(
@@ -207,13 +210,19 @@ def run_tree_level(
     last: bool = False,
     sorted_vals: torch.Tensor | None = None,
     group=G1,
+    rows: bool = False,
 ) -> torch.Tensor:
-    """One tree level -> (39|36, len(level_map)) packed lazy node plane.
+    """One tree level -> (39|36, len(level_map)) packed lazy node plane,
+    or with rows its (len(level_map), node_words) node rows (the layout
+    the finish reads).
 
     mode "aff": arr_in is the (2N, 32) row-major signed table and
     sorted_vals the sorted entry stream the map points into.  mode "full":
     arr_in is the previous level's (39|36, T) plane.  last canonicalizes
-    the outputs."""
+    the outputs (a plane only)."""
+    if last and rows:
+        raise ValueError("node rows hold lazy nodes: last and rows exclude "
+                         "each other")
     t_out = level_map.shape[0]
     if mode == "aff":
         n_points = check_signed_table(arr_in)
@@ -225,37 +234,41 @@ def run_tree_level(
         raise ValueError(f"unknown tree level mode {mode!r}")
     if not on_cuda(*ops):
         return tree_level_plain(arr_in, level_map, mode, last, sorted_vals,
-                                group)
-    out = torch.empty((group.rows, t_out), dtype=torch.int32,
-                      device=arr_in.device)
+                                group, rows)
+    shape = (t_out, node_words(group)) if rows else (group.rows, t_out)
+    out = torch.empty(shape, dtype=torch.int32, device=arr_in.device)
+    # csrc/tree.cu out modes: 0 lazy plane, 1 canonical plane, 2 node rows
+    out_mode = 2 if rows else int(last)
     tag = group.ctx.tag
     if mode == "aff":
         launch("tree" + tag, "msm_tree_level_aff", "tree_level_aff" + tag,
                t_out, arr_in.data_ptr(), n_points, sorted_vals.data_ptr(),
-               level_map.data_ptr(), out.data_ptr(), t_out, int(last))
+               level_map.data_ptr(), out.data_ptr(), t_out, out_mode)
     else:
         launch("tree" + tag, "msm_tree_level_full", "tree_level_full" + tag,
                t_out, arr_in.data_ptr(), arr_in.shape[1], level_map.data_ptr(),
-               out.data_ptr(), t_out, int(last))
+               out.data_ptr(), t_out, out_mode)
     return out
 
 
 def _tree_levels(tree_table, sorted_vals, level_map1, lens, levels, canon,
-                 group):
+                 group, rows=False):
     """Tree levels 1..levels over the phantom-extended lens; canon
-    canonicalizes the last level.  Returns (plane, packed offsets S_levels)."""
+    canonicalizes the last level, rows writes it as node rows.  Returns
+    (the last level, packed offsets S_levels)."""
     kn = sorted_vals.shape[0]
     caps = level_caps(kn, lens.shape[0], levels)
     lvl = run_tree_level(tree_table, level_map1, "aff",
                          last=canon and levels == 1, sorted_vals=sorted_vals,
-                         group=group)
+                         group=group, rows=rows and levels == 1)
     c_prev, s_prev = chain_counts(lens, 1)
     for k in range(2, levels + 1):
         c_k = (c_prev + 1) >> 1
         s_k = torch.cumsum(c_k, 0) - c_k
         level_map = build_level_map(s_prev, c_prev, s_k, c_k, caps[k - 1])
         lvl = run_tree_level(lvl, level_map, "full",
-                             last=canon and k == levels, group=group)
+                             last=canon and k == levels, group=group,
+                             rows=rows and k == levels)
         c_prev, s_prev = c_k, s_k
     return lvl, s_prev
 
@@ -267,11 +280,12 @@ def tree_smvp_hybrid(
     k_levels: int,
     group=G1,
 ) -> torch.Tensor:
-    """Tree levels 1..k_levels, then the packed finish.  Returns the
-    (39|36, B) block-ordered canonical bucket plane (one column per real
-    bucket, length-sorted rank order; see permute_buckets)."""
+    """Tree levels 1..k_levels, the last written as node rows, then the
+    packed finish.  Returns the (39|36, B) block-ordered canonical bucket
+    plane (one column per real bucket, length-sorted rank order; see
+    permute_buckets)."""
     lvl, _ = _tree_levels(tree_table, sorted_vals, plan.level_map1, plan.lens,
-                          k_levels, canon=False, group=group)
+                          k_levels, canon=False, group=group, rows=True)
     return packed_finish(lvl, plan.layout, group)
 
 
