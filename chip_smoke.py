@@ -7,14 +7,18 @@ Phases, each of which fails the run on any error:
   1. the card's name and power limit (nvidia-smi), and the build of every
      kernel library with nvcc: each source under
      webgpu_msm_bls12_377_tpu_torch/csrc/ for BLS12-377 and again with
-     -DMSM_CURVE_ED for Twisted Edwards BLS12 (16 libraries, 29 entry
+     -DMSM_CURVE_ED for Twisted Edwards BLS12 (16 libraries, 35 entry
      points);
   2. every kernel entry point, both curves, against its plain PyTorch form
      on random inputs of a few thousand lanes (identity, equal and inverse
      operands among the canonical family's), and on a small real plan for
      the tree, finish, stream and fused kernels (the fused path's two
-     passes: kernel 8 over pieces of at most PIECE rows, and the fold
-     through kernel 2's full levels): bit-exact equality;
+     passes: kernel 8 over pieces of at most PIECE rows, and the fold in
+     one launch of tree.cu's msm_fold_pieces); tree.cu's carry-chain
+     Montgomery products on their own (field_mul_lanes) at extreme
+     operands (R - 1, carries at every word, the formulas' largest
+     bounds); the fold on buckets of up to 2,048 pieces: bit-exact
+     equality;
   3. every path through the entry points a user calls, on the
      distinct-point bench cases held against the pinned goldens in
      test-data/goldens.json: compute_msm with default options at 2^10 and
@@ -48,7 +52,10 @@ Phases, each of which fails the run on any error:
      CUDA events and repeated with its plain form on the same inputs,
      which must agree bit for bit: per-kernel time, plain time and the
      bound (least time for the same work on an H100 SXM); the stream
-     kernel five more times.  The plain forms of the lane-wise kernels (1, the
+     kernel five more times; before them, the card's 32-bit word-product
+     rate in the carry-chain Montgomery product on its own (tree.cu
+     msm_word_rate, both fields), and every row's bound again at that
+     rate (int_bound_ms).  The plain forms of the lane-wise kernels (1, the
      BPR and canonical families but BPR stage 1, the legacy round) are
      replayed from CUDA graphs, one captured per shape, and kernel 8's
      round from one graph a launch (fused_plain_graphed); phase 2 holds
@@ -149,6 +156,10 @@ KERNELS = {
                           "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:415"),
     "fused_buckets": ("webgpu_msm_bls12_377_tpu_torch/csrc/fused.cu",
                       "webgpu_msm_bls12_377_tpu/ops/smvp_kernel.py:223"),
+    # the fused path's fold: row 3's full-level pairing, every bucket in
+    # one launch
+    "fold_pieces": ("webgpu_msm_bls12_377_tpu_torch/csrc/tree.cu",
+                    "webgpu_msm_bls12_377_tpu/ops/smvp_tree.py:416"),
 }
 BPR = ("bpr_stage1", "bpr_double", "bpr_masked_add_double", "bpr_add")
 # the Edwards build (-DMSM_CURVE_ED) of every source, and the lane-wise
@@ -174,17 +185,17 @@ PATHS = {
     # default options at 2^10 and 2^14: chunk 4 has 8 buckets a window,
     # one per BPR lane, so BPR runs no stage 1 and no pre-double; the
     # fused kernel's row is the 2^10 run's (phase 4 times the 2^14 run
-    # too); the fused paths fold each bucket's pieces with kernel 2's full
-    # levels
-    "fused_10": ("fused_buckets", "tree_level_full", "mont_mul_const",
+    # too); the fused paths fold each bucket's pieces in one launch of
+    # tree.cu's fold
+    "fused_10": ("fused_buckets", "fold_pieces", "mont_mul_const",
                  "bpr_masked_add_double", "bpr_add"),
-    "fused": ("fused_buckets", "tree_level_full", "mont_mul_const",
+    "fused": ("fused_buckets", "fold_pieces", "mont_mul_const",
               "bpr_masked_add_double", "bpr_add"),
     # the 2^14 case forced off its default path, for the times alone
     "legacy_14": ("masked_add_mixed", "mont_mul_const",
                   "bpr_masked_add_double", "bpr_add"),
     "stream_14": ("stream_buckets", "mont_mul_const"),
-    "fused_forced": ("fused_buckets", "tree_level_full", "mont_mul_const",
+    "fused_forced": ("fused_buckets", "fold_pieces", "mont_mul_const",
                      *BPR),
     "pure_tree": ("tree_level_aff", "tree_level_full", "mont_mul_const", *BPR),
     "ed_tree": (*PREP_ED, "tree_level_aff_ed", "tree_level_full_ed",
@@ -198,7 +209,7 @@ PATHS = {
     "ed_legacy": ("masked_add_mixed_ed", *PREP_ED, *BPR_ED),
     "ed_naive": ("masked_add_and_double_ed", "fused_add_ed", *PREP_ED),
     "ed_running_sum": ("fused_running_add_ed", "bpr_stage1_ed"),
-    "ed_fused_10": ("fused_buckets_ed", "tree_level_full_ed", *PREP_ED,
+    "ed_fused_10": ("fused_buckets_ed", "fold_pieces_ed", *PREP_ED,
                     "bpr_masked_add_double_ed", "bpr_add_ed"),
 }
 PATHS["batch_tree"], PATHS["batch_stream"] = PATHS["tree"], PATHS["stream"]
@@ -209,6 +220,13 @@ PATHS["ed_fused"] = PATHS["ed_fused_10"]
 PATHS["ed_legacy_14"] = ("masked_add_mixed_ed", *PREP_ED,
                          "bpr_masked_add_double_ed", "bpr_add_ed")
 HOME = {k: path for path in reversed(PATHS) for k in PATHS[path]}
+#: phase 2's entry points that no path launches: tree.cu's Montgomery
+#: products on their own (the carry-chain schedule at extreme operands)
+LANE_CHECKS = ("field_mul_lanes", "field_mul_lanes_ed")
+#: phase 4's word-product rate kernel (tree.cu msm_word_rate): threads of
+#: a block (RATE_THREADS there), blocks a SM (many waves, so the last
+#: one's tail is small) and Montgomery products a thread
+RATE_THREADS, RATE_BLOCKS_PER_SM, RATE_ITERS = 256, 64, 32
 
 
 def log(*a):
@@ -237,6 +255,44 @@ def rand_plane(rng, rows, n, bound, nw=13):
     return torch.cat(planes).to(DEV)
 
 
+def extreme_values(ctx):
+    """Operands that put a carry at every word of a Montgomery product:
+    R - 1, runs of all-ones words, all-ones words but one, alternating
+    words, 0, 1, p - 1, p, R - p, and k p - 1 for every bound k the point
+    formulas give a product's operand (ops/curve.py)."""
+    nw, p = ctx.nw, ctx.p
+    r = 1 << (32 * nw)
+    ones = (1 << 32) - 1
+    vals = [r - 1, 0, 1, p - 1, p, r - p]
+    vals += [(1 << (32 * k)) - 1 for k in range(1, nw)]
+    vals += [(r - 1) ^ (ones << (32 * k)) for k in range(nw)]
+    vals += [sum(ones << (32 * k) for k in range(s, nw, 2)) for s in (0, 1)]
+    vals += [k * p - 1 for k in (2, 4, 6, 8, 12, 14, 16, 18, 20)]
+    return vals
+
+
+def field_cases(rng, ctx, n=4096):
+    """Phase 2: tree.cu's mont_mul and mont_mul_pair (the carry-chain
+    schedule, K.field_mul_lanes) against ops/field.py on every pair of
+    extreme operands (the pair's second product on the reversed pairs) and
+    on n random operands below R."""
+    import torch
+
+    from webgpu_msm_bls12_377_tpu_torch.ops import field as F
+    from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
+
+    ext = extreme_values(ctx)
+    a = [x for x in ext for _ in ext]
+    b = [y for _ in ext for y in ext]
+    r = 1 << (32 * ctx.nw)
+    rand = [[rng.randrange(r) for _ in range(n)] for _ in range(4)]
+    ops = [torch.cat([F.ints_to_plane(v, nw=ctx.nw) for v in (x, y)], dim=1)
+           .to(DEV) for x, y in zip((a, b, b[::-1], a[::-1]), rand)]
+    got = K.field_mul_lanes(*ops, ctx)
+    want = K.field_mul_lanes_plain(*ops, ctx)
+    return [("field_mul_lanes" + ctx.tag, g, w) for g, w in zip(got, want)]
+
+
 def lazy_kernel_cases(rng, group, n=4096):
     """Phase 2 for the kernels both curves build: kernel 1 (entry and
     exit; for Edwards also the lane-wise product), the BPR family on lazy
@@ -257,7 +313,7 @@ def lazy_kernel_cases(rng, group, n=4096):
 
     ctx, tag = group.ctx, group.ctx.tag
     nw, p, bound = ctx.nw, ctx.p, 2 * ctx.p  # lazy values below 2p
-    cases = []
+    cases = field_cases(rng, ctx)
     a = rand_plane(rng, 2 * nw, n, p, nw)
     for y in (ctx.params.r2, 1):
         cases.append(("mont_mul_const" + tag, K.mont_mul_const(a, y, ctx),
@@ -359,6 +415,31 @@ def edge_lanes(group, a, b):
     return b
 
 
+def fold_cases(rng, group):
+    """Phase 2: the fold on hand-made buckets of random canonical nodes:
+    empty buckets, one piece, odd counts, counts about the fold block's 64
+    threads and its 64 shared-memory nodes a level, and long buckets
+    (1,000 and 2,048 pieces: the duplicate-heavy bucket of a forced fused
+    run at 2^16), whose first levels live in the scratch plane."""
+    import torch
+
+    from webgpu_msm_bls12_377_tpu_torch.ops import smvp_kernel as SK
+    from webgpu_msm_bls12_377_tpu_torch.ops import smvp_tree as T
+
+    ctx = group.ctx
+    counts = [0, 1, 2, 3, 5, 63, 64, 65, 127, 128, 129, 130, 257, 0, 1000,
+              2048, 7] + [rng.randrange(9) for _ in range(240)]
+    cols = sum(counts)
+    sums = rand_plane(rng, group.rows, cols, ctx.p, ctx.nw)
+    c = torch.tensor(counts, dtype=torch.int64, device=DEV)
+    offsets = torch.cumsum(c, 0) - c
+    caps = T.level_caps(cols, len(counts),
+                        SK.fold_levels(max(counts), 1))
+    got = SK.fold_pieces(sums, c, offsets, caps, group)[0]
+    want = SK.fold_pieces_plain(sums, c, offsets, caps, group)[0]
+    return [("fold_pieces" + ctx.tag, got, want)]
+
+
 def canonical_kernel_cases(rng, group, points, plan, windows, n=4096):
     """Phase 2 for kernels 6, 7 and 8 of one curve: the fused path on the
     small real plan of lazy_kernel_cases (empty, short and long buckets):
@@ -392,12 +473,12 @@ def canonical_kernel_cases(rng, group, points, plan, windows, n=4096):
     cases.append((name, fused_plain_graphed(gathered, pp.starts, pp.lens,
                                             group), sums_plain))
     with plain_passes():
-        fold_want = SK.fold_pieces(sums, pp.counts, pp.offsets, pp.caps,
-                                   group)[0]
         want = SK.accumulate_buckets_fused(gathered, plan.starts, plan.lens,
                                            group, max_len=npts)
-    cases.append(("tree_level_full" + tag, SK.fold_pieces(
-        sums, pp.counts, pp.offsets, pp.caps, group)[0], fold_want))
+    cases.append(("fold_pieces" + tag, SK.fold_pieces(
+        sums, pp.counts, pp.offsets, pp.caps, group)[0],
+        SK.fold_pieces_plain(sums, pp.counts, pp.offsets, pp.caps, group)[0]))
+    cases += fold_cases(rng, group)
     cases.append((name, SK.accumulate_buckets_fused(
         gathered, plan.starts, plan.lens, group, max_len=npts), want))
     # kernel 8 window by window, then one fold: a bucket's pieces fold in
@@ -460,7 +541,7 @@ def check_kernels_random() -> None:
             f"max_abs_err {err}")
         if err:
             bad.append(name)
-    seen = {c[0] for c in cases}
+    seen = {c[0] for c in cases} - set(LANE_CHECKS)
     if bad or seen != set(KERNELS):
         raise SystemExit(f"kernel mismatch: {bad}, untested: {set(KERNELS) - seen}")
 
@@ -468,18 +549,12 @@ def check_kernels_random() -> None:
 @contextlib.contextmanager
 def plain_passes():
     """Inside the block the fused path's two passes run their plain forms
-    on the card: kernel 8's (accumulate_buckets_fused_plain) and kernel
-    2's (tree_level_plain)."""
+    on the card: kernel 8's (accumulate_buckets_fused_plain) and the
+    fold's (fold_pieces_plain)."""
     from webgpu_msm_bls12_377_tpu_torch.ops import smvp_kernel as SK
-    from webgpu_msm_bls12_377_tpu_torch.ops import smvp_tree as T
-
-    def level(arr_in, level_map, mode, last=False, sorted_vals=None,
-              group=SK.G1):
-        return T.tree_level_plain(arr_in, level_map, mode, last, sorted_vals,
-                                  group)
 
     with patched([(SK, "fused_segments", SK.accumulate_buckets_fused_plain),
-                  (T, "run_tree_level", level)]):
+                  (SK, "fold_pieces", SK.fold_pieces_plain)]):
         yield
 
 
@@ -1267,10 +1342,20 @@ def timed_paths(inputs, ed_inputs):
         log(f"  stream_buckets{group.ctx.tag}: five more launches {again} ms")
         return out
 
+    def foldk(sums, counts, offsets, caps, group=G1):
+        # a bucket of c pieces needs c - 1 full adds; every piece read
+        # once, counts and offsets read and a node written per bucket
+        w, c = WORK[group.ctx.tag], counts.to(torch.int64)
+        adds = int((c - 1).clamp(min=0).sum())
+        return record("fold_pieces" + group.ctx.tag, K_FOLD,
+                      SK.fold_pieces_plain, (sums, counts, offsets, caps, group),
+                      adds * w["add_full"],
+                      int(c.sum()) * w["pt"] + c.numel() * (8 + w["pt"]))
+
     def fusedk(gathered, starts, lens, group=G1):
         # kernel 8 over the pieces: every entry is one canonical mixed add,
         # the one into the identity included (the function's result is
-        # that add chain's coordinates); the fold is kernel 2's
+        # that add chain's coordinates); the fold is tree.cu's
         w, tag = WORK[group.ctx.tag], group.ctx.tag
         entries = int(lens.sum())
         log(f"  fused_buckets{tag}: {lens.numel()} piece slots, {entries} "
@@ -1332,12 +1417,13 @@ def timed_paths(inputs, ed_inputs):
     K_FINISH, K_STAGE1 = T.packed_finish, K.bpr_stage1
     replays += [MMC_PLAIN, MML_PLAIN]
     K_STREAM, K_FUSED = S.accumulate_buckets_streamed, SK.fused_segments
+    K_FOLD = SK.fold_pieces
     patches = [
         (convert, "mont_mul_const", mmc), (cuzk, "mont_mul_const", mmc),
         (naive, "mont_mul_const", mmc), (cuzk, "mont_mul_lanes", mml),
         (T, "run_tree_level", tree), (T, "packed_finish", finish),
         (cuzk, "accumulate_buckets_streamed", stream),
-        (SK, "fused_segments", fusedk),
+        (SK, "fused_segments", fusedk), (SK, "fold_pieces", foldk),
         (bpr, "bpr_stage1", stage1), (bpr, "bpr_double", double),
         (bpr, "bpr_masked_add_double", masked), (bpr, "bpr_add", add),
         (buckets, "masked_add_mixed", mixed),
@@ -1368,6 +1454,45 @@ def timed_paths(inputs, ed_inputs):
         for plain in replays:
             plain.graphs.clear()
     return stats
+
+
+def word_rates():
+    """Phase 4: the card's rate of 32-bit word products in the carry-chain
+    Montgomery product (tree.cu msm_word_rate: each thread runs RATE_ITERS
+    dependent products of 2 NW^2 word products each, a mad.lo and a mad.hi
+    a word product, RATE_BLOCKS_PER_SM blocks a SM), for each field's
+    build: word products / kernel time, median of five launches after a
+    warm one.  Returns {tag: word products per second}."""
+    import torch
+
+    from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
+    from webgpu_msm_bls12_377_tpu_torch.ops.field import ED_CTX, G1_CTX
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = sms * RATE_BLOCKS_PER_SM
+    out = torch.empty(blocks * RATE_THREADS, dtype=torch.int32, device=DEV)
+    rates = {}
+    for ctx in (G1_CTX, ED_CTX):
+        def run():
+            K.launch("tree" + ctx.tag, "msm_word_rate", "word_rate" + ctx.tag,
+                     blocks, out.data_ptr(), blocks, RATE_ITERS)
+        run()
+        times = []
+        for _ in range(5):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            run()
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        ms = statistics.median(times)
+        products = blocks * RATE_THREADS * RATE_ITERS * 2 * ctx.nw ** 2
+        rates[ctx.tag] = products / (ms / 1e3)
+        log(f"  word-product rate, {ctx.nw}-word products ({blocks} blocks of "
+            f"{RATE_THREADS} threads, {RATE_ITERS} products each): "
+            f"{rates[ctx.tag]:.4e} /s ({ms:.3f} ms, {[round(t, 3) for t in times]}"
+            f"); the float32-rate yardstick: {PEAK_MULS:.4e} /s")
+    return rates
 
 
 @contextlib.contextmanager
@@ -1545,6 +1670,7 @@ def main(argv: list[str]) -> int:
         f"{FORCED_CHUNK}), 2^18 pure tree; Edwards "
         "2^20 tree, 2^17 stream, 2^16 legacy, naive and chain, 2^10 and "
         "2^14 fused)")
+    rates = word_rates()
     stats = timed_paths(inputs, ed_inputs)
     rows = []
     for path, per_kernel in stats.items():
@@ -1554,6 +1680,7 @@ def main(argv: list[str]) -> int:
                 raise SystemExit(f"{name}: kernel and plain differ ({path})")
             t_mul = s["muls"] / PEAK_MULS * 1e3
             t_mem = s["bytes"] / PEAK_BYTES * 1e3
+            t_int = s["muls"] / rates["_ed" if name.endswith("_ed") else ""] * 1e3
             row = {
                 "name": name, "route": "cuda", "source": KERNELS[name][0],
                 "replaces": KERNELS[name][1], "path": path,
@@ -1562,12 +1689,17 @@ def main(argv: list[str]) -> int:
                 "bound_ms": max(t_mul, t_mem),
                 "bound_by": "operations" if t_mul >= t_mem else "bytes",
                 "library_ms": None,
+                # the same bound at the measured integer word-product rate
+                "int_bound_ms": max(t_int, t_mem),
+                "int_bound_by": "operations" if t_int >= t_mem else "bytes",
             }
             if HOME[name] == path:
                 rows.append(row)
             log(f"  {path:12s} {name:25s} launches {row['launches']:3d}  "
                 f"kernel {s['ms']:10.3f} ms  plain {s['plain_ms']:10.1f} ms  "
-                f"bound {row['bound_ms']:8.3f} ms ({row['bound_by']})")
+                f"bound {row['bound_ms']:8.3f} ms ({row['bound_by']}), at the "
+                f"integer rate {row['int_bound_ms']:8.3f} ms "
+                f"({row['int_bound_by']})")
     if {r["name"] for r in rows} != set(KERNELS):
         raise SystemExit("a kernel has no timed row")
 

@@ -1,9 +1,10 @@
 """chip_smoke.py's bench inputs, on the CPU: the bulk draws equal
 random.Random's own, word for word and in the generator's state after them;
 the product-tree inversion equals pow(z, -1, p); a tiny bench case equals
-the seed scheme computed with Python integers and the bigint oracle; and the
-MSM oracle of the bench cases equals the naive bigint MSM.  Exact equality
-throughout.
+the seed scheme computed with Python integers and the bigint oracle; the
+MSM oracle of the bench cases equals the naive bigint MSM; phase 2's
+product and fold cases are made on the CPU too; and the kernel table
+covers every path.  Exact equality throughout.
 """
 
 import random
@@ -98,3 +99,40 @@ def test_msm_oracle_equals_the_naive_msm(curve, monkeypatch):
         pts = [crv.ed_scalar_mult(crv.ED_GENERATOR, k) for k in ks]
         want = crv.ed_to_affine(naive_msm(pts, scalars, EDWARDS))
     assert cs.msm_oracle(sw, kw, curve) == {"x": want[0], "y": want[1]}
+
+
+@pytest.mark.parametrize("ctx", [F.G1_CTX, F.ED_CTX], ids=["", "ed"])
+def test_phase2_product_and_fold_cases_on_the_cpu(ctx, monkeypatch):
+    """field_cases and fold_cases build their operands on the CPU too
+    (where the wrappers take the plain forms, so each case equals itself):
+    every extreme operand is below R, the product lanes hold every pair of
+    them, and the fold's buckets reach 2,048 pieces."""
+    from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
+
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    ext = cs.extreme_values(ctx)
+    r = 1 << (32 * ctx.nw)
+    assert all(0 <= v < r for v in ext) and r - 1 in ext
+    cases = cs.field_cases(random.Random(1), ctx, n=16)
+    assert [c[0] for c in cases] == ["field_mul_lanes" + ctx.tag] * 2
+    for _, got, want in cases:
+        assert got.shape == (ctx.nw, len(ext) ** 2 + 16)
+        assert torch.equal(got, want)
+    group = C.G1 if ctx is F.G1_CTX else C.EDWARDS
+    (name, got, want), = cs.fold_cases(random.Random(2), group)
+    assert name == "fold_pieces" + ctx.tag and got.shape[0] == group.rows
+    assert torch.equal(got, want)
+
+
+def test_kernel_table_covers_every_path():
+    """Every kernel has a source and a home path; the fused paths fold in
+    one launch of the fold, not kernel 2's levels; phase 2's lane checks
+    are no path's kernels."""
+    named = {k for names in cs.PATHS.values() for k in names}
+    assert named == set(cs.KERNELS) == set(cs.HOME)
+    for path in ("fused_10", "fused", "fused_forced", "ed_fused_10",
+                 "ed_fused"):
+        assert any(k.startswith("fold_pieces") for k in cs.PATHS[path])
+        assert not any(k.startswith("tree_level") for k in cs.PATHS[path])
+    assert not set(cs.LANE_CHECKS) & set(cs.KERNELS)
+    assert cs.KERNELS["fold_pieces_ed"][0].endswith("csrc/tree.cu")

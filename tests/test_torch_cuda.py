@@ -274,6 +274,126 @@ def test_node_rows_and_finish_random(dev, group, t_out):
     assert K.launches["packed_finish" + tag] == 2
 
 
+def extreme_values(ctx):
+    """R - 1, runs of all-ones words, all-ones words but one, alternating
+    words, 0, 1, p - 1, p, R - p and k p - 1 for the formulas' bounds k."""
+    nw, p = ctx.nw, ctx.p
+    r, ones = 1 << (32 * nw), (1 << 32) - 1
+    vals = [r - 1, 0, 1, p - 1, p, r - p]
+    vals += [(1 << (32 * k)) - 1 for k in range(1, nw)]
+    vals += [(r - 1) ^ (ones << (32 * k)) for k in range(nw)]
+    vals += [sum(ones << (32 * k) for k in range(s, nw, 2)) for s in (0, 1)]
+    return vals + [k * p - 1 for k in (2, 4, 6, 8, 12, 14, 16, 18, 20)]
+
+
+@GROUPS
+def test_carry_chain_product_at_extreme_operands(dev, group):
+    """tree.cu's mont_mul and mont_mul_pair (the carry-chain schedule, on
+    their own through msm_field_mul_lanes) against ops/field.py, word for
+    word: every pair of extreme operands (the pair's second product on the
+    reversed pairs), and random operands below R."""
+    ctx = group.ctx
+    ext = extreme_values(ctx)
+    rng = random.Random("chain" + ctx.tag)
+    r = 1 << (32 * ctx.nw)
+    cols = [[x for x in ext for _ in ext], [y for _ in ext for y in ext]]
+    cols += [cols[1][::-1], cols[0][::-1]]
+    ops = [F.ints_to_plane(c + [rng.randrange(r) for _ in range(LANES)],
+                           nw=ctx.nw).to(dev) for c in cols]
+    K.reset_launches()
+    want = K.field_mul_lanes_plain(*[o.cpu() for o in ops], ctx)
+    same(K.field_mul_lanes(*ops, ctx), tuple(w.to(dev) for w in want))
+    assert K.launches["field_mul_lanes" + ctx.tag] == 1
+
+
+@GROUPS
+def test_fold_pieces_against_plain(dev, group):
+    """The one-launch fold against its plain form (kernel 2's full levels)
+    on hand-made buckets of random canonical nodes: empty, one piece, odd
+    counts, counts about the block's 64 threads and about its 64 shared
+    nodes a level, and long buckets (2,048 pieces: a duplicate-heavy
+    bucket at 2^16) whose first levels live in the scratch plane; the
+    inputs are left as they were."""
+    ctx, tag = group.ctx, group.ctx.tag
+    rng = random.Random("fold" + tag)
+    counts = [0, 1, 2, 3, 5, 63, 64, 65, 127, 128, 129, 130, 257, 0, 1000,
+              2048, 7] + [rng.randrange(9) for _ in range(LANES)]
+    cols = sum(counts)
+    sums = rand_plane(rng, group.rows, cols, ctx.p, dev, ctx.nw)
+    keep = sums.clone()
+    c = torch.tensor(counts, dtype=torch.int64)
+    offsets = torch.cumsum(c, 0) - c
+    caps = T.level_caps(cols, len(counts), SK.fold_levels(max(counts), 1))
+    K.reset_launches()
+    got, s_fin = SK.fold_pieces(sums, c.to(dev), offsets.to(dev), caps, group)
+    want, want_s = SK.fold_pieces_plain(sums.cpu(), c, offsets, caps, group)
+    same(got, want.to(dev))
+    assert torch.equal(s_fin.cpu(), want_s)
+    assert torch.equal(sums, keep)
+    assert K.launches["fold_pieces" + tag] == 1 and len(K.launches) == 1
+
+
+@GROUPS
+@pytest.mark.parametrize("t_out", [1000, 3 * 132 * 4 * 128 + 77],
+                         ids=["small", "large"])
+def test_tree_level_full_random_map(dev, group, t_out):
+    """Row 3 (a full level, plane out, lazy and canonical) against its
+    plain form on a random level map (pairs, singles and invalid slots)
+    over random lazy nodes: fewer nodes than one block a SM, and more than
+    the card holds at once at any register budget, a ragged last block."""
+    ctx, tag = group.ctx, group.ctx.tag
+    rng = np.random.default_rng(7 + len(tag) * 1000 + t_out % 997)
+    pool = rand_plane(random.Random(t_out + 3), group.rows, 4096,
+                      lazy_bound(group) * ctx.p, dev, ctx.nw)
+    plane = pool[:, torch.as_tensor(rng.integers(0, 4096, 2 * t_out + 8),
+                                    device=dev)].contiguous()
+    child = rng.integers(0, 2 * t_out + 7, t_out)
+    kind = rng.integers(0, 8, t_out)  # 0: invalid, 1: single, else a pair
+    level_map = np.where(kind == 1, child | T.FLAG_SINGLE, child)
+    level_map = np.where(kind == 0, T.FLAG_INVALID, level_map)
+    level_map = torch.from_numpy(level_map.astype(np.int32)).to(dev)
+    K.reset_launches()
+    for last in (False, True):
+        same(T.run_tree_level(plane, level_map, "full", last, group=group),
+             T.tree_level_plain(plane, level_map, "full", last, group=group))
+    assert K.launches["tree_level_full" + tag] == 2
+
+
+@GROUPS
+@pytest.mark.parametrize("nb", [1000, 3 * 132 * 4 * 128 + 77],
+                         ids=["small", "large"])
+def test_stream_kernel_random_layout(dev, group, nb):
+    """Row 9 against its plain form on a random layout over a random
+    sorted stream: empty buckets, buckets of 1 to 20 entries in
+    length-sorted order, one of 300, fewer buckets than one block a SM and
+    more than the card holds at once, a ragged last block."""
+    ctx, tag = group.ctx, group.ctx.tag
+    rng = np.random.default_rng(11 + len(tag) * 1000 + nb % 997)
+    npts = 4096
+    table = S.build_signed_table(
+        rand_plane(random.Random(nb), group.aff_rows, npts, ctx.p, dev,
+                   ctx.nw), group)
+    lens = rng.integers(1, 21, nb)
+    lens[rng.random(nb) < 0.1] = 0
+    lens[nb // 3] = 300
+    lens = -np.sort(-lens, kind="stable")
+    entries = int(lens.sum()) + 8
+    sorted_vals = torch.from_numpy(
+        (rng.integers(0, npts, entries)
+         | (rng.integers(0, 2, entries) << 30)).astype(np.int32)).to(dev)
+    starts = rng.integers(0, entries - lens + 1)
+    layout = S.StreamLayout(
+        starts_rk=torch.as_tensor(starts.astype(np.int32), device=dev),
+        lens_rk=torch.as_tensor(lens.astype(np.int32), device=dev),
+        perm=torch.arange(nb, dtype=torch.int32, device=dev))
+    K.reset_launches()
+    same(S.accumulate_buckets_streamed(table, sorted_vals, layout, group),
+         S.accumulate_buckets_streamed_plain(table, sorted_vals,
+                                             layout.starts_rk, layout.lens_rk,
+                                             group))
+    assert K.launches["stream_buckets" + tag] == 1
+
+
 def test_stream_duplicate_heavy_bucket(dev):
     """One bucket holds every entry of its window: a long runtime loop."""
     rng = random.Random("k5-dup")
@@ -295,8 +415,8 @@ def test_stream_duplicate_heavy_bucket(dev):
 def test_fused_buckets_random_and_real_plan(dev, group):
     """The fused path's two passes against their plain forms, bit for bit:
     kernel 8 (fused_segments) on random rows with hand-made segments
-    (empty, length 1, long, overlapping); the fold (kernel 2's full
-    levels); and both together (accumulate_buckets_fused on the card
+    (empty, length 1, long, overlapping); the fold (tree.cu's
+    msm_fold_pieces, one launch); and both together (accumulate_buckets_fused on the card
     against the same function on the CPU, the plain forms) with buckets of
     0, 1, PIECE, PIECE + 1 and many times PIECE rows, and on a real plan,
     single dispatch and windowed."""
@@ -343,7 +463,9 @@ def test_fused_buckets_random_and_real_plan(dev, group):
                                   cpu_plan.offsets, cpu_plan.caps, group)
     same(got, want.to(dev))
     assert torch.equal(s_fin.cpu(), want_s)
-    assert K.launches["tree_level_full" + tag] == len(plan.caps) > 0
+    # one launch of the fold, however many levels the plain form runs
+    assert K.launches["fold_pieces" + tag] == 1 and len(plan.caps) > 0
+    assert K.launches["tree_level_full" + tag] == 0
     order = torch.randperm(len(blens), generator=torch.Generator().manual_seed(8))
     same(SK.accumulate_buckets_fused(rows, bstarts.to(dev), blens.to(dev), group,
                                      order=order.to(dev)),
@@ -449,9 +571,9 @@ def test_fused_engine_on_the_card(dev, request, group, chunk):
     assert (got["x"], got["y"]) == want
     assert K.launches["fused_buckets" + tag] == (
         1 if chunk == 4 else num_windows_for(chunk))
-    # one fold: a full level per doubling of the pieces a bucket can hold
-    assert K.launches["tree_level_full" + tag] == SK.fold_levels(
-        len(aff), SK.PIECE)
+    # one fold, in one launch
+    assert K.launches["fold_pieces" + tag] == 1
+    assert K.launches["tree_level_full" + tag] == 0
     assert K.launches["masked_add_mixed" + tag] == 0
     assert K.launches["stream_buckets" + tag] == 0
     assert all(k.endswith("_ed") == bool(tag) for k in K.launches)

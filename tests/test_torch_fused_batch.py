@@ -76,13 +76,12 @@ def case():
                 want=crv.g1_to_affine(naive_msm(pts, scalars, G1)))
 
 
-@pytest.fixture(scope="module")
-def plans(case):
+def jax_and_port_plans(pw, sw):
     """The JAX table, plan and legacy bucket sums, and the port's table and
     plan from the same words."""
-    jtable = jcuzk.mont_point_table(JG1.ctx, JG1, jnp.asarray(case["pw"]))
+    jtable = jcuzk.mont_point_table(JG1.ctx, JG1, jnp.asarray(pw))
     jplan = jbuck.build_bucket_plan(
-        jdec.decompose_scalars_signed(jnp.asarray(case["sw"]), CHUNK, NWIN),
+        jdec.decompose_scalars_signed(jnp.asarray(sw), CHUNK, NWIN),
         CHUNK)
     rounds = jbuck.round_class(int(np.asarray(jplan.lens).max()))
     legacy = jax.jit(lambda t, p: jbuck.accumulate_buckets(
@@ -90,13 +89,25 @@ def plans(case):
     table = from_jax_limbs(np.asarray(jtable).reshape(2 * W, N), montgomery=True)
     plan = buckets.build_bucket_plan(
         decompose.decompose_scalars_signed(
-            torch.from_numpy(case["sw"].view(np.int32)), CHUNK, NWIN), CHUNK)
+            torch.from_numpy(sw.view(np.int32)), CHUNK, NWIN), CHUNK)
     assert np.array_equal(plan.sorted_vals.numpy(), np.asarray(jplan.sorted_vals))
     want = from_jax_limbs(np.concatenate([np.asarray(c) for c in legacy]),
                           montgomery=True)
     rows = fused.make_wide_rows(table)
     return dict(jtable=jtable, jplan=jplan, table=table, plan=plan, want=want,
                 rows=rows, gathered=fused.pregather_signed(rows, plan.sorted_vals))
+
+
+@pytest.fixture(scope="module")
+def plans(case):
+    return jax_and_port_plans(case["pw"], case["sw"])
+
+
+@pytest.fixture(scope="module")
+def heavy_plans(case):
+    """The duplicate-heavy scalars: every window's N entries in one bucket
+    (or none)."""
+    return jax_and_port_plans(case["pw"], ints_to_words(HEAVY, 8))
 
 
 def engine(**kw):
@@ -180,6 +191,58 @@ def test_pieces_shorter_than_buckets_give_the_same_points(plans, piece):
         plans["rows"], plan.sorted_vals, plan.starts[:nw * H],
         plan.lens[:nw * H], nw, piece=piece)
     assert torch.equal(win, got[:, :nw * H])
+
+
+#: threads of one block of csrc/tree.cu's fold (FOLD_THREADS)
+FOLD_THREADS = 64
+
+
+@pytest.mark.parametrize("heavy,piece", [(False, 1), (False, 3), (True, 1),
+                                         (True, 3)],
+                         ids=["uniform-1", "uniform-3", "heavy-1", "heavy-3"])
+def test_fold_cases_match_jax_legacy(plans, heavy_plans, heavy, piece):
+    """The fold's plain form (fold_pieces on the CPU) at the cases of its
+    one-launch kernel, through the two passes: empty buckets, buckets of
+    one piece and of odd piece counts (uniform scalars), and buckets of
+    N pieces, more than one fold block's threads (duplicate-heavy scalars,
+    pieces of one row), against the JAX legacy bucket sums (which the JAX
+    suite holds to its fused kernel): the same words where a bucket is one
+    piece, the same points everywhere."""
+    pl = heavy_plans if heavy else plans
+    plan = pl["plan"]
+    count = plan.sorted_vals.shape[0]
+    counts = fused.piece_plan(plan.starts, plan.lens, count, N, piece).counts
+    assert (counts == 0).any()
+    if heavy:
+        assert int(counts.max()) == -(-N // piece)
+        assert piece > 1 or int(counts.max()) > FOLD_THREADS
+    else:
+        assert (counts == 1).any() and ((counts > 1) & (counts % 2 == 1)).any()
+    got = fused.accumulate_buckets_fused(pl["gathered"], plan.starts,
+                                         plan.lens, piece=piece, max_len=N)
+    short = plan.lens <= piece
+    assert torch.equal(got[:, short], pl["want"][:, short])
+    same_points(got, pl["want"], C.G1)
+
+
+def test_fold_returns_one_column_a_bucket(plans):
+    """fold_pieces returns bucket b's canonical sum in column b (the
+    identity for an empty bucket) and s_fin = arange(B): what permute_tree
+    reads, as it read the last level's plane and offsets."""
+    plan = plans["plan"]
+    count = plan.sorted_vals.shape[0]
+    pp = fused.piece_plan(plan.starts, plan.lens, count, N, 2)
+    sums = fused.accumulate_buckets_fused_plain(plans["gathered"], pp.starts,
+                                                pp.lens)
+    plane, s_fin = fused.fold_pieces(sums, pp.counts, pp.offsets, pp.caps)
+    nb = plan.lens.shape[0]
+    assert plane.shape == (39, nb) and torch.equal(s_fin, torch.arange(nb))
+    empty = pp.counts == 0
+    assert torch.equal(plane[:, empty],
+                       C.merge(C.G1.zero(int(empty.sum()), plane.device)))
+    one = pp.counts == 1
+    assert torch.equal(plane[:, one], sums[:, pp.offsets[one]])
+    assert torch.equal(C.merge(C.G1.canon(C.G1.split(plane))), plane)
 
 
 def test_fused_wrapper_checks_its_operands(plans):

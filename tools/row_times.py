@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Times of TPU kernel rows 2-5, 9 and 10 of the PyTorch/CUDA port on one
-GPU, for a checkout given by --root (default: this one), so that two
-commits can be compared on one card in one call (run parent, change,
-change, parent).
+"""Times of TPU kernel rows 2-5, 9 and 10 and the fused path's fold of the
+PyTorch/CUDA port on one GPU, for a checkout given by --root (default:
+this one), so that two commits can be compared on one card in one call
+(run parent, change, change, parent).
 
     python3 tools/row_times.py [--root DIR] [--label NAME] [--skip-fused]
+                               [--skip-tail] [--variants]
+    python3 tools/row_times.py --sass
 
 On the bench cases of DIR's chip_smoke.py (bench_case), both curves:
   - row 2, tree level 1 (run_tree_level "aff") at 2^20 (chunk 16, the
@@ -24,26 +26,207 @@ On the bench cases of DIR's chip_smoke.py (bench_case), both curves:
     default (hybrid, tree_finish 2), tree_finish 3 and 4 and the pure
     tree (smvp_mode "tree"), median of 3;
   - row 9, the stream kernel (accumulate_buckets_streamed) at 2^17
-    (chunk 15);
+    (chunk 15), and the warm compute_msm / compute_msm_edwards there,
+    median of 3;
   - row 10, the fused path's bucket sums (accumulate_buckets_fused, the
     engine's kernel-8 stage) at the 2^14 and 2^10 defaults (chunk 4), for
     PIECE = 8, 16 and 32 where the function takes a piece length;
   - warm compute_msm / compute_msm_edwards at 2^14 and 2^10 (host clock,
-    fenced), median of 3 (left out with --skip-fused, as is row 10).
+    fenced), median of 3 (left out with --skip-fused, as is row 10);
+  - the fold (smvp_kernel.fold_pieces: the checkout's level launches or
+    its one launch) on kernel 8's piece sums at the 2^14 and 2^10
+    defaults, and on a duplicate-heavy 2^16 case at chunk 15 (nine in ten
+    scalars equal: each window's largest bucket holds ~59,000 entries,
+    ~1,840 pieces), the pieces planned as one dispatch;
+  - with --skip-tail, rows 4 and 5, the split sweep and the tree_finish
+    yardstick (but its default, k2) are left out.
+With --variants (a checkout whose tree.cu and stream.cu take the macros
+below), tree.cu and stream.cu are also built with each of VARIANTS'
+flags (the C-form product; the register budget of 2, 3 and 4 blocks a SM)
+into build/variants/<hash of the sources>/<variant>/, and rows 2, 3, 9
+and the folds are timed again with each variant's libraries in place of
+the default build's; each library's ptxas registers and spills of the
+full level, the fold and the stream kernel are reported as
+regs_<variant>_<library>.
 Kernel times are medians of 5 launches (3 for row 10) on the same
 operands, CUDA events around each after a synchronize.  Prints the card
-(nvidia-smi name and power limit) and one JSON line; writes nothing else.
+(nvidia-smi name and power limit) and one JSON line; writes nothing else
+but the variant builds.
+
+--sass times nothing: for each field and each product form (the C form,
+and -DMSM_MONT_CHAIN) it compiles SASS_KERNELS, which call
+csrc/field.cuh's mont_mul once (one_mont_mul) and mont_mul_pair once
+(one_mont_mul_pair), into sm_90a cubins under build/sass/, disassembles
+them with cuobjdump -sass and prints one JSON line of each kernel's
+instruction count by opcode (the part before the first dot: IMAD,
+IADD3, ...; the operands' loads and stores are in every count alike):
+{form: {field: {kernel: {"total": n, opcode: n, ...}}}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import inspect
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
+
+#: extra nvcc flags of each variant build of tree.cu and stream.cu
+VARIANTS = {
+    "c_form": ("-DMSM_MONT_C",),
+    "blocks2": ("-DTREE_FULL_MIN_BLOCKS=2", "-DSTREAM_MIN_BLOCKS=2"),
+    "blocks3": ("-DTREE_FULL_MIN_BLOCKS=3", "-DSTREAM_MIN_BLOCKS=3"),
+    "blocks4": ("-DTREE_FULL_MIN_BLOCKS=4", "-DSTREAM_MIN_BLOCKS=4"),
+}
+VARIANT_SOURCES = ("tree", "stream")
+
+#: --sass: one product of each kind, on its own
+SASS_KERNELS = r"""
+#include "field.cuh"
+
+__global__ void one_mont_mul(const u32* __restrict__ a,
+                             const u32* __restrict__ b, u32* __restrict__ r) {
+  u32 x[NW], y[NW], z[NW];
+  for (int i = 0; i < NW; ++i) x[i] = a[i * 1024 + threadIdx.x];
+  for (int i = 0; i < NW; ++i) y[i] = b[i * 1024 + threadIdx.x];
+  mont_mul(z, x, y);
+  for (int i = 0; i < NW; ++i) r[i * 1024 + threadIdx.x] = z[i];
+}
+
+__global__ void one_mont_mul_pair(const u32* __restrict__ a,
+                                  const u32* __restrict__ b,
+                                  u32* __restrict__ r) {
+  u32 x[NW], y[NW], z[NW];
+  for (int i = 0; i < NW; ++i) x[i] = a[i * 1024 + threadIdx.x];
+  for (int i = 0; i < NW; ++i) y[i] = b[i * 1024 + threadIdx.x];
+  mont_mul_pair(z, x, y, y, x);
+  for (int i = 0; i < NW; ++i) r[i * 1024 + threadIdx.x] = z[i];
+}
+"""
+
+
+def sass_opcodes(sass: str) -> dict:
+    """{kernel: {"total": n, opcode: n}} from cuobjdump -sass output."""
+    out, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = ("one_mont_mul_pair" if "pair" in m.group(1)
+                    else "one_mont_mul")
+            current = out.setdefault(name, {"total": 0})
+            continue
+        m = re.match(
+            r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if current is not None and m:
+            current[m.group(1)] = current.get(m.group(1), 0) + 1
+            current["total"] += 1
+    return out
+
+
+def sass_counts(K) -> dict:
+    """--sass: the SASS opcode counts of one product in each form and field,
+    every nvcc started together."""
+    out_dir = K.BUILD_ROOT.parent / "sass"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = out_dir / "one_product.cu"
+    src.write_text(SASS_KERNELS)
+    nvcc = K._nvcc()
+    cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
+    builds = {}
+    for form, fflags in (("c", ()), ("chain", ("-DMSM_MONT_CHAIN",))):
+        for field, cflags in (("bls12_377", ()),
+                              ("edwards_bls12", ("-DMSM_CURVE_ED",))):
+            cubin = out_dir / f"one_product_{form}_{field}.cubin"
+            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-std=c++17", "-O3", "-cubin", "-I", str(K.CSRC), *fflags,
+                   *cflags, "-o", str(cubin), str(src)]
+            builds[form, field] = cubin, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+    res: dict = {}
+    for (form, field), (cubin, proc) in builds.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"sass build of {form} {field} failed:\n{log}")
+        sass = subprocess.run([cuobjdump, "-sass", str(cubin)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        res.setdefault(form, {})[field] = sass_opcodes(sass)
+    return res
+
+
+def build_variants(K):
+    """Build every variant's tree and stream libraries that are not built
+    yet, all nvcc processes started together.  Returns {variant:
+    directory}."""
+    root = K.BUILD_ROOT.parent / "variants" / K._build_dir().name
+    procs, dirs = [], {}
+    for v, flags in VARIANTS.items():
+        d = dirs[v] = root / v
+        d.mkdir(parents=True, exist_ok=True)
+        for name, source, cflags in K.LIBRARIES:
+            lib = d / f"libmsm_{name}.so"
+            if source not in VARIANT_SOURCES or lib.exists():
+                continue
+            tmp = d / f"libmsm_{name}.so.tmp{os.getpid()}"
+            cmd = [K._nvcc(), *K.NVCC_FLAGS, *cflags, *flags, "-o", str(tmp),
+                   str(K.CSRC / f"{source}.cu")]
+            procs.append((d, name, lib, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    for d, name, lib, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"variant build of {name} in {d} failed:\n{log}")
+        (d / f"{name}.log").write_text(log)
+        os.replace(tmp, lib)
+    return dirs
+
+
+def load_variant(K, d):
+    """The variant libraries of directory d: {library name: CDLL}."""
+    return {name: K.load_library(d, name) for name, source, _ in K.LIBRARIES
+            if source in VARIANT_SOURCES}
+
+
+@contextlib.contextmanager
+def using(K, libs):
+    """Launch through the given libraries in place of the loaded ones."""
+    saved = {name: K._lib(name) for name in libs}
+    K._libs.update(libs)
+    try:
+        yield
+    finally:
+        K._libs.update(saved)
+
+
+def ptxas_regs(log: str) -> dict:
+    """{kernel: "<registers> regs, <spill stores> B spilled"} for the full
+    levels, the fold and the stream kernel of one library's ptxas log."""
+    out, kernel = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if kernel and m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if kernel and m:
+            key = ("full" if "tree_level_kernelILb0ELi2" in kernel
+                   else "fold" if "fold_pieces" in kernel
+                   else "stream" if "stream_buckets" in kernel else None)
+            if key:
+                out[key] = f"{m.group(1)} regs, {spill} B spilled"
+            kernel = None
+    return out
 
 
 def main() -> int:
@@ -51,9 +234,18 @@ def main() -> int:
     ap.add_argument("--root", default=None)
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--skip-fused", action="store_true")
+    ap.add_argument("--skip-tail", action="store_true")
+    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--sass", action="store_true")
     opts = ap.parse_args()
     root = opts.root or __file__.rsplit("/tools/", 1)[0]
     sys.path.insert(0, root)
+    if opts.sass:
+        from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
+
+        print(json.dumps(sass_counts(K)))
+        return 0
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -96,8 +288,14 @@ def main() -> int:
             out.append(e0.elapsed_time(e1))
         return statistics.median(out), out
 
-    def prepared(power, chunk, curve, group):
+    def prepared(power, chunk, curve, group, heavy=False):
         pw, sw, _ = cs.bench_case(power, curve)
+        if heavy:
+            # nine in ten scalars equal to the first: each window's bucket
+            # of that digit holds most of its entries
+            sw = sw.copy()
+            keep = np.random.default_rng(16).random(sw.shape[-1]) < 0.9
+            sw[..., keep] = sw[..., :1]
         table = mont_point_table(words_to_device(pw, dev), group)
         windows = num_windows_for(chunk)
         swd = torch.from_numpy(sw.view("int32")).to(dev)
@@ -144,6 +342,41 @@ def main() -> int:
     fused_takes = takes(SK.accumulate_buckets_fused)
     rows_kw = {"rows": True} if "rows" in takes(T._tree_levels) else {}
     res = {"label": opts.label, "card": smi}
+    variants = {}
+    if opts.variants:
+        t0 = time.perf_counter()
+        dirs = build_variants(K)
+        res["variant_build_s"] = time.perf_counter() - t0
+        variants = {v: load_variant(K, d) for v, d in dirs.items()}
+        for v, d in dirs.items():
+            for f in sorted(d.glob("*.log")):
+                res[f"regs_{v}_{f.stem}"] = ptxas_regs(f.read_text())
+    K._lib("tree")  # the checkout's own build
+    for f in sorted(K._build_dir().glob("*.log")):
+        if f.stem.startswith(VARIANT_SOURCES):
+            res[f"regs_default_{f.stem}"] = ptxas_regs(f.read_text())
+
+    def each_variant(key, fn, reps):
+        """fn timed with the default build as `key`, then with each
+        variant's libraries as `key`_<variant>."""
+        res[key] = kernel_ms(fn, reps)
+        for v, libs in variants.items():
+            with using(K, libs):
+                res[f"{key}_{v}"] = kernel_ms(fn, reps)
+
+    def fold_times(power, chunk, curve, group, key, heavy=False):
+        """The fold on kernel 8's piece sums of one case, planned as one
+        dispatch."""
+        pw, sw, table, plan, _ = prepared(power, chunk, curve, group, heavy)
+        gathered = SK.pregather_signed(SK.make_wide_rows(table, group),
+                                       plan.sorted_vals, group)
+        n = 1 << power
+        pp = SK.piece_plan(plan.starts, plan.lens, gathered.shape[0], n)
+        sums = SK.fused_segments(gathered, pp.starts, pp.lens, group)
+        del gathered
+        res[f"{key}_pieces_max"] = int(pp.counts.max())
+        each_variant(key, lambda: SK.fold_pieces(
+            sums, pp.counts, pp.offsets, pp.caps, group), 5)
     for curve, group, tag in (("bls12_377", C.G1, ""),
                               ("edwards_bls12", C.EDWARDS, "_ed")):
         # row 2: level 1 at 2^20
@@ -151,7 +384,7 @@ def main() -> int:
         kn = plan.sorted_vals.shape[0]
         hp = T.build_hybrid_plan(plan.starts, plan.lens, kn, 2, windows)
         signed = S.build_signed_table(table, group)
-        res[f"row2{tag}"] = kernel_ms(lambda: T.run_tree_level(
+        each_variant(f"row2{tag}", lambda: T.run_tree_level(
             signed, hp.level_map1, "aff", False, plan.sorted_vals, group), 5)
         # rows 3 and 4: level 2 (the last) and the finish on its output
         lvl1 = T.run_tree_level(signed, hp.level_map1, "aff", False,
@@ -160,58 +393,69 @@ def main() -> int:
         c2, s2 = T.chain_counts(hp.lens, 2)
         cap2 = T.level_caps(kn, hp.lens.shape[0], 2)[1]
         map2 = T.build_level_map(s1, c1, s2, c2, cap2)
-        res[f"row3{tag}"] = kernel_ms(lambda: T.run_tree_level(
+        each_variant(f"row3{tag}", lambda: T.run_tree_level(
             lvl1, map2, "full", group=group, **rows_kw), 5)
         lvl2 = T.run_tree_level(lvl1, map2, "full", group=group, **rows_kw)
         del lvl1
-        starts = T.real_bucket_view(s2, windows).to(torch.int32)
-        lens = T.real_bucket_view(c2, windows).to(torch.int32)
-        layouts = {"plan": hp.layout}
-        if rows_kw:
-            layouts["natural"] = S.StreamLayout(
-                starts, lens, torch.arange(lens.shape[0], dtype=torch.int32,
-                                           device=dev))
-        for name, layout in layouts.items():
-            res[f"row4{tag}_{name}"] = kernel_ms(
-                lambda: S.packed_finish(lvl2, layout, group), 5)
-        res[f"sort{tag}"] = kernel_ms(
-            lambda: S.build_stream_layout(starts, lens, windows), 5)
-        res[f"smvp{tag}_20"] = kernel_ms(lambda: T.tree_smvp_hybrid(
-            signed, plan.sorted_vals, hp, 2, group), 5)
-        # row 5 at 2^20 on the tree's buckets in walk order
-        order = bpr.bpr_order_on(windows, 16, 512, dev)
-        blocks = T.tree_smvp_hybrid(signed, plan.sorted_vals, hp, 2, group)
-        buckets = S.permute_buckets(blocks, hp.layout, order=order,
-                                    group=group)
-        del lvl2, blocks
-        stage1_times(buckets, windows, 16, group, f"row5{tag}_20")
-        del signed, hp, table, plan, buckets
-        # the tree_finish yardstick: warm MSMs at 2^20
-        for name, opts_ in (("k2", {}), ("k3", {"tree_finish": 3}),
-                            ("k4", {"tree_finish": 4}),
-                            ("pure", {"smvp_mode": "tree"})):
+        run = compute_msm if group is C.G1 else compute_msm_edwards
+        if not opts.skip_tail:
+            starts = T.real_bucket_view(s2, windows).to(torch.int32)
+            lens = T.real_bucket_view(c2, windows).to(torch.int32)
+            layouts = {"plan": hp.layout}
+            if rows_kw:
+                layouts["natural"] = S.StreamLayout(
+                    starts, lens, torch.arange(lens.shape[0],
+                                               dtype=torch.int32, device=dev))
+            for name, layout in layouts.items():
+                res[f"row4{tag}_{name}"] = kernel_ms(
+                    lambda: S.packed_finish(lvl2, layout, group), 5)
+            res[f"sort{tag}"] = kernel_ms(
+                lambda: S.build_stream_layout(starts, lens, windows), 5)
+            res[f"smvp{tag}_20"] = kernel_ms(lambda: T.tree_smvp_hybrid(
+                signed, plan.sorted_vals, hp, 2, group), 5)
+            # row 5 at 2^20 on the tree's buckets in walk order
+            order = bpr.bpr_order_on(windows, 16, 512, dev)
+            blocks = T.tree_smvp_hybrid(signed, plan.sorted_vals, hp, 2, group)
+            buckets = S.permute_buckets(blocks, hp.layout, order=order,
+                                        group=group)
+            del blocks
+            stage1_times(buckets, windows, 16, group, f"row5{tag}_20")
+            del buckets
+        del lvl2, signed, hp, table, plan
+        # the warm MSM at 2^20, and the tree_finish yardstick
+        yardstick = (("k2", {}),) if opts.skip_tail else (
+            ("k2", {}), ("k3", {"tree_finish": 3}), ("k4", {"tree_finish": 4}),
+            ("pure", {"smvp_mode": "tree"}))
+        for name, opts_ in yardstick:
             eng = CuzkMsmEngine(group.CURVE, **opts_)
             res[f"msm{tag}_20_{name}"] = warm_msm(eng.compute_msm, pw, sw)
         del pw, sw
-        # row 9: the stream kernel at 2^17
-        _, _, table, plan, windows = prepared(17, 15, curve, group)
+        # row 9: the stream kernel at 2^17, and the warm MSM there
+        pw, sw, table, plan, windows = prepared(17, 15, curve, group)
         signed = S.build_signed_table(table, group)
         layout = S.build_stream_layout(plan.starts, plan.lens, windows)
-        res[f"row9{tag}"] = kernel_ms(lambda: S.accumulate_buckets_streamed(
+        each_variant(f"row9{tag}", lambda: S.accumulate_buckets_streamed(
             signed, plan.sorted_vals, layout, group), 5)
-        # row 5 at 2^17 on the stream path's buckets in walk order
-        blocks = S.accumulate_buckets_streamed(signed, plan.sorted_vals,
-                                               layout, group)
-        buckets = S.permute_buckets(
-            blocks, layout, order=bpr.bpr_order_on(windows, 15, 512, dev),
-            group=group)
-        stage1_times(buckets, windows, 15, group, f"row5{tag}_17")
-        del signed, table, plan, blocks, buckets
+        res[f"msm{tag}_17"] = warm_msm(run, pw, sw)
+        if not opts.skip_tail:
+            # row 5 at 2^17 on the stream path's buckets in walk order
+            blocks = S.accumulate_buckets_streamed(signed, plan.sorted_vals,
+                                                   layout, group)
+            buckets = S.permute_buckets(
+                blocks, layout, order=bpr.bpr_order_on(windows, 15, 512, dev),
+                group=group)
+            stage1_times(buckets, windows, 15, group, f"row5{tag}_17")
+            del blocks, buckets
+        del signed, table, plan
+        # the fused path's fold at the chunk-4 defaults and on the
+        # duplicate-heavy case
+        for power in (14, 10):
+            fold_times(power, 4, curve, group, f"fold{tag}_{power}")
+        fold_times(16, 15, curve, group, f"fold{tag}_16_heavy", heavy=True)
         if opts.skip_fused:
             continue
         # row 10: the fused bucket sums at the chunk-4 defaults, and the
         # whole warm MSM
-        run = compute_msm if group is C.G1 else compute_msm_edwards
         for power in (14, 10):
             pw, sw, table, plan, _ = prepared(power, 4, curve, group)
             gathered = SK.pregather_signed(SK.make_wide_rows(table, group),
@@ -224,6 +468,7 @@ def main() -> int:
                                                else f"_piece{piece}")
                 res[key] = kernel_ms(lambda: SK.accumulate_buckets_fused(
                     gathered, plan.starts, plan.lens, group, **kw), 3)
+            del gathered
             res[f"msm{tag}_{power}"] = warm_msm(run, pw, sw)
     print(smi)
     print(json.dumps(res))

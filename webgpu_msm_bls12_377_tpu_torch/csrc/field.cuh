@@ -140,6 +140,167 @@ __device__ __forceinline__ void fe_neg_mod(u32 r[NW], const u32 a[NW]) {
   }
 }
 
+// -- The carry-chain Montgomery product (sources that define MSM_MONT_CHAIN
+// before including this header: tree.cu and stream.cu) ---------------------
+//
+// The same REDC(a*b) and REDC(a*b + c*d), mod R, as the C form below, for
+// any operands below R (the pair: any sum below 2R^2), on another
+// schedule: PTX carry chains, after supranational's sppark
+// (ff/mont_t.cuh, its mul_n / mad_n_redc even/odd form).  A word product
+// costs a mad.lo and a mad.hi with the carry in the flag, and no 64-bit
+// temporaries.  Each outer step i of the CIOS loop keeps t = x + 2^32 y in
+// two accumulators: x (NW + 2 words) takes the products of the
+// even-indexed words of a, whose low and high halves never overlap, y
+// (NW + 1 words, one word up) those of the odd-indexed words, so the two
+// chains of a step are independent and a scheduler can interleave them.
+// m = x[0] * N0 reduces both at once (x += m * p's even words, y += m *
+// p's odd words), which zeroes x[0]; then t / 2^32 = y + x[1..]: the next
+// x is y with x[1] added at word 0, the next y is x[2..], and the carry of
+// that one add enters the next y chain.  The last step adds y + x[1..] mod
+// R (its top carry is dropped, as the C form drops t's top words).
+// Bounds: t < 2R + p before every step, so a step's total is below 3R 2^32
+// and x < 3 * 2^(32 (NW + 1)), y < 3 * 2^(32 NW): no chain carries out of
+// its top word.  tests/test_torch_mont_chain.py models these steps with
+// an explicit carry flag and holds them against integer REDC.
+//
+// The carry flag passes from one asm statement to the next: they are
+// volatile, so the compiler keeps their order, and nothing it emits between
+// them (register moves, 32-bit multiplies) touches the flag.
+// MSM_MONT_CHAIN picks this product.
+
+#ifdef MSM_MONT_CHAIN
+
+#define MSM_PTX3(op, r, a, b) \
+  asm volatile(op " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b))
+#define MSM_PTX4(op, r, a, b, c) \
+  asm volatile(op " %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c))
+
+// acc[0..TOP] += sum over j = Q, Q + 2, ... < NW of v_j * y * 2^(32 (j - Q)),
+// v = MSM_P if MOD else x, as one carry chain: word k takes the low half of
+// v_k+Q's product (k even) or the high half of v_k-1+Q's (k odd), then the
+// carry runs on to word TOP.  CIN: the chain takes the carry flag that the
+// instruction before it left.
+template <int Q, int TOP, bool CIN, bool MOD>
+__device__ __forceinline__ void mont_chain(u32* acc, const u32* x, u32 y) {
+#pragma unroll
+  for (int k = 0; k <= TOP; ++k) {
+    const int j = (k & ~1) + Q;
+    const bool last = k == TOP;
+    if (j >= NW) {
+      if (last)
+        MSM_PTX3("addc.u32", acc[k], acc[k], 0u);
+      else
+        MSM_PTX3("addc.cc.u32", acc[k], acc[k], 0u);
+      continue;
+    }
+    const u32 v = MOD ? MSM_P[j] : x[j];
+    if (k & 1) {
+      if (last)
+        MSM_PTX4("madc.hi.u32", acc[k], v, y, acc[k]);
+      else
+        MSM_PTX4("madc.hi.cc.u32", acc[k], v, y, acc[k]);
+    } else if (k == 0 && !CIN) {
+      MSM_PTX4("mad.lo.cc.u32", acc[k], v, y, acc[k]);
+    } else if (last) {
+      MSM_PTX4("madc.lo.u32", acc[k], v, y, acc[k]);
+    } else {
+      MSM_PTX4("madc.lo.cc.u32", acc[k], v, y, acc[k]);
+    }
+  }
+}
+
+// acc = sum over j = Q, Q + 2, ... < NW of x_j * y * 2^(32 (j - Q)), with
+// zeros up to word TOP: the halves of one parity never overlap, so no
+// carries
+template <int Q, int TOP>
+__device__ __forceinline__ void mont_first(u32* acc, const u32* x, u32 y) {
+#pragma unroll
+  for (int k = 0; k <= TOP; ++k) {
+    const int j = (k & ~1) + Q;
+    acc[k] = j >= NW ? 0u : (k & 1) ? __umulhi(x[j], y) : x[j] * y;
+  }
+}
+
+// t += m p with m = x[0] * N0: x[0] becomes 0
+__device__ __forceinline__ void mont_reduce(u32 x[NW + 2], u32 y[NW + 1]) {
+  const u32 m = x[0] * MSM_N0;
+  mont_chain<0, NW + 1, false, true>(x, nullptr, m);
+  mont_chain<1, NW, false, true>(y, nullptr, m);
+}
+
+// (x, y) -> the next step's accumulators for t / 2^32 = y + x[1..]; leaves
+// the carry of x'[0] = y[0] + x[1] in the flag for the next y chain
+__device__ __forceinline__ void mont_shift(u32 x[NW + 2], u32 y[NW + 1]) {
+  u32 nx[NW + 2], ny[NW + 1];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) ny[k] = x[k + 2];
+  ny[NW] = 0u;
+#pragma unroll
+  for (int k = 1; k <= NW; ++k) nx[k] = y[k];
+  nx[NW + 1] = 0u;
+  MSM_PTX3("add.cc.u32", nx[0], y[0], x[1]);
+#pragma unroll
+  for (int k = 0; k < NW + 2; ++k) x[k] = nx[k];
+#pragma unroll
+  for (int k = 0; k < NW + 1; ++k) y[k] = ny[k];
+}
+
+// r = (y + x[1..]) mod R
+__device__ __forceinline__ void mont_merge(u32 r[NW], const u32 x[NW + 2],
+                                           const u32 y[NW + 1]) {
+  MSM_PTX3("add.cc.u32", r[0], y[0], x[1]);
+#pragma unroll
+  for (int k = 1; k < NW - 1; ++k) MSM_PTX3("addc.cc.u32", r[k], y[k], x[k + 1]);
+  MSM_PTX3("addc.u32", r[NW - 1], y[NW - 1], x[NW]);
+}
+
+// REDC(a * b) mod R for any a, b < R (below a*b/R + p, i.e. < 2p for every
+// bound product the formulas use): the carry-chain schedule above.
+__device__ __forceinline__ void mont_mul(u32 r[NW], const u32 a[NW],
+                                         const u32 b[NW]) {
+  u32 x[NW + 2], y[NW + 1];
+  mont_first<0, NW + 1>(x, a, b[0]);
+  mont_first<1, NW>(y, a, b[0]);
+  mont_reduce(x, y);
+#pragma unroll
+  for (int i = 1; i < NW; ++i) {
+    mont_shift(x, y);
+    mont_chain<1, NW, true, false>(y, a, b[i]);
+    mont_chain<0, NW + 1, false, false>(x, a, b[i]);
+    mont_reduce(x, y);
+  }
+  mont_merge(r, x, y);
+}
+
+// REDC(a*b + c*d) mod R for a*b + c*d < 2R^2 (the paired products of the
+// RCB formulas): each step adds both products' chains before reducing.
+__device__ __forceinline__ void mont_mul_pair(u32 r[NW], const u32 a[NW],
+                                              const u32 b[NW],
+                                              const u32 c_[NW],
+                                              const u32 d[NW]) {
+  u32 x[NW + 2], y[NW + 1];
+  mont_first<0, NW + 1>(x, a, b[0]);
+  mont_first<1, NW>(y, a, b[0]);
+  mont_chain<1, NW, false, false>(y, c_, d[0]);
+  mont_chain<0, NW + 1, false, false>(x, c_, d[0]);
+  mont_reduce(x, y);
+#pragma unroll
+  for (int i = 1; i < NW; ++i) {
+    mont_shift(x, y);
+    mont_chain<1, NW, true, false>(y, a, b[i]);
+    mont_chain<1, NW, false, false>(y, c_, d[i]);
+    mont_chain<0, NW + 1, false, false>(x, a, b[i]);
+    mont_chain<0, NW + 1, false, false>(x, c_, d[i]);
+    mont_reduce(x, y);
+  }
+  mont_merge(r, x, y);
+}
+
+#undef MSM_PTX3
+#undef MSM_PTX4
+
+#else  // the C form: every other source
+
 // REDC(a * b) = (a*b + m*p) / R with m = -a*b*p^-1 mod R: the
 // coarsely integrated operand scanning (CIOS) Montgomery product with
 // 64-bit accumulation.  Exact for any a, b < R; the output is below
@@ -174,14 +335,6 @@ __device__ __forceinline__ void mont_mul(u32 r[NW], const u32 a[NW],
     t[NW] = t[NW + 1] + (u32)(c >> 32);
   }
   fe_copy(r, t);
-}
-
-// REDC(a * b) mod p for canonical a, b (REDC(a * b) < 2p): the product of
-// the canonical-domain formulas (ops/field.py:mont_mul_canon)
-__device__ __forceinline__ void mont_mul_mod(u32 r[NW], const u32 a[NW],
-                                             const u32 b[NW]) {
-  mont_mul(r, a, b);
-  fe_csub(r, MSM_P);
 }
 
 // REDC(a*b + c*d): one reduction for a sum of two products (the paired
@@ -230,4 +383,14 @@ __device__ __forceinline__ void mont_mul_pair(u32 r[NW], const u32 a[NW],
     t[NW + 1] = 0u;
   }
   fe_copy(r, t);
+}
+
+#endif  // MSM_MONT_CHAIN
+
+// REDC(a * b) mod p for canonical a, b (REDC(a * b) < 2p): the product of
+// the canonical-domain formulas (ops/field.py:mont_mul_canon)
+__device__ __forceinline__ void mont_mul_mod(u32 r[NW], const u32 a[NW],
+                                             const u32 b[NW]) {
+  mont_mul(r, a, b);
+  fe_csub(r, MSM_P);
 }

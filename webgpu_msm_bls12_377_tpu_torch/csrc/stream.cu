@@ -27,14 +27,43 @@
 // identity is not counted), against 100 (G1, 48 bytes a coordinate) or
 // 100 (Edwards, 32 bytes a coordinate) bytes read per entry (4 of
 // sorted_vals, the rest of the table) and 152 (G1) or 136 (Edwards) bytes
-// per bucket.  In practice the table reads are scattered rows of the
+// per bucket: at 2^17 and the float32 multiply-add rate (33.5e12 word
+// products/s), 0.19 ms (G1) and 0.085 (Edwards).  In practice the table
+// reads are scattered rows of the
 // row-major signed table (seven 16-byte loads, 4 sectors, an entry), a
 // warp's lanes run different trip counts, and the longest bucket is one
 // thread's chain of dependent adds.
 //
+// At the rate at which the card runs the carry-chain Montgomery product on
+// its own (6.2-6.4e12 word products/s on an H100, tree.cu msm_word_rate,
+// chip_smoke.py phase 4) the same products bound it at 2^17 at 0.99 ms
+// (G1) and 0.46 (Edwards), against 1.8 and 1.0 measured (PERF.md).
+//
+// What held it back is the add's word products, not the memory: every G1
+// kernel that adds points ran at about the same word products a second,
+// whatever its memory pattern.  So this source builds the carry-chain
+// Montgomery product (field.cuh, MSM_MONT_CHAIN: half the instructions of
+// the C form), which took the kernel from 3.9 to 1.8 ms at 2^17 on an
+// H100 (G1; Edwards 1.2 to 1.0).  Its register budget,
+// __launch_bounds__(128, STREAM_MIN_BLOCKS), is the fastest of 2, 3 and 4
+// blocks a SM in tools/row_times.py's sweep: 2 (189 registers on G1; 3
+// and 4 spill and ran 15-23 % slower; Edwards, 142 registers, within
+// noise).  The accumulator in shared memory (as in packed.cu) and a
+// software prefetch of the next entry's row measured no gain (G1 2 % and
+// 55 % slower, the prefetch at 234 registers; Edwards within 5 %) and were
+// dropped.  -DMSM_MONT_C builds the C form for the tool's comparison.
+//
 // The add sits in a __noinline__ helper, as in packed.cu: nvcc 12.8's cicc
 // crashes on a runtime-length loop around an inlined point add.
+#ifndef MSM_MONT_C
+#define MSM_MONT_CHAIN
+#endif
 #include "curve.cuh"
+
+#define THREADS 128
+#ifndef STREAM_MIN_BLOCKS
+#define STREAM_MIN_BLOCKS 2
+#endif
 
 __device__ __noinline__ void add_entry(Point& acc, const int32_t* table,
                                        const int32_t* sorted_vals,
@@ -44,7 +73,7 @@ __device__ __noinline__ void add_entry(Point& acc, const int32_t* table,
   pt_add_mixed_lazy(acc, acc, a);
 }
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(THREADS, STREAM_MIN_BLOCKS)
     stream_buckets_kernel(const int32_t* __restrict__ table,
                           long long n_points,
                           const int32_t* __restrict__ sorted_vals,
@@ -70,9 +99,8 @@ extern "C" int msm_stream_buckets(const int32_t* table, long long n_points,
                                   const int32_t* lens_rk, int32_t* out,
                                   long long nb, cudaStream_t stream) {
   if (nb == 0) return 0;
-  const int threads = 128;
-  const long long blocks = (nb + threads - 1) / threads;
-  stream_buckets_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+  const long long blocks = (nb + THREADS - 1) / THREADS;
+  stream_buckets_kernel<<<(unsigned)blocks, THREADS, 0, stream>>>(
       table, n_points, sorted_vals, starts_rk, lens_rk, out, nb);
   return MSM_LAUNCH_STATUS();
 }

@@ -1,6 +1,6 @@
 // Kernel 2: one level of the packed bucket tree (the hybrid SMVP's levels
-// 1..K, every level of the pure tree, and the fused path's fold of a
-// bucket's pieces).  One thread per output node.
+// 1..K, every level of the pure tree), and the fused path's fold of every
+// bucket's pieces in one launch.  One thread per output node.
 //
 // Replaces ops/smvp_tree.py:run_tree_level of the JAX package (kernel body
 // _tree_kernel_body_build), modes "aff" (level 1) and "full" (later
@@ -31,8 +31,27 @@
 // 432 bytes.  Edwards: 1,458 word products (9 products of 162) for ~328
 // bytes (two 96-byte rows, one 128-byte node: values below 8p < 2^256
 // need 8 of a coordinate's 9 words), a full node 1,620 for 384.  At the
-// HBM rate and the float32 multiply-add rate the two limits are within
-// 1.5x, bytes the larger.
+// HBM rate and the float32 multiply-add rate (33.5e12 word products/s) the
+// two limits are within 1.5x, bytes the larger: at 2^20 G1 0.88 ms for
+// level 1 and 0.57 for level 2.  At the rate at which the card runs this
+// source's Montgomery product on its own, 6.2-6.4e12 word products/s on
+// an H100 for either field (msm_word_rate below, chip_smoke.py phase 4),
+// products bound them: G1 3.8 and 2.3 ms, Edwards 1.9 and 1.1, against
+// 4.5, 3.0, 2.0 and 1.2 measured (PERF.md).
+//
+// What held the full levels back was the product, not the memory: their
+// reads are coalesced and their adds independent, one a thread, yet they
+// ran no faster per word product than the chained kernels.  So this source
+// builds the carry-chain Montgomery product (field.cuh, MSM_MONT_CHAIN:
+// two 32-bit multiply-adds a word product, two independent carry chains a
+// step; one G1 product 672 SASS instructions against the C form's 1,296),
+// which halved level 2 at 2^20 on an H100 (G1 6.8-6.9 to 3.2-3.3 ms at 2
+// blocks a SM, 3.0 at 3; Edwards 1.9 to 1.2) and level 1 with it (9.7-10.2
+// to 4.5; 3.3 to 2.0), and gives the full levels a register budget
+// (__launch_bounds__(THREADS,
+// TREE_FULL_MIN_BLOCKS), the fastest of 2, 3 and 4 blocks a SM in
+// tools/row_times.py's sweep).  -DMSM_MONT_C builds the C form instead,
+// for that tool's comparison.
 //
 // Level 1's children are points in sorted-bucket order, so their table
 // rows are scattered over a table (268 MB at 2^20 G1) far larger than the
@@ -45,8 +64,19 @@
 // registers: the same 2 blocks a SM) and ~19 % slower on Edwards (the
 // 56 KB ring cost a block a SM), so each node keeps one thread.
 //
-// The full levels also fold the fused path's pieces
-// (ops/smvp_kernel.py:fold_pieces).
+// The fold (msm_fold_pieces, ops/smvp_kernel.py:fold_pieces) runs the full
+// level's pairing for every bucket of the fused path in one launch, one
+// block a bucket: node i of a level is node 2i + node 2i+1 of the one
+// before, an odd last node carried up, the last node canonicalized, the
+// same adds in the same order as the level-by-level plain form.  A level
+// of more than FOLD_SMEM_NODES nodes lives in the bucket's own columns of
+// a scratch plane (in L2 at the fused path's sizes), a smaller one in
+// dynamic shared memory.  Each bucket runs only its own levels: no level
+// maps, no padding levels, one launch where the level loop made one a
+// level.
+#ifndef MSM_MONT_C
+#define MSM_MONT_CHAIN
+#endif
 #include "curve.cuh"
 
 #define FLAG_INVALID (1 << 29)
@@ -54,12 +84,19 @@
 #define CHILD_MASK (FLAG_INVALID - 1)
 
 #define THREADS 128
+// blocks a SM the full levels' registers leave room for: 3 ran 6 % faster
+// than 2 on G1 at 2^20 (168 registers and 272 bytes spilled against 212
+// and none) and 4 40 % slower (128 registers, 868 bytes spilled); Edwards
+// takes 116 registers at each (tools/row_times.py --variants, PERF.md)
+#ifndef TREE_FULL_MIN_BLOCKS
+#define TREE_FULL_MIN_BLOCKS 3
+#endif
 #define OUT_PLANE 0
 #define OUT_CANON 1
 #define OUT_ROWS 2
 
 template <bool AFF, int OUT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, AFF ? 1 : TREE_FULL_MIN_BLOCKS)
     tree_level_kernel(const int32_t* __restrict__ in, long long in_cols,
                       const int32_t* __restrict__ sorted_vals,
                       const int32_t* __restrict__ level_map,
@@ -146,4 +183,192 @@ extern "C" int msm_tree_level_full(const int32_t* in, long long in_cols,
                                    cudaStream_t stream) {
   return launch_mode<false>(in, in_cols, nullptr, level_map, out, t_out,
                             out_mode, stream);
+}
+
+// -- The fold of the fused path's pieces --------------------------------------
+
+#define FOLD_THREADS 64
+// a level of at most this many nodes lives in shared memory (two halves:
+// a level and the one before it)
+#define FOLD_SMEM_NODES 64
+#define FOLD_SMEM_BYTES (2 * FOLD_SMEM_NODES * (int)sizeof(Point))
+
+// The add sits in a __noinline__ helper: nvcc 12.8's cicc crashes on a
+// runtime-length loop around an inlined point add.
+__device__ __noinline__ void fold_add(Point& r, const Point& q) {
+  pt_add_lazy(r, r, q);
+}
+
+// Node i of a bucket's level k of ck nodes: level 0 is the piece sums
+// (columns off.. of the sums plane), a level of more than FOLD_SMEM_NODES
+// nodes sits in the scratch plane at column off (k odd) or off + c1 (k
+// even, c1 = level 1's size: ceil(c/2) + ceil(c/4) <= c, so both stay in
+// the bucket's own columns and never overlap), a smaller one in shared
+// memory half k & 1.
+struct FoldLevels {
+  const int32_t* sums;
+  int32_t* scratch;
+  long long cols, off, c1;
+  Point* smem;
+
+  __device__ __forceinline__ long long col(int k, long long i) const {
+    return off + ((k & 1) ? 0 : c1) + i;
+  }
+  __device__ __forceinline__ void load(Point& r, int k, long long ck,
+                                       long long i) const {
+    if (k == 0)
+      pt_load(r, sums, cols, off + i);
+    else if (ck <= FOLD_SMEM_NODES)
+      r = smem[(k & 1) * FOLD_SMEM_NODES + i];
+    else
+      pt_load(r, scratch, cols, col(k, i));
+  }
+  __device__ __forceinline__ void store(int k, long long ck, long long i,
+                                        const Point& r) const {
+    if (ck <= FOLD_SMEM_NODES)
+      smem[(k & 1) * FOLD_SMEM_NODES + i] = r;
+    else
+      pt_store(scratch, cols, col(k, i), r);
+  }
+};
+
+__global__ void __launch_bounds__(FOLD_THREADS)
+    fold_pieces_kernel(const int32_t* __restrict__ sums, long long cols,
+                       const int32_t* __restrict__ counts,
+                       const int32_t* __restrict__ offsets,
+                       int32_t* __restrict__ scratch,
+                       int32_t* __restrict__ out, long long nb) {
+  extern __shared__ __align__(16) unsigned char fold_smem[];
+  const long long b = blockIdx.x;
+  long long c = counts[b];
+  const FoldLevels lv{sums, scratch, cols, offsets[b], (c + 1) >> 1,
+                      reinterpret_cast<Point*>(fold_smem)};
+  int k = 0;
+  while (c > 1) {
+    const long long cn = (c + 1) >> 1;
+    for (long long i = threadIdx.x; i < cn; i += FOLD_THREADS) {
+      Point r;
+      lv.load(r, k, c, 2 * i);
+      if (2 * i + 1 < c) {
+        Point q;
+        lv.load(q, k, c, 2 * i + 1);
+        fold_add(r, q);
+      }
+      lv.store(k + 1, cn, i, r);
+    }
+    __syncthreads();
+    c = cn;
+    ++k;
+  }
+  if (threadIdx.x == 0) {
+    Point r;
+    if (c == 0)
+      pt_zero(r);
+    else
+      lv.load(r, k, 1, 0);
+    pt_canon(r);
+    pt_store(out, nb, b, r);
+  }
+}
+
+// sums: the (39|36, cols) plane of piece sums; bucket b's counts[b] pieces
+// sit in columns offsets[b].. (disjoint, as the piece plan lays them out);
+// scratch: a plane of the same shape, overwritten; out: (39|36, nb),
+// column b bucket b's canonical sum (the identity for an empty bucket).
+extern "C" int msm_fold_pieces(const int32_t* sums, long long cols,
+                               const int32_t* counts, const int32_t* offsets,
+                               int32_t* scratch, int32_t* out, long long nb,
+                               cudaStream_t stream) {
+  if (nb == 0) return 0;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fold_pieces_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        FOLD_SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  fold_pieces_kernel<<<(unsigned)nb, FOLD_THREADS, FOLD_SMEM_BYTES, stream>>>(
+      sums, cols, counts, offsets, scratch, out, nb);
+  return MSM_LAUNCH_STATUS();
+}
+
+// -- The product itself, lane-wise ----------------------------------------------
+
+// prod = REDC(a*b) and pair = REDC(a*b + c*d), mod R, lane-wise over
+// (NW, n) planes: this source's Montgomery products on their own, for the
+// tests and chip_smoke.py to hold against ops/field.py at extreme operands.
+__global__ void __launch_bounds__(THREADS)
+    field_mul_lanes_kernel(const int32_t* __restrict__ a,
+                           const int32_t* __restrict__ b,
+                           const int32_t* __restrict__ c,
+                           const int32_t* __restrict__ d,
+                           int32_t* __restrict__ prod,
+                           int32_t* __restrict__ pair, long long n) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  u32 x[NW], y[NW], z[NW], w[NW], r[NW];
+  fe_load(x, a, n, 0, j);
+  fe_load(y, b, n, 0, j);
+  fe_load(z, c, n, 0, j);
+  fe_load(w, d, n, 0, j);
+  mont_mul(r, x, y);
+  fe_store(prod, n, 0, j, r);
+  mont_mul_pair(r, x, y, z, w);
+  fe_store(pair, n, 0, j, r);
+}
+
+extern "C" int msm_field_mul_lanes(const int32_t* a, const int32_t* b,
+                                   const int32_t* c, const int32_t* d,
+                                   int32_t* prod, int32_t* pair, long long n,
+                                   cudaStream_t stream) {
+  if (n == 0) return 0;
+  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+  field_mul_lanes_kernel<<<blocks, THREADS, 0, stream>>>(a, b, c, d, prod,
+                                                        pair, n);
+  return MSM_LAUNCH_STATUS();
+}
+
+// -- The card's word-product rate -----------------------------------------------
+
+#define RATE_THREADS 256
+
+// Each thread runs `iters` dependent carry-chain Montgomery products, x =
+// REDC(x * y) (exact for any operands below R): 2 NW^2 word products each
+// (a*b and m*p), in the mad.lo / mad.hi chains of field.cuh, with no memory
+// traffic but the final store.  Launched with many blocks a SM, the word
+// products over the time give the rate at which the card runs this
+// source's product on its own (chip_smoke.py phase 4): the integer-rate
+// bound of every kernel that adds points.  A loop of the bare chains ran
+// slower (2.9-3.4e12 word products/s on an H100, below what the full
+// levels reach), as it misses the wide multiplies ptxas forms from a
+// product's pairs of halves.  The result is meaningless; it is stored so
+// that nothing is optimized away.
+__global__ void __launch_bounds__(RATE_THREADS)
+    word_rate_kernel(int32_t* __restrict__ out, int iters) {
+  const u32 seed = blockIdx.x * RATE_THREADS + threadIdx.x;
+  u32 x[NW], y[NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    x[k] = seed * 2654435761u + k * 40503u + 1u;
+    y[k] = x[k] ^ 0x9e3779b9u;
+  }
+  for (int it = 0; it < iters; ++it) {
+    u32 r[NW];
+    mont_mul(r, x, y);
+    fe_copy(x, r);
+  }
+  u32 s = 0u;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) s ^= x[k];
+  out[seed] = (int32_t)s;
+}
+
+// out: blocks * RATE_THREADS words.  Returns the launch status; the word
+// products are blocks * RATE_THREADS * iters * 2 * NW * NW.
+extern "C" int msm_word_rate(int32_t* out, long long blocks, int iters,
+                             cudaStream_t stream) {
+  if (blocks == 0) return 0;
+  word_rate_kernel<<<(unsigned)blocks, RATE_THREADS, 0, stream>>>(out, iters);
+  return MSM_LAUNCH_STATUS();
 }

@@ -2,12 +2,13 @@
 kernels: 1 (constant product, and the Edwards lane-wise product), 4 (lazy
 BPR family: stage 1 in one launch, double, double-and-add, add), 6
 (legacy SMVP round) and 7 (canonical add, double-and-add step,
-running-sum step).
+running-sum step), and tree.cu's Montgomery products on their own
+(field_mul_lanes).
 
 Every kernel source under csrc/ is compiled by nvcc for sm_90a into a
 shared library with a plain C interface, loaded with ctypes, and a second
 time with -DMSM_CURVE_ED, for the Edwards field and curve
-(libmsm_<source>_ed.so): 16 libraries, 29 entry points.  The build runs
+(libmsm_<source>_ed.so): 16 libraries, 35 entry points.  The build runs
 at first use, one nvcc per library, all started together, into
 <repo>/build/kernels/<hash of the sources>/ (listed in .gitignore), so a
 fresh checkout builds everything the first time a kernel launches and a
@@ -70,6 +71,9 @@ _ARGTYPES = {
     "tree": {
         "msm_tree_level_aff": [_P, _I64, _P, _P, _P, _I64, _INT, _P],
         "msm_tree_level_full": [_P, _I64, _P, _P, _I64, _INT, _P],
+        "msm_fold_pieces": [_P, _I64, _P, _P, _P, _P, _I64, _P],
+        "msm_field_mul_lanes": [_P, _P, _P, _P, _P, _P, _I64, _P],
+        "msm_word_rate": [_P, _I64, _INT, _P],
     },
     "packed": {
         "msm_packed_finish": [_P, _P, _P, _P, _I64, _P],
@@ -184,19 +188,25 @@ def rebuild() -> tuple[Path, float]:
     return out_dir, secs
 
 
+def load_library(out_dir: Path, name: str) -> ctypes.CDLL:
+    """Load library `name` built in out_dir, its entry points' C
+    signatures declared."""
+    cdll = ctypes.CDLL(str(out_dir / f"libmsm_{name}.so"))
+    cdll.msm_error_string.argtypes = [_INT]
+    cdll.msm_error_string.restype = ctypes.c_char_p
+    for fn, args in _ARGTYPES[name].items():
+        getattr(cdll, fn).argtypes = args
+        getattr(cdll, fn).restype = _INT
+    return cdll
+
+
 def _lib(source: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(source)
         if lib is None:
             out_dir, _ = build_all()
             for name, _, _ in LIBRARIES:
-                cdll = ctypes.CDLL(str(out_dir / f"libmsm_{name}.so"))
-                cdll.msm_error_string.argtypes = [_INT]
-                cdll.msm_error_string.restype = ctypes.c_char_p
-                for fn, args in _ARGTYPES[name].items():
-                    getattr(cdll, fn).argtypes = args
-                    getattr(cdll, fn).restype = _INT
-                _libs[name] = cdll
+                _libs[name] = load_library(out_dir, name)
             lib = _libs[source]
     return lib
 
@@ -303,6 +313,27 @@ def mont_mul_lanes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     launch("convert" + tag, "msm_mont_mul_lanes", "mont_mul_lanes" + tag, n,
            a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
     return out
+
+
+def field_mul_lanes_plain(a, b, c, d, ctx: FieldCtx = G1_CTX):
+    return F.mont_mul(a, b, ctx), F.mont_mul_pair(a, b, c, d, ctx)
+
+
+def field_mul_lanes(a, b, c, d, ctx: FieldCtx = G1_CTX):
+    """(REDC(a*b), REDC(a*b + c*d)) mod R lane-wise over four (nw, N)
+    planes of any values below R: the Montgomery products that
+    csrc/tree.cu (and stream.cu) build, on their own, for holding them
+    against ops/field.py at extreme operands."""
+    n = check_plane(a, ctx.nw)
+    for t in (b, c, d):
+        check_plane(t, ctx.nw, n)
+    if not on_cuda(a, b, c, d):
+        return field_mul_lanes_plain(a, b, c, d, ctx)
+    prod, pair = torch.empty_like(a), torch.empty_like(a)
+    launch("tree" + ctx.tag, "msm_field_mul_lanes",
+           "field_mul_lanes" + ctx.tag, n, a.data_ptr(), b.data_ptr(),
+           c.data_ptr(), d.data_ptr(), prod.data_ptr(), pair.data_ptr(), n)
+    return prod, pair
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The fused segment SMVP: the whole bucket accumulation over pre-gathered
-rows, in two passes (kernel 8, then kernel 2's full mode).
+rows, in two passes (kernel 8, then the fold of csrc/tree.cu).
 
 After the per-window sort each bucket's entries are contiguous in sorted
 order.  pregather_signed materializes the sorted point rows once (one row
@@ -9,18 +9,19 @@ accumulate_buckets_fused then cuts each segment into pieces of at most
 PIECE consecutive rows (piece_plan), sums every piece with the canonical
 complete mixed add, from the identity and in order, one thread a piece
 (kernel 8, fused_segments), and folds each bucket's pieces pairwise, level
-by level, with the lazy full add (fold_pieces: the tree path's level
-algebra and kernel 2, the last level canonical); the windowed form runs
-kernel 8 window by window and one fold for all windows.  The chain of
+by level, with the lazy full add (fold_pieces: the tree path's pairing,
+the last node canonical; on the card one launch of msm_fold_pieces, one
+block a bucket; the plain form is kernel 2's full levels); the windowed
+form runs kernel 8 window by window and one fold for all windows.  The chain of
 dependent adds a thread walks is at most PIECE long instead of a bucket's
 length (about n/2 in the top window of chunk 4).  A bucket of at most PIECE rows
 is one piece and passes the fold unchanged: its sum is the legacy path's,
 word for word; a longer one is the same point in other projective
 coordinates.
 
-Nothing here reads the device back: the piece and fold planes are sized
-from shapes alone (count // PIECE + B pieces; ceil(log2(ceil(max_len /
-PIECE))) fold levels, max_len a bound on a bucket's length), so the path
+Nothing here reads the device back: the piece plane is sized from shapes
+alone (count // PIECE + B pieces; the plain fold's ceil(log2(ceil(max_len
+/ PIECE))) levels, max_len a bound on a bucket's length), so the path
 runs in a batch without a host wait.
 
 A row is ROW_WORDS = 32 int32 words: G1 x, y and six zero words; Edwards
@@ -219,28 +220,58 @@ def fused_segments(
 
 
 # ---------------------------------------------------------------------------
-# The fold (pass 2, kernel 2's full mode) and the two passes together
+# The fold (pass 2: csrc/tree.cu msm_fold_pieces) and the two passes
+# together
 # ---------------------------------------------------------------------------
+
+
+def fold_pieces_plain(sums: torch.Tensor, counts: torch.Tensor,
+                      offsets: torch.Tensor, caps: list[int], group=G1):
+    """Plain form of fold_pieces: kernel 2's full levels (their plain
+    form), one a level of caps, each over every bucket's nodes of the
+    level before (the tree path's level maps), then each bucket's last
+    node canonicalized."""
+    nb = counts.shape[0]
+    lvl, c_prev, s_prev = sums, counts, offsets
+    for cap in caps:
+        c_k = (c_prev + 1) >> 1
+        s_k = torch.cumsum(c_k, 0) - c_k
+        level_map = T.build_level_map(s_prev, c_prev, s_k, c_k, cap)
+        lvl = T.tree_level_plain(lvl, level_map, "full", False, group=group)
+        c_prev, s_prev = c_k, s_k
+    # an empty bucket's column may lie past the plane: it is replaced below
+    col = s_prev.to(torch.int64).clamp(max=lvl.shape[1] - 1)
+    node = group.canon(group.split(lvl[:, col]))
+    out = group.select(counts > 0, node, group.zero(nb, sums.device))
+    return C.merge(out), torch.arange(nb, device=sums.device)
 
 
 def fold_pieces(sums: torch.Tensor, counts: torch.Tensor,
                 offsets: torch.Tensor, caps: list[int], group=G1):
     """Fold each bucket's pieces pairwise, level by level: node i of a level
     is node 2i + node 2i+1 of the one before within the bucket, an odd last
-    node carried up unchanged (the tree path's pairing and level maps); the
-    last level canonicalizes.  Bucket b's counts[b] piece sums sit in
-    columns offsets[b].. of sums; caps size the levels.  Returns (plane,
-    column of each bucket's sum in it), valid where the bucket is not
-    empty."""
-    lvl, c_prev, s_prev = sums, counts, offsets
-    for k, cap in enumerate(caps, 1):
-        c_k = (c_prev + 1) >> 1
-        s_k = torch.cumsum(c_k, 0) - c_k
-        level_map = T.build_level_map(s_prev, c_prev, s_k, c_k, cap)
-        lvl = T.run_tree_level(lvl, level_map, "full", last=k == len(caps),
-                               group=group)
-        c_prev, s_prev = c_k, s_k
-    return lvl, s_prev
+    node carried up unchanged (the tree path's pairing); the last node is
+    canonicalized.  Bucket b's counts[b] piece sums sit in columns
+    offsets[b].. of sums (the piece plan's layout).  Returns (plane,
+    s_fin): the (39|36, B) plane whose column b is bucket b's sum (the
+    identity for an empty bucket), and s_fin = arange(B), the column of
+    each bucket's sum, as permute_tree reads it.
+
+    On the card one launch folds every bucket, one block a bucket, each
+    through its own levels only; caps (the plane sizes of the fold's
+    levels, enough for the longest bucket) serve the plain form."""
+    nb = counts.shape[0]
+    cols = check_plane(sums, group.rows)
+    counts32, offsets32 = (v.to(torch.int32) for v in (counts, offsets))
+    if not on_cuda(sums, counts32, offsets32):
+        return fold_pieces_plain(sums, counts, offsets, caps, group)
+    out = torch.empty((group.rows, nb), dtype=torch.int32, device=sums.device)
+    scratch = torch.empty_like(sums)
+    tag = group.ctx.tag
+    launch("tree" + tag, "msm_fold_pieces", "fold_pieces" + tag, nb,
+           sums.data_ptr(), cols, counts32.data_ptr(), offsets32.data_ptr(),
+           scratch.data_ptr(), out.data_ptr(), nb)
+    return out, torch.arange(nb, device=sums.device)
 
 
 def accumulate_buckets_fused(
