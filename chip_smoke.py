@@ -11,7 +11,9 @@ Phases, each of which fails the run on any error:
      points);
   2. every kernel entry point, both curves, against its plain PyTorch form
      on random inputs of a few thousand lanes (identity, equal and inverse
-     operands among the canonical family's), and on a small real plan for
+     operands among the canonical family's; BPR stage 2 and the fold at
+     T = 1 to 1,024 lanes a window, 1, 3 and 17 windows, bpt 1, 2 and 64),
+     and on a small real plan for
      the tree, finish, stream and fused kernels (the fused path's two
      passes: kernel 8 over pieces of at most PIECE rows, and the fold in
      one launch of tree.cu's msm_fold_pieces); tree.cu's carry-chain
@@ -56,7 +58,7 @@ Phases, each of which fails the run on any error:
      rate in the carry-chain Montgomery product on its own (tree.cu
      msm_word_rate, both fields), and every row's bound again at that
      rate (int_bound_ms).  The plain forms of the lane-wise kernels (1, the
-     BPR and canonical families but BPR stage 1, the legacy round) are
+     canonical family, the legacy round) are
      replayed from CUDA graphs, one captured per shape, and kernel 8's
      round from one graph a launch (fused_plain_graphed); phase 2 holds
      the replays against the plain forms run eagerly;
@@ -138,12 +140,13 @@ KERNELS = {
                       "webgpu_msm_bls12_377_tpu/ops/smvp_stream.py:475"),
     "bpr_stage1": ("webgpu_msm_bls12_377_tpu_torch/csrc/bpr.cu",
                    "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:451"),
-    "bpr_double": ("webgpu_msm_bls12_377_tpu_torch/csrc/bpr.cu",
-                   "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:383"),
-    "bpr_masked_add_double": ("webgpu_msm_bls12_377_tpu_torch/csrc/bpr.cu",
-                              "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:468"),
-    "bpr_add": ("webgpu_msm_bls12_377_tpu_torch/csrc/bpr.cu",
-                "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:435"),
+    # stage 2 in one launch: the TPU's lazy doublings (:383) and masked
+    # double-and-add steps (:468)
+    "bpr_stage2": ("webgpu_msm_bls12_377_tpu_torch/csrc/bpr.cu",
+                   "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:468 and :383"),
+    # the window fold in one launch: every level's lazy add
+    "bpr_fold": ("webgpu_msm_bls12_377_tpu_torch/csrc/bpr.cu",
+                 "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:435"),
     "stream_buckets": ("webgpu_msm_bls12_377_tpu_torch/csrc/stream.cu",
                        "webgpu_msm_bls12_377_tpu/ops/smvp_stream.py:541"),
     "masked_add_mixed": ("webgpu_msm_bls12_377_tpu_torch/csrc/legacy.cu",
@@ -161,7 +164,7 @@ KERNELS = {
     "fold_pieces": ("webgpu_msm_bls12_377_tpu_torch/csrc/tree.cu",
                     "webgpu_msm_bls12_377_tpu/ops/smvp_tree.py:416"),
 }
-BPR = ("bpr_stage1", "bpr_double", "bpr_masked_add_double", "bpr_add")
+BPR = ("bpr_stage1", "bpr_stage2", "bpr_fold")
 # the Edwards build (-DMSM_CURVE_ED) of every source, and the lane-wise
 # product of its point prep (t = x*y: an XLA product in the JAX package,
 # outside any Pallas kernel)
@@ -183,17 +186,17 @@ PATHS = {
     # same points
     "running_sum": ("fused_running_add", "bpr_stage1"),
     # default options at 2^10 and 2^14: chunk 4 has 8 buckets a window,
-    # one per BPR lane, so BPR runs no stage 1 and no pre-double; the
+    # one per BPR lane, so BPR runs no stage 1 (stage 2 no doublings); the
     # fused kernel's row is the 2^10 run's (phase 4 times the 2^14 run
     # too); the fused paths fold each bucket's pieces in one launch of
     # tree.cu's fold
     "fused_10": ("fused_buckets", "fold_pieces", "mont_mul_const",
-                 "bpr_masked_add_double", "bpr_add"),
+                 "bpr_stage2", "bpr_fold"),
     "fused": ("fused_buckets", "fold_pieces", "mont_mul_const",
-              "bpr_masked_add_double", "bpr_add"),
+              "bpr_stage2", "bpr_fold"),
     # the 2^14 case forced off its default path, for the times alone
     "legacy_14": ("masked_add_mixed", "mont_mul_const",
-                  "bpr_masked_add_double", "bpr_add"),
+                  "bpr_stage2", "bpr_fold"),
     "stream_14": ("stream_buckets", "mont_mul_const"),
     "fused_forced": ("fused_buckets", "fold_pieces", "mont_mul_const",
                      *BPR),
@@ -210,7 +213,7 @@ PATHS = {
     "ed_naive": ("masked_add_and_double_ed", "fused_add_ed", *PREP_ED),
     "ed_running_sum": ("fused_running_add_ed", "bpr_stage1_ed"),
     "ed_fused_10": ("fused_buckets_ed", "fold_pieces_ed", *PREP_ED,
-                    "bpr_masked_add_double_ed", "bpr_add_ed"),
+                    "bpr_stage2_ed", "bpr_fold_ed"),
 }
 PATHS["batch_tree"], PATHS["batch_stream"] = PATHS["tree"], PATHS["stream"]
 PATHS["ed_batch_tree"] = PATHS["ed_tree"]
@@ -218,11 +221,17 @@ PATHS["ed_batch_tree"] = PATHS["ed_tree"]
 PATHS["wire_tree"], PATHS["ed_wire_tree"] = PATHS["tree"], PATHS["ed_tree"]
 PATHS["ed_fused"] = PATHS["ed_fused_10"]
 PATHS["ed_legacy_14"] = ("masked_add_mixed_ed", *PREP_ED,
-                         "bpr_masked_add_double_ed", "bpr_add_ed")
+                         "bpr_stage2_ed", "bpr_fold_ed")
 HOME = {k: path for path in reversed(PATHS) for k in PATHS[path]}
 #: phase 2's entry points that no path launches: tree.cu's Montgomery
-#: products on their own (the carry-chain schedule at extreme operands)
-LANE_CHECKS = ("field_mul_lanes", "field_mul_lanes_ed")
+#: products on their own (the carry-chain schedule at extreme operands),
+#: and bpr.cu's lane-wise lazy add (the join of sharded partial window
+#: sums)
+LANE_CHECKS = ("field_mul_lanes", "field_mul_lanes_ed", "bpr_add",
+               "bpr_add_ed")
+#: phase 2's shapes of BPR stage 2 and the fold: lanes a window (T),
+#: windows, buckets a lane (bpt)
+BPR_T, BPR_WINDOWS, BPR_BPT = (1, 8, 128, 512, 1024), (1, 3, 17), (1, 2, 64)
 #: phase 4's word-product rate kernel (tree.cu msm_word_rate): threads of
 #: a block (RATE_THREADS there), blocks a SM (many waves, so the last
 #: one's tail is small) and Montgomery products a thread
@@ -296,7 +305,9 @@ def field_cases(rng, ctx, n=4096):
 def lazy_kernel_cases(rng, group, n=4096):
     """Phase 2 for the kernels both curves build: kernel 1 (entry and
     exit; for Edwards also the lane-wise product), the BPR family on lazy
-    operands (stage 1 at bpt 1, 2 and 8, split 1 to 4), and on a small
+    operands (stage 1 at bpt 1, 2 and 8, split 1 to 4; stage 2 and the
+    fold at every T, window count and bpt of BPR_*; the lane-wise add), and
+    on a small
     real plan (2048 points, chunk 8, K = 2) tree levels 1 and 2 (level 2
     also as node rows), the packed finish on those rows and the stream
     kernel.  Returns (cases, Montgomery table, signed table,
@@ -323,8 +334,6 @@ def lazy_kernel_cases(rng, group, n=4096):
         cases.append(("mont_mul_lanes" + tag, K.mont_mul_lanes(x, y),
                       K.mont_mul_lanes_plain(x, y)))
     m, g, b = (rand_plane(rng, group.rows, n, bound, nw) for _ in range(3))
-    bits = torch.randint(0, 2, (n,), dtype=torch.int32,
-                         generator=torch.Generator().manual_seed(1)).to(DEV)
     # stage 1 over 2,048 lanes, the steps drawn from m, g and b: no steps
     # (bpt 1), sub-walks of one step (bpt 2, split 2), the unsplit walk and
     # a split one with its doublings (bpt 8, split 1 and 4)
@@ -336,17 +345,21 @@ def lazy_kernel_cases(rng, group, n=4096):
         steps = pool[:, pick.to(DEV)].contiguous()
         pairs.append(("bpr_stage1", K.bpr_stage1(steps, bpt, split, group),
                       K.bpr_stage1_plain(steps, bpt, split, group)))
-    pairs += [
-        ("bpr_double", K.bpr_double(m, group), K.double_plain(m, group)),
-        ("bpr_masked_add_double", K.bpr_masked_add_double(m, g, bits, group),
-         K.masked_add_double_plain(m, g, bits, group)),
-        ("bpr_add", K.bpr_add(m, b, group), K.add_plain(m, b, group)),
-        # the plain form as phase 4 runs it (replayed from a CUDA graph)
-        # against the plain form run eagerly
-        ("bpr_masked_add_double",
-         graphed(K.masked_add_double_plain)(m, g, bits, group),
-         K.masked_add_double_plain(m, g, bits, group)),
-    ]
+    pairs.append(("bpr_add", K.bpr_add(m, b, group), K.add_plain(m, b, group)))
+    # stage 2 and the fold at every T, window count and bpt of BPR_*, on
+    # lanes drawn from m, g and b
+    for t_count in BPR_T:
+        for windows_ in BPR_WINDOWS:
+            lanes = t_count * windows_
+            for bpt in BPR_BPT:
+                sm, sg = (pool[:, torch.randint(
+                    0, 3 * n, (lanes,), generator=torch.Generator().manual_seed(
+                        lanes + bpt + s)).to(DEV)].contiguous() for s in (0, 1))
+                g2 = K.bpr_stage2_plain(sm, sg, t_count, bpt, group)
+                pairs.append(("bpr_stage2",
+                              K.bpr_stage2(sm, sg, t_count, bpt, group), g2))
+            pairs.append(("bpr_fold", K.bpr_fold(g2, windows_, t_count, group),
+                          K.bpr_fold_plain(g2, windows_, t_count, group)))
     for name, got, want in pairs:
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -753,8 +766,8 @@ def bench_case(power: int, curve: str = "bls12_377"):
     (harness/testdata.py:make_bench_case): ks and scalars from
     random.Random(f"bench-{power}-{curve}") (drawn in bulk by
     randrange_words), ks below the curve's subgroup order, points k_i * G
-    computed on the card with kernel 4's double-and-add (the curve's
-    build) and made affine there by batch_inverse.  Returns the point
+    computed on the card with kernel 7's canonical double-and-add (the
+    curve's build) and made affine there by batch_inverse.  Returns the point
     words (2, 12|8, n), the scalar words (8, n) and the ks' words (8, n)
     (msm_oracle's input)."""
     import numpy as np
@@ -787,7 +800,7 @@ def bench_case(power: int, curve: str = "bls12_377"):
     res = C.merge(group.zero(n, DEV))
     for bit in range(253):
         bits = ((kw[bit // 32] >> (bit % 32)) & 1).to(torch.int32)
-        res, temp = K.bpr_masked_add_double(res, temp, bits, group)
+        res, temp = K.masked_add_and_double(res, temp, bits, group)
     # x, y and the last coordinate z (Edwards: (x, y, t, z))
     proj = group.canon(group.split(res))
     zinv = batch_inverse(proj[-1], ctx)
@@ -1038,6 +1051,17 @@ def drive(label, path, fn, args, want, warm_runs=3):
     missing = set(PATHS[path]) - {k for k, v in launches.items() if v}
     if missing:
         raise SystemExit(f"{label}: kernels not launched: {missing}")
+    # a BPR reduction is stage 1 (where bpt > 1), stage 2 and the fold, one
+    # launch each; the legacy paths reduce once a window group, the others
+    # once a scalar set (the chain runs stage 1 alone, no reduction)
+    sets = len(want) if isinstance(want, list) else 1
+    for tag in ("", "_ed") if "running_sum" not in path else ():
+        s1, s2, fold = (launches.get(k + tag, 0) for k in BPR)
+        if (s2 != fold or s1 > s2 or launches.get("bpr_add" + tag) or (
+                s2 and "legacy" not in path and s2 != sets)):
+            raise SystemExit(f"{label}: BPR launched stage 1 {s1}, stage 2 "
+                             f"{s2} and the fold {fold} times for {sets} "
+                             "scalar sets")
     return launches, med
 
 
@@ -1328,6 +1352,30 @@ def timed_paths(inputs, ed_inputs):
                       2 * (bpt - 1) * lanes * w["add_full"],
                       (bpt + 2) * lanes * w["pt"])
 
+    def stage2(m, g, t_count, bpt, group=G1):
+        # a lane's b + bitlen(k) - 1 lazy doublings and popcount(k) adds,
+        # k = t_count - 1 - t (nothing where k = 0); g read and written,
+        # m read where k > 0
+        w, lanes = WORK[group.ctx.tag], m.shape[1]
+        k = [t_count - 1 - t for t in range(t_count)]
+        per = lanes // t_count
+        b = bpt.bit_length() - 1
+        dbl = per * sum(b + x.bit_length() - 1 for x in k if x)
+        adds = per * sum(bin(x).count("1") for x in k)
+        return record("bpr_stage2" + group.ctx.tag, K_STAGE2,
+                      K.bpr_stage2_plain, (m, g, t_count, bpt, group),
+                      dbl * w["dbl"] + adds * w["add_full"],
+                      (2 * lanes + per * sum(1 for x in k if x)) * w["pt"])
+
+    def fold(g, num_windows, t_count, group=G1):
+        # t_count - 1 lazy adds a window; every lane read once, a window
+        # sum written
+        w = WORK[group.ctx.tag]
+        return record("bpr_fold" + group.ctx.tag, K_BFOLD, K.bpr_fold_plain,
+                      (g, num_windows, t_count, group),
+                      num_windows * (t_count - 1) * w["add_full"],
+                      num_windows * (t_count + 1) * w["pt"])
+
     def stream(table, sorted_vals, layout, group=G1):
         w = WORK[group.ctx.tag]
         out = record(
@@ -1381,15 +1429,6 @@ def timed_paths(inputs, ed_inputs):
                           muls(n, w, *planes), nbytes(n, w, *planes))
         return run
 
-    double = lanes(K.bpr_double, K.double_plain, "bpr_double", 1,
-                   lambda n, w, *a: n * w["dbl"], lambda n, w, *a: 2 * w["pt"] * n)
-    masked = lanes(K.bpr_masked_add_double, K.masked_add_double_plain,
-                   "bpr_masked_add_double", 3,
-                   lambda n, w, r, t, bits: int(bits.sum()) * w["add_full"]
-                   + n * w["dbl"],
-                   lambda n, w, *a: (4 * w["pt"] + 4) * n)
-    add = lanes(K.bpr_add, K.add_plain, "bpr_add", 2,
-                lambda n, w, *a: n * w["add_full"], lambda n, w, *a: 3 * w["pt"] * n)
     mixed = lanes(K.masked_add_mixed, K.masked_add_mixed_plain,
                   "masked_add_mixed", 4,
                   lambda n, w, acc, aff, sign, valid:
@@ -1415,6 +1454,7 @@ def timed_paths(inputs, ed_inputs):
     MMC_PLAIN = graphed(K.mont_mul_const_plain)
     MML_PLAIN = graphed(K.mont_mul_lanes_plain)
     K_FINISH, K_STAGE1 = T.packed_finish, K.bpr_stage1
+    K_STAGE2, K_BFOLD = K.bpr_stage2, K.bpr_fold
     replays += [MMC_PLAIN, MML_PLAIN]
     K_STREAM, K_FUSED = S.accumulate_buckets_streamed, SK.fused_segments
     K_FOLD = SK.fold_pieces
@@ -1424,8 +1464,8 @@ def timed_paths(inputs, ed_inputs):
         (T, "run_tree_level", tree), (T, "packed_finish", finish),
         (cuzk, "accumulate_buckets_streamed", stream),
         (SK, "fused_segments", fusedk), (SK, "fold_pieces", foldk),
-        (bpr, "bpr_stage1", stage1), (bpr, "bpr_double", double),
-        (bpr, "bpr_masked_add_double", masked), (bpr, "bpr_add", add),
+        (bpr, "bpr_stage1", stage1), (bpr, "bpr_stage2", stage2),
+        (bpr, "bpr_fold", fold),
         (buckets, "masked_add_mixed", mixed),
         (naive, "fused_add", cadd), (naive, "masked_add_and_double", cmasked),
         (K, "fused_running_add", crunning), (K, "bpr_stage1", stage1),

@@ -95,19 +95,64 @@ def test_bpr_family(dev, group):
     rng = random.Random("k4" + tag)
     m, g, b = (rand_plane(rng, group.rows, LANES, lazy_bound(group) * ctx.p,
                           dev, ctx.nw) for _ in range(3))
-    bits = torch.randint(0, 2, (LANES,), dtype=torch.int32,
-                         generator=torch.Generator().manual_seed(0)).to(dev)
     steps = torch.cat([m, g, b, m], dim=1)  # bpt 4
+    m8, g8 = m[:, :LANES // 8 * 8].contiguous(), g[:, :LANES // 8 * 8].contiguous()
     K.reset_launches()
     same(K.bpr_stage1(steps, 4, 2, group), K.bpr_stage1_plain(steps, 4, 2, group))
-    same(K.bpr_double(m, group), K.double_plain(m, group))
-    same(K.bpr_masked_add_double(m, g, bits, group),
-         K.masked_add_double_plain(m, g, bits, group))
+    same(K.bpr_stage2(m8, g8, 8, 4, group),
+         K.bpr_stage2_plain(m8, g8, 8, 4, group))
+    same(K.bpr_fold(g8, 125, 8, group), K.bpr_fold_plain(g8, 125, 8, group))
     same(K.bpr_add(m, b, group), K.add_plain(m, b, group))
-    names = ("bpr_stage1", "bpr_double", "bpr_masked_add_double", "bpr_add")
+    names = ("bpr_stage1", "bpr_stage2", "bpr_fold", "bpr_add")
     assert all(K.launches[k + tag] == 1 for k in names)
     other = "_ed" if group is C.G1 else ""
     assert not any(K.launches[k + other] for k in names)
+
+
+STAGE2_SHAPES = [(t, w, bpt) for t in (1, 8, 128, 512, 1024) for w in (1, 3, 17)
+                 for bpt in (1, 64)]
+
+
+@GROUPS
+@pytest.mark.parametrize("t_count,windows,bpt", STAGE2_SHAPES)
+def test_bpr_stage2_and_fold_against_plain(dev, group, t_count, windows, bpt):
+    """Stage 2 (a thread a lane) and the fold (a block a window from T =
+    128, several windows a block below; a thread's register levels from T
+    = 256) against their plain forms on lazy operands, one launch each."""
+    ctx, tag = group.ctx, group.ctx.tag
+    rng = random.Random(f"k4s2{tag}{t_count}{windows}{bpt}")
+    m, g = (rand_plane(rng, group.rows, t_count * windows,
+                       lazy_bound(group) * ctx.p, dev, ctx.nw) for _ in range(2))
+    K.reset_launches()
+    g2 = K.bpr_stage2(m, g, t_count, bpt, group)
+    same(g2, K.bpr_stage2_plain(m, g, t_count, bpt, group))
+    same(K.bpr_fold(g2, windows, t_count, group),
+         K.bpr_fold_plain(g2, windows, t_count, group))
+    assert K.launches["bpr_stage2" + tag] == K.launches["bpr_fold" + tag] == 1
+
+
+@GROUPS
+@pytest.mark.parametrize("chunk,threads", [(4, 8), (4, 4), (9, 8), (9, 256)])
+def test_bpr_reduction_launches_at_most_three_kernels(dev, group, chunk,
+                                                      threads):
+    """One reduce_buckets_prearranged: stage 1 where bpt > 1, then stage 2
+    and the fold, one launch each, and no other kernel."""
+    from webgpu_msm_bls12_377_tpu_torch.ops import bpr
+
+    ctx, tag = group.ctx, group.ctx.tag
+    windows = num_windows_for(chunk)
+    h = 1 << (chunk - 1)
+    bpt = h // min(threads, h)
+    rng = random.Random(f"k4red{tag}{chunk}{threads}")
+    buckets = rand_plane(rng, group.rows, windows * h, ctx.p, dev, ctx.nw)
+    K.reset_launches()
+    got = bpr.reduce_buckets_prearranged(buckets, windows, chunk, threads, group)
+    torch.cuda.synchronize()
+    assert dict(K.launches) == {
+        **({"bpr_stage1" + tag: 1} if bpt > 1 else {}),
+        "bpr_stage2" + tag: 1, "bpr_fold" + tag: 1}
+    same(got, bpr.reduce_buckets_prearranged(buckets.cpu(), windows, chunk,
+                                             threads, group).to(dev))
 
 
 def test_edwards_mont_mul_lanes(dev):
@@ -553,7 +598,7 @@ def test_stream_and_legacy_engines_on_the_card(dev, request, group, mode,
     K.reset_launches()
     got = eng.compute_msm(aff, scalars)
     assert (got["x"], got["y"]) == want
-    assert K.launches[kernel + tag] > 0 and K.launches["bpr_add" + tag] > 0
+    assert K.launches[kernel + tag] > 0 and K.launches["bpr_fold" + tag] > 0
     assert all(k.endswith("_ed") == bool(tag) for k in K.launches)
 
 
@@ -654,8 +699,7 @@ def test_engine_on_the_card_matches_oracle(dev):
     assert (got["x"], got["y"]) == crv.g1_to_affine(naive_msm(pts, scalars, G1))
     assert all(K.launches[k] > 0 for k in
                ("mont_mul_const", "tree_level_aff", "tree_level_full",
-                "packed_finish", "bpr_stage1", "bpr_double",
-                "bpr_masked_add_double", "bpr_add"))
+                "packed_finish", "bpr_stage1", "bpr_stage2", "bpr_fold"))
 
 
 def test_force_recompile_rebuilds_on_the_card(dev, msm_case):
@@ -703,7 +747,7 @@ def test_edwards_engine_on_the_card(dev, ed_case, mode, finish):
     assert (got["x"], got["y"]) == want
     assert K.launches["mont_mul_const_ed"] == 2
     assert K.launches["mont_mul_lanes_ed"] == 1
-    assert K.launches["bpr_add_ed"] > 0
+    assert K.launches["bpr_fold_ed"] > 0
     assert not any(v for k, v in K.launches.items() if not k.endswith("_ed"))
     batch = eng.compute_msm_batch(aff, [scalars, scalars[::-1]])
     assert batch[0] == got

@@ -139,11 +139,11 @@ def test_wrappers_refuse_other_devices():
     the kernels do not serve raises."""
     K.reset_launches()
     a = torch.zeros((39, 8), dtype=torch.int32)
-    K.bpr_double(a)
+    K.bpr_stage2(a, a, 8, 1)
     K.mont_mul_const(torch.zeros((13, 8), dtype=torch.int32), 1)
     assert sum(K.launches.values()) == 0
     with pytest.raises(ValueError, match="no kernel for device"):
-        K.bpr_double(a.to("meta"))
+        K.bpr_stage2(a.to("meta"), a.to("meta"), 8, 1)
     with pytest.raises(ValueError, match="plane"):
         K.bpr_add(a, a[:, :4])
 

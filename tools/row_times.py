@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Times of TPU kernel rows 2-5, 9 and 10 and the fused path's fold of the
-PyTorch/CUDA port on one GPU, for a checkout given by --root (default:
-this one), so that two commits can be compared on one card in one call
-(run parent, change, change, parent).
+"""Times of TPU kernel rows 2-5, 9 and 10 and the fused path's fold (with
+--bpr: rows 1 and 5-8) of the PyTorch/CUDA port on one GPU, for a
+checkout given by --root (default: this one), so that two commits can be
+compared on one card in one call (run parent, change, change, parent).
 
     python3 tools/row_times.py [--root DIR] [--label NAME] [--skip-fused]
                                [--skip-tail] [--variants]
+    python3 tools/row_times.py --bpr [--root DIR] [--label NAME] [--variants]
     python3 tools/row_times.py --sass
 
 On the bench cases of DIR's chip_smoke.py (bench_case), both curves:
@@ -53,6 +54,29 @@ operands, CUDA events around each after a synchronize.  Prints the card
 (nvidia-smi name and power limit) and one JSON line; writes nothing else
 but the variant builds.
 
+--bpr times only kernel 1 and BPR (rows 1 and 5-8), both curves:
+  - row 1 / 1e, kernel 1 (mont_mul_const) on the operands of its two
+    launches in one compute_msm at 2^20 (the point table's entry into the
+    Montgomery domain, the window sums' exit), each after one untimed
+    launch, median of five; the wrapper's pageable copy of the constant
+    (cudaMemcpyToSymbolAsync inside the timed window) beside a plain
+    pageable .to(device) of the same words; and, from torch.profiler over
+    five more launches, the kernel's and the host-to-device copies' device
+    time a launch;
+  - on the bucket plane that one compute_msm hands reduce_buckets_prearranged
+    at 2^20 (chunk 16, the tree), 2^17 (chunk 15, the stream path) and 2^14
+    (chunk 4, T = 8, the fused path): row 5, stage 1 at the engine's split;
+    rows 6-7, stage 2, and row 8, the fold, through the checkout's entry
+    points (one launch each of bpr_stage2 and bpr_fold, or the older
+    checkout's bpr_double and bpr_masked_add_double launches and its
+    gathers with bpr_add launches, told apart with hasattr), each also with
+    the kernels' device time a call from torch.profiler; and the whole
+    reduce_buckets_prearranged;
+  - with --variants, bpr.cu built with each of BPR_VARIANTS' flags (the C
+    form; stage 1 at 2, 3 and 4 blocks a SM) and rows 5-8 timed again with
+    each, with each library's ptxas registers and spills of stage 1,
+    stage 2 and the fold.
+
 --sass times nothing: for each field and each product form (the C form,
 and -DMSM_MONT_CHAIN) it compiles SASS_KERNELS, which call
 csrc/field.cuh's mont_mul once (one_mont_mul) and mont_mul_pair once
@@ -85,6 +109,13 @@ VARIANTS = {
     "blocks4": ("-DTREE_FULL_MIN_BLOCKS=4", "-DSTREAM_MIN_BLOCKS=4"),
 }
 VARIANT_SOURCES = ("tree", "stream")
+#: --bpr --variants: extra nvcc flags of each variant build of bpr.cu
+BPR_VARIANTS = {
+    "c_form": ("-DMSM_MONT_C",),
+    "blocks2": ("-DSTAGE1_MIN_BLOCKS=2",),
+    "blocks3": ("-DSTAGE1_MIN_BLOCKS=3",),
+    "blocks4": ("-DSTAGE1_MIN_BLOCKS=4",),
+}
 
 #: --sass: one product of each kind, on its own
 SASS_KERNELS = r"""
@@ -161,18 +192,18 @@ def sass_counts(K) -> dict:
     return res
 
 
-def build_variants(K):
-    """Build every variant's tree and stream libraries that are not built
+def build_variants(K, variants=VARIANTS, sources=VARIANT_SOURCES):
+    """Build every variant's libraries of `sources` that are not built
     yet, all nvcc processes started together.  Returns {variant:
     directory}."""
     root = K.BUILD_ROOT.parent / "variants" / K._build_dir().name
     procs, dirs = [], {}
-    for v, flags in VARIANTS.items():
-        d = dirs[v] = root / v
+    for v, flags in variants.items():
+        d = dirs[v] = root / "_".join(sources) / v
         d.mkdir(parents=True, exist_ok=True)
         for name, source, cflags in K.LIBRARIES:
             lib = d / f"libmsm_{name}.so"
-            if source not in VARIANT_SOURCES or lib.exists():
+            if source not in sources or lib.exists():
                 continue
             tmp = d / f"libmsm_{name}.so.tmp{os.getpid()}"
             cmd = [K._nvcc(), *K.NVCC_FLAGS, *cflags, *flags, "-o", str(tmp),
@@ -189,10 +220,10 @@ def build_variants(K):
     return dirs
 
 
-def load_variant(K, d):
+def load_variant(K, d, sources=VARIANT_SOURCES):
     """The variant libraries of directory d: {library name: CDLL}."""
     return {name: K.load_library(d, name) for name, source, _ in K.LIBRARIES
-            if source in VARIANT_SOURCES}
+            if source in sources}
 
 
 @contextlib.contextmanager
@@ -206,9 +237,16 @@ def using(K, libs):
         K._libs.update(saved)
 
 
+#: ptxas_regs' kernels: (key, a part of the mangled name)
+PTXAS_KERNELS = (("full", "tree_level_kernelILb0ELi2"), ("fold", "fold_pieces"),
+                 ("stream", "stream_buckets"), ("stage1", "stage1_kernel"),
+                 ("stage2", "stage2_kernel"), ("bpr_fold", "fold_kernel"))
+
+
 def ptxas_regs(log: str) -> dict:
     """{kernel: "<registers> regs, <spill stores> B spilled"} for the full
-    levels, the fold and the stream kernel of one library's ptxas log."""
+    levels, the fold and the stream kernel, and BPR stage 1, stage 2 and
+    its fold, of one library's ptxas log."""
     out, kernel = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -220,9 +258,8 @@ def ptxas_regs(log: str) -> dict:
             spill = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if kernel and m:
-            key = ("full" if "tree_level_kernelILb0ELi2" in kernel
-                   else "fold" if "fold_pieces" in kernel
-                   else "stream" if "stream_buckets" in kernel else None)
+            key = next((k for k, part in PTXAS_KERNELS if part in kernel),
+                       None)
             if key:
                 out[key] = f"{m.group(1)} regs, {spill} B spilled"
             kernel = None
@@ -237,6 +274,7 @@ def main() -> int:
     ap.add_argument("--skip-tail", action="store_true")
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--bpr", action="store_true")
     opts = ap.parse_args()
     root = opts.root or __file__.rsplit("/tools/", 1)[0]
     sys.path.insert(0, root)
@@ -339,6 +377,8 @@ def main() -> int:
         res[f"{key}_bpr"] = kernel_ms(lambda: bpr.reduce_buckets_prearranged(
             buckets, windows, chunk, threads, group), 5)
 
+    if opts.bpr:
+        return bpr_rows(opts, smi, kernel_ms)
     fused_takes = takes(SK.accumulate_buckets_fused)
     rows_kw = {"rows": True} if "rows" in takes(T._tree_levels) else {}
     res = {"label": opts.label, "card": smi}
@@ -470,6 +510,150 @@ def main() -> int:
                     gathered, plan.starts, plan.lens, group, **kw), 3)
             del gathered
             res[f"msm{tag}_{power}"] = warm_msm(run, pw, sw)
+    print(smi)
+    print(json.dumps(res))
+    return 0
+
+
+def bpr_rows(opts, smi, kernel_ms) -> int:
+    """--bpr: rows 1 and 5-8 (see the module docstring)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from webgpu_msm_bls12_377_tpu_torch import compute_msm, compute_msm_edwards
+    from webgpu_msm_bls12_377_tpu_torch.models import cuzk
+    from webgpu_msm_bls12_377_tpu_torch.ops import bpr
+    from webgpu_msm_bls12_377_tpu_torch.ops import convert
+    from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
+    from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
+
+    dev = torch.device("cuda")
+    res = {"label": opts.label, "card": smi}
+    variants = {}
+    if opts.variants:
+        t0 = time.perf_counter()
+        dirs = build_variants(K, BPR_VARIANTS, ("bpr",))
+        res["variant_build_s"] = time.perf_counter() - t0
+        variants = {v: load_variant(K, d, ("bpr",)) for v, d in dirs.items()}
+        for v, d in dirs.items():
+            for f in sorted(d.glob("*.log")):
+                res[f"regs_{v}_{f.stem}"] = ptxas_regs(f.read_text())
+    K._lib("bpr")  # the checkout's own build
+    for f in sorted(K._build_dir().glob("bpr*.log")):
+        res[f"regs_default_{f.stem}"] = ptxas_regs(f.read_text())
+
+    def device_us(fn, calls=5):
+        """{device op: [us a call, launches a call]} from torch.profiler
+        over `calls` calls of fn."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return {e.key: [e.self_device_time_total / calls, e.count / calls]
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+
+    def each_variant(key, fn):
+        res[key] = kernel_ms(fn, 5)
+        res[f"{key}_device_us"] = device_us(fn)
+        for v, libs in variants.items():
+            with using(K, libs):
+                res[f"{key}_{v}"] = kernel_ms(fn, 5)
+
+    def captured(fn, pw, sw, *names):
+        """One fn(pw, sw) with each (module, name) wrapped to keep its
+        arguments: {name: [args, ...]}."""
+        calls = {name: [] for _, name in names}
+        saved = [(mod, name, getattr(mod, name)) for mod, name in names]
+
+        def keep(name, real):
+            def run(*args):
+                calls[name].append(args)
+                return real(*args)
+            return run
+        for mod, name, real in saved:
+            setattr(mod, name, keep(name, real))
+        try:
+            fn(pw, sw)
+        finally:
+            for mod, name, real in saved:
+                setattr(mod, name, real)
+        return calls
+
+    for curve, group, tag in (("bls12_377", C.G1, ""),
+                              ("edwards_bls12", C.EDWARDS, "_ed")):
+        run = compute_msm if group is C.G1 else compute_msm_edwards
+        for power, chunk in ((20, 16), (17, 15), (14, 4)):
+            pw, sw, _ = cs.bench_case(power, curve)
+            names = [(cuzk, "reduce_buckets_prearranged")]
+            if power == 20:
+                names += [(convert, "mont_mul_const"), (cuzk, "mont_mul_const")]
+            calls = captured(run, pw, sw, *names)
+            key = f"{tag}_{power}"
+            if power == 20:
+                # row 1: kernel 1's two launches of the call
+                mmc = calls.get("mont_mul_const", [])
+                for i, (a, y, *rest) in enumerate(mmc):
+                    ctx = rest[0] if rest else group.ctx
+                    res[f"row1{key}_launch{i}"] = kernel_ms(
+                        lambda: K.mont_mul_const(a, y, ctx), 5)
+                    words = np.array([(y >> (32 * w)) & 0xFFFFFFFF
+                                      for w in range(ctx.nw)], dtype=np.uint32)
+                    res[f"row1{key}_launch{i}_copy"] = kernel_ms(
+                        lambda: torch.from_numpy(words.view(np.int32)).to(dev), 5)
+                    res[f"row1{key}_launch{i}_device_us"] = device_us(
+                        lambda: K.mont_mul_const(a, y, ctx))
+                    res[f"row1{key}_launch{i}_shape"] = list(a.shape)
+            # the tree, stream and fused paths reduce once a call
+            buckets, windows, chunk_, threads, _ = calls[
+                "reduce_buckets_prearranged"][0]
+            h = 1 << (chunk_ - 1)
+            t_count = min(threads, h)
+            bpt = h // t_count
+            lanes = windows * t_count
+            res[f"bpr{key}_shape"] = dict(windows=windows, T=t_count, bpt=bpt)
+            if bpt > 1:
+                split = bpr.stage1_split(lanes, bpt, group)
+                res[f"bpr{key}_split"] = split
+                each_variant(f"row5{key}", lambda: K.bpr_stage1(
+                    buckets, bpt, split, group))
+                m, g = K.bpr_stage1(buckets, bpt, split, group)
+            else:
+                m = g = buckets
+            if hasattr(K, "bpr_stage2"):
+                def stage2():
+                    return K.bpr_stage2(m, g, t_count, bpt, group)
+                g2 = stage2()
+
+                def fold():
+                    return K.bpr_fold(g2, windows, t_count, group)
+            else:
+                bits, partners, lane0 = bpr._stage2_consts(windows, t_count,
+                                                           dev)
+
+                def stage2():
+                    temp, acc = m, g
+                    for _ in range(bpt.bit_length() - 1):
+                        temp = K.bpr_double(temp, group)
+                    for row in bits:
+                        acc, temp = K.bpr_masked_add_double(acc, temp, row,
+                                                            group)
+                    return acc
+                g2 = stage2()
+
+                def fold():
+                    acc = g2
+                    for partner in partners:
+                        acc = K.bpr_add(acc, acc[:, partner].contiguous(),
+                                        group)
+                    return acc[:, lane0]
+            each_variant(f"row67{key}", stage2)
+            each_variant(f"row8{key}", fold)
+            res[f"bpr{key}"] = kernel_ms(lambda: bpr.reduce_buckets_prearranged(
+                buckets, windows, chunk_, threads, group), 5)
+            del buckets, m, g, g2, calls
     print(smi)
     print(json.dumps(res))
     return 0

@@ -6,9 +6,10 @@
   split into stage1_split sub-walks so that the launch fills the card;
 - stage 2: g += m * s for the static per-lane scalar
   s = bpt * (num_threads - thread - 1) = k << b, b = log2(bpt): b lazy
-  doublings of m, then a double-and-add over k's bits;
-- window fold: log2(num_threads) shift-reduce adds at a fixed lane shape,
-  after which lane 0 of each window holds the window sum.
+  doublings of m, then a double-and-add over k's bits, one launch of
+  kernel 4's bpr_stage2 (a thread runs a lane's chain);
+- window fold: the log2(num_threads) shift-reduce levels' adds that feed
+  each window's lane 0, one launch of bpr_fold (a block a window).
 The whole reduction stays in the lazy domain and canonicalizes the
 num_windows results once.  It serves both curves: the group (ops/curve.py:
 G1, the default, or EDWARDS) picks the planes and the kernels.
@@ -23,17 +24,12 @@ import torch
 
 from . import curve as C
 from .curve import G1
-from .kernels import (
-    MAX_SPLIT,
-    bpr_add,
-    bpr_double,
-    bpr_masked_add_double,
-    bpr_stage1,
-)
+from .kernels import MAX_SPLIT, bpr_fold, bpr_stage1, bpr_stage2
 
 #: stage-1 threads an H100 holds at once, by curve (ops/field.py tag):
 #: 132 SMs x 128 threads x the blocks a SM that bpr_stage1's registers
-#: allow (G1 255: 2; Edwards 168: 3).  stage1_split keeps lanes * split
+#: allow (csrc/bpr.cu STAGE1_MIN_BLOCKS 2 with the carry-chain product: G1
+#: 255: 2; Edwards 142: 3).  stage1_split keeps lanes * split
 #: within it: a second, partial wave cost more than the shorter sub-walks
 #: saved (at 2^17 G1 split 4 ran 2.4 ms, split 2 1.8 ms).
 STAGE1_RESIDENT = {"": 132 * 128 * 2, "_ed": 132 * 128 * 3}
@@ -104,42 +100,9 @@ def reduce_buckets_prearranged(
     return _bpr_stage2_and_fold(m, g, num_windows, t_count, bpt, group)
 
 
-@functools.lru_cache(maxsize=8)
-def _stage2_consts(num_windows: int, t_count: int, device):
-    """Static per-lane tables of stage 2 and the fold, on device (cached
-    and read-only, as bpr_order_on): the (nbits, lanes) bits of each
-    lane's k, the fold's partner lanes per step, and lane 0 of each
-    window."""
-    wi = np.repeat(np.arange(num_windows, dtype=np.int64), t_count)
-    tf = np.tile(np.arange(t_count, dtype=np.int64), num_windows)
-    k_lane = t_count - 1 - tf
-    nbits = max(int(k_lane.max()).bit_length(), 1)
-    bit_table = torch.as_tensor(
-        np.stack([(k_lane >> b) & 1 for b in range(nbits)]).astype(np.int32),
-        device=device,
-    )
-    # lane i reads partner i + off, in-window for every lane that still
-    # feeds lane 0; the other lanes read a clamped partner and compute
-    # values nothing reads
-    partners = []
-    off = t_count // 2
-    while off >= 1:
-        partners.append(torch.as_tensor(
-            wi * t_count + np.minimum(tf + off, t_count - 1), device=device
-        ))
-        off //= 2
-    lane0 = torch.as_tensor(np.arange(num_windows) * t_count, device=device)
-    return bit_table, partners, lane0
-
-
 def _bpr_stage2_and_fold(m, g, num_windows, t_count, bpt, group):
-    """Stage 2 (g += m * s) and the per-window shift-reduce fold."""
-    bit_table, partners, lane0 = _stage2_consts(num_windows, t_count, m.device)
-    temp = m
-    for _ in range(max(bpt.bit_length() - 1, 0)):
-        temp = bpr_double(temp, group)
-    for bits in bit_table:
-        g, temp = bpr_masked_add_double(g, temp, bits, group)
-    for partner in partners:
-        g = bpr_add(g, g[:, partner].contiguous(), group)
-    return C.merge(group.canon(group.split(g[:, lane0])))
+    """Stage 2 (g += m * s) and the per-window shift-reduce fold, one
+    launch each; the window sums canonicalized."""
+    g = bpr_stage2(m, g, t_count, bpt, group)
+    sums = bpr_fold(g, num_windows, t_count, group)
+    return C.merge(group.canon(group.split(sums)))

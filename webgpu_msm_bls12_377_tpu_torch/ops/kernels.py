@@ -1,6 +1,7 @@
 """CUDA kernel build, loading and launch accounting; the lane-wise
 kernels: 1 (constant product, and the Edwards lane-wise product), 4 (lazy
-BPR family: stage 1 in one launch, double, double-and-add, add), 6
+BPR family: stage 1, stage 2 and the window fold, each in one launch, and
+the lane-wise add), 6
 (legacy SMVP round) and 7 (canonical add, double-and-add step,
 running-sum step), and tree.cu's Montgomery products on their own
 (field_mul_lanes).
@@ -80,8 +81,8 @@ _ARGTYPES = {
     },
     "bpr": {
         "msm_bpr_stage1": [_P, _P, _P, _I64, _INT, _INT, _P],
-        "msm_bpr_double": [_P, _P, _I64, _P],
-        "msm_bpr_masked_add_double": [_P, _P, _P, _P, _P, _I64, _P],
+        "msm_bpr_stage2": [_P, _P, _P, _I64, _INT, _INT, _P],
+        "msm_bpr_fold": [_P, _P, _I64, _INT, _P],
         "msm_bpr_add": [_P, _P, _P, _I64, _P],
     },
     "stream": {
@@ -351,12 +352,6 @@ def double_plain(a, group=G1):
     return C.merge(group.double_lazy(group.split(a)))
 
 
-def masked_add_double_plain(r, t, bits, group=G1):
-    added = group.add_lazy(group.split(r), group.split(t))
-    res = group.select(bits != 0, added, group.split(r))
-    return C.merge(res), C.merge(group.double_lazy(group.split(t)))
-
-
 def add_plain(a, b, group=G1):
     return C.merge(group.add_lazy(group.split(a), group.split(b)))
 
@@ -425,37 +420,91 @@ def bpr_stage1(buckets, bpt, split, group=G1):
     return m, g
 
 
-def bpr_double(a, group=G1):
-    """Lazy doubling of every lane."""
-    n = check_plane(a, group.rows)
-    if not on_cuda(a):
-        return double_plain(a, group)
-    out = torch.empty_like(a)
+def bpr_stage2_plain(m, g, t_count, bpt, group=G1):
+    """Plain form of bpr_stage2, in its order of operations: b = log2(bpt)
+    lazy doublings of m into temp, then for each bit of k = t_count - 1 -
+    t (t = lane mod t_count), low bit first, g + temp where the bit is set
+    (lane-wise select) and temp doubled, but after the top bit."""
+    lanes = m.shape[1]
+    k = t_count - 1 - torch.arange(lanes, device=m.device) % t_count
+    temp = m
+    for _ in range(bpt.bit_length() - 1):
+        temp = double_plain(temp, group)
+    nbits = max((t_count - 1).bit_length(), 1)
+    for i in range(nbits):
+        added = group.add_lazy(group.split(g), group.split(temp))
+        g = C.merge(group.select(((k >> i) & 1) != 0, added, group.split(g)))
+        if i < nbits - 1:
+            temp = double_plain(temp, group)
+    return g
+
+
+def bpr_stage2(m, g, t_count, bpt, group=G1):
+    """BPR stage 2 in one launch: g + (k << b) * m lane-wise over (39|36,
+    lanes) lazy planes, lanes = windows * t_count window-major, k = t_count
+    - 1 - t for the lane's thread t within its window and b = log2(bpt):
+    the TPU's b lazy doublings and double-and-add steps, one thread a
+    lane.  Returns the new g."""
+    lanes = check_plane(m, group.rows)
+    check_plane(g, group.rows, lanes)
+    for name, v in (("t_count", t_count), ("bpt", bpt)):
+        if v < 1 or v & (v - 1):
+            raise ValueError(f"{name} must be a power of two, got {v}")
+    if lanes % t_count:
+        raise ValueError(f"{lanes} lanes are not whole windows of {t_count}")
+    if not on_cuda(m, g):
+        return bpr_stage2_plain(m, g, t_count, bpt, group)
+    out = torch.empty_like(g)
     tag = group.ctx.tag
-    launch("bpr" + tag, "msm_bpr_double", "bpr_double" + tag, n,
-           a.data_ptr(), out.data_ptr(), n)
+    launch("bpr" + tag, "msm_bpr_stage2", "bpr_stage2" + tag, lanes,
+           m.data_ptr(), g.data_ptr(), out.data_ptr(), lanes, t_count,
+           bpt.bit_length() - 1)
     return out
 
 
-def bpr_masked_add_double(r, t, bits, group=G1):
-    """One double-and-add step: (bit ? r + t : r, 2t); bits (L,) int32."""
-    n = check_plane(r, group.rows)
-    check_plane(t, group.rows, n)
-    if bits.shape != (n,):
-        raise ValueError(f"bits must be ({n},), got {tuple(bits.shape)}")
-    if not on_cuda(r, t, bits):
-        return masked_add_double_plain(r, t, bits, group)
-    r2, t2 = torch.empty_like(r), torch.empty_like(t)
+#: the most lanes a window the fold kernel takes (csrc/bpr.cu FOLD_THREADS
+#: << FOLD_STACK): chunk 16's 2^15 buckets a window, one a lane
+MAX_FOLD_LANES = 128 << 8
+
+
+def bpr_fold_plain(g, num_windows, t_count, group=G1):
+    """Plain form of bpr_fold: the shift-reduce's adds that feed lane 0,
+    level by level (lane i < off takes lane i + off, off = t_count / 2,
+    ..., 1)."""
+    x = g.reshape(group.rows, num_windows, t_count)
+    off = t_count // 2
+    while off >= 1:
+        x = add_plain(x[:, :, :off].reshape(group.rows, -1),
+                      x[:, :, off:2 * off].reshape(group.rows, -1), group
+                      ).reshape(group.rows, num_windows, off)
+        off //= 2
+    return x[:, :, 0].contiguous()
+
+
+def bpr_fold(g, num_windows, t_count, group=G1):
+    """The window fold in one launch: (39|36, num_windows * t_count) lazy
+    lanes, window-major -> (39|36, num_windows) lazy window sums, each the
+    TPU's shift-reduce of its t_count lanes (the same pairs, the same
+    words)."""
+    if t_count < 1 or t_count & (t_count - 1):
+        raise ValueError(f"t_count must be a power of two, got {t_count}")
+    check_plane(g, group.rows, num_windows * t_count)
+    if not on_cuda(g):
+        return bpr_fold_plain(g, num_windows, t_count, group)
+    if t_count > MAX_FOLD_LANES:
+        raise ValueError(f"the fold kernel takes at most {MAX_FOLD_LANES} "
+                         f"lanes a window, got {t_count}")
+    out = torch.empty((group.rows, num_windows), dtype=torch.int32,
+                      device=g.device)
     tag = group.ctx.tag
-    launch("bpr" + tag, "msm_bpr_masked_add_double",
-           "bpr_masked_add_double" + tag, n,
-           r.data_ptr(), t.data_ptr(), bits.data_ptr(), r2.data_ptr(),
-           t2.data_ptr(), n)
-    return r2, t2
+    launch("bpr" + tag, "msm_bpr_fold", "bpr_fold" + tag, num_windows,
+           g.data_ptr(), out.data_ptr(), num_windows, t_count)
+    return out
 
 
 def bpr_add(a, b, group=G1):
-    """Lazy full add of every lane."""
+    """Lazy full add of every lane (no path launches it: the lane-wise join
+    that sharded partial window sums will take)."""
     n = check_plane(a, group.rows)
     check_plane(b, group.rows, n)
     if not on_cuda(a, b):
