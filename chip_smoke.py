@@ -7,10 +7,12 @@ Phases, each of which fails the run on any error:
   1. the card's name and power limit (nvidia-smi), and the build of every
      kernel library with nvcc: each source under
      webgpu_msm_bls12_377_tpu_torch/csrc/ for BLS12-377 and again with
-     -DMSM_CURVE_ED for Twisted Edwards BLS12 (16 libraries, 35 entry
+     -DMSM_CURVE_ED for Twisted Edwards BLS12 (16 libraries, 36 entry
      points);
   2. every kernel entry point, both curves, against its plain PyTorch form
-     on random inputs of a few thousand lanes (identity, equal and inverse
+     on random inputs of a few thousand lanes (the point prep from wire
+     words in both layouts to both its forms, 0, 1, p - 1 and p among the
+     coordinates; identity, equal and inverse
      operands among the canonical family's; BPR stage 2 and the fold at
      T = 1 to 1,024 lanes a window, 1, 3 and 17 windows, bpt 1, 2 and 64),
      and on a small real plan for
@@ -66,8 +68,10 @@ Phases, each of which fails the run on any error:
      (also from wire bytes) and Edwards 2^14 MSM
      with every engine stage fenced and timed, and one more 2^20 batch
      fenced as shared prep, per-set stages, and readback with Horner; the
-     engine's host-to-device copy of the 2^20 words beside one plain
-     .to(device); with --profile, also torch.profiler over one 2^20 (both
+     engine's host-to-device copy of the 2^20 words (word arrays and the
+     wire bytes' point-major words) beside one plain .to(device) and beside
+     one unchunked staging split into its pinned buffer, host fill and
+     device copy; with --profile, also torch.profiler over one 2^20 (both
      curves), 2^17, 2^14 (both curves), Pippenger and naive (both curves)
      run and one batch: the device's busy and idle share and the ops that
      take the most device time.
@@ -130,6 +134,11 @@ START = time.perf_counter()
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
+    # kernel 1's entry: wire words to the signed or the Montgomery table in
+    # one launch
+    "point_prep": ("webgpu_msm_bls12_377_tpu_torch/csrc/convert.cu",
+                   "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:238"),
+    # kernel 1's exit (y = 1) on the window sums
     "mont_mul_const": ("webgpu_msm_bls12_377_tpu_torch/csrc/convert.cu",
                        "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:238"),
     "tree_level_aff": ("webgpu_msm_bls12_377_tpu_torch/csrc/tree.cu",
@@ -165,42 +174,44 @@ KERNELS = {
                     "webgpu_msm_bls12_377_tpu/ops/smvp_tree.py:416"),
 }
 BPR = ("bpr_stage1", "bpr_stage2", "bpr_fold")
-# the Edwards build (-DMSM_CURVE_ED) of every source, and the lane-wise
-# product of its point prep (t = x*y: an XLA product in the JAX package,
-# outside any Pallas kernel)
+# the Edwards build (-DMSM_CURVE_ED) of every source; its point prep also
+# computes t = x*y (an XLA product in the JAX package, outside any Pallas
+# kernel)
 KERNELS.update({f"{k}_ed": KERNELS[k] for k in list(KERNELS)})
-KERNELS["mont_mul_lanes_ed"] = ("webgpu_msm_bls12_377_tpu_torch/csrc/convert.cu",
-                                "webgpu_msm_bls12_377_tpu/models/cuzk.py:166")
+KERNELS["point_prep_ed"] = (
+    "webgpu_msm_bls12_377_tpu_torch/csrc/convert.cu",
+    "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:238 with "
+    "webgpu_msm_bls12_377_tpu/models/cuzk.py:166")
 BPR_ED = tuple(k + "_ed" for k in BPR)
-PREP_ED = ("mont_mul_const_ed", "mont_mul_lanes_ed")
+#: kernel 1's two entry points, as every path of a curve launches them
+PREP, PREP_ED = ("point_prep", "mont_mul_const"), ("point_prep_ed",
+                                                   "mont_mul_const_ed")
 #: the kernels each path must launch; a kernel's row in the JSON record
 #: (launches, times, bound) comes from the first path that names it
 PATHS = {
-    "tree": ("mont_mul_const", "tree_level_aff", "tree_level_full",
+    "tree": (*PREP, "tree_level_aff", "tree_level_full",
              "packed_finish", *BPR),
-    "stream": ("stream_buckets", "mont_mul_const", *BPR),
-    "legacy": ("masked_add_mixed", "mont_mul_const", *BPR),
-    "naive": ("masked_add_and_double", "fused_add", "mont_mul_const"),
+    "stream": ("stream_buckets", *PREP, *BPR),
+    "legacy": ("masked_add_mixed", *PREP, *BPR),
+    "naive": ("masked_add_and_double", "fused_add", *PREP),
     # no engine of either package calls fused_running_add: the chain
     # drives it, beside BPR stage 1 on the same steps, whose g must be the
     # same points
-    "running_sum": ("fused_running_add", "bpr_stage1"),
+    "running_sum": ("fused_running_add", "bpr_stage1", "point_prep"),
     # default options at 2^10 and 2^14: chunk 4 has 8 buckets a window,
     # one per BPR lane, so BPR runs no stage 1 (stage 2 no doublings); the
     # fused kernel's row is the 2^10 run's (phase 4 times the 2^14 run
     # too); the fused paths fold each bucket's pieces in one launch of
     # tree.cu's fold
-    "fused_10": ("fused_buckets", "fold_pieces", "mont_mul_const",
+    "fused_10": ("fused_buckets", "fold_pieces", *PREP,
                  "bpr_stage2", "bpr_fold"),
-    "fused": ("fused_buckets", "fold_pieces", "mont_mul_const",
+    "fused": ("fused_buckets", "fold_pieces", *PREP,
               "bpr_stage2", "bpr_fold"),
     # the 2^14 case forced off its default path, for the times alone
-    "legacy_14": ("masked_add_mixed", "mont_mul_const",
-                  "bpr_stage2", "bpr_fold"),
-    "stream_14": ("stream_buckets", "mont_mul_const"),
-    "fused_forced": ("fused_buckets", "fold_pieces", "mont_mul_const",
-                     *BPR),
-    "pure_tree": ("tree_level_aff", "tree_level_full", "mont_mul_const", *BPR),
+    "legacy_14": ("masked_add_mixed", *PREP, "bpr_stage2", "bpr_fold"),
+    "stream_14": ("stream_buckets", *PREP),
+    "fused_forced": ("fused_buckets", "fold_pieces", *PREP, *BPR),
+    "pure_tree": ("tree_level_aff", "tree_level_full", *PREP, *BPR),
     "ed_tree": (*PREP_ED, "tree_level_aff_ed", "tree_level_full_ed",
                 "packed_finish_ed", *BPR_ED),
     "ed_stream": ("stream_buckets_ed", *PREP_ED, *BPR_ED),
@@ -211,7 +222,8 @@ PATHS = {
     # 2^10), and the 2^14 case forced through legacy
     "ed_legacy": ("masked_add_mixed_ed", *PREP_ED, *BPR_ED),
     "ed_naive": ("masked_add_and_double_ed", "fused_add_ed", *PREP_ED),
-    "ed_running_sum": ("fused_running_add_ed", "bpr_stage1_ed"),
+    "ed_running_sum": ("fused_running_add_ed", "bpr_stage1_ed",
+                       "point_prep_ed"),
     "ed_fused_10": ("fused_buckets_ed", "fold_pieces_ed", *PREP_ED,
                     "bpr_stage2_ed", "bpr_fold_ed"),
 }
@@ -302,9 +314,52 @@ def field_cases(rng, ctx, n=4096):
     return [("field_mul_lanes" + ctx.tag, g, w) for g, w in zip(got, want)]
 
 
+def wire_point_words(rng, ctx, n):
+    """(n, 2k) point-major wire words of random coordinates below 2^(32 k)
+    (a wire coordinate takes any value of its k words), with 0, 1, p - 1
+    and p among them."""
+    import numpy as np
+
+    k, p = ctx.nw - 1, ctx.p
+    vals = [[rng.randrange(1 << (32 * k)) for _ in range(n)] for _ in range(2)]
+    for i, v in enumerate((0, 1, p - 1, p, 0, p - 1, 1, p)):
+        vals[i % 2][(7 * i) % n] = v
+    buf = b"".join(vals[0][j].to_bytes(4 * k, "little")
+                   + vals[1][j].to_bytes(4 * k, "little") for j in range(n))
+    return np.frombuffer(buf, dtype="<u4").reshape(n, 2 * k)
+
+
+def prep_cases(rng, group, n=4096):
+    """Phase 2: kernel 1's point prep from wire words in both layouts
+    (point-major as a wire buffer holds them, word-major as the packers
+    give them) to both its forms, against point_prep_plain."""
+    import numpy as np
+    import torch
+
+    from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
+    from webgpu_msm_bls12_377_tpu_torch.ops.convert import WireLayout
+
+    ctx = group.ctx
+    k = ctx.nw - 1
+    pm = wire_point_words(rng, ctx, n)
+    cases = []
+    for words, point_major in (
+            (pm, True),
+            (np.ascontiguousarray(pm.reshape(n, 2, k).transpose(1, 2, 0)),
+             False)):
+        layout = WireLayout.of(words, point_major, k, 2)
+        t = torch.from_numpy(words.view(np.int32).copy()).to(DEV)
+        for out in (K.SIGNED, K.PLANE):
+            cases.append(("point_prep" + ctx.tag,
+                          K.point_prep(t, layout, group, out),
+                          K.point_prep_plain(t, layout, group, out)))
+    return cases
+
+
 def lazy_kernel_cases(rng, group, n=4096):
-    """Phase 2 for the kernels both curves build: kernel 1 (entry and
-    exit; for Edwards also the lane-wise product), the BPR family on lazy
+    """Phase 2 for the kernels both curves build: kernel 1 (the point prep
+    in both layouts and forms; the constant product, entry and exit
+    constants), the BPR family on lazy
     operands (stage 1 at bpt 1, 2 and 8, split 1 to 4; stage 2 and the
     fold at every T, window count and bpt of BPR_*; the lane-wise add), and
     on a small
@@ -324,15 +379,11 @@ def lazy_kernel_cases(rng, group, n=4096):
 
     ctx, tag = group.ctx, group.ctx.tag
     nw, p, bound = ctx.nw, ctx.p, 2 * ctx.p  # lazy values below 2p
-    cases = field_cases(rng, ctx)
+    cases = field_cases(rng, ctx) + prep_cases(rng, group, n)
     a = rand_plane(rng, 2 * nw, n, p, nw)
     for y in (ctx.params.r2, 1):
         cases.append(("mont_mul_const" + tag, K.mont_mul_const(a, y, ctx),
                       K.mont_mul_const_plain(a, y, ctx)))
-    if tag:
-        x, y = a[:nw].contiguous(), a[nw:].contiguous()
-        cases.append(("mont_mul_lanes" + tag, K.mont_mul_lanes(x, y),
-                      K.mont_mul_lanes_plain(x, y)))
     m, g, b = (rand_plane(rng, group.rows, n, bound, nw) for _ in range(3))
     # stage 1 over 2,048 lanes, the steps drawn from m, g and b: no steps
     # (bpt 1), sub-walks of one step (bpt 2, split 2), the unsplit walk and
@@ -938,23 +989,24 @@ def same_points_on_card(a, b, group):
 
 def running_sum_chain(pw, curve="bls12_377", steps=8):
     """`steps` canonical running-sum steps (fused_running_add) over all
-    points of a case, from the identity, with b_t the table rolled by t
+    points of a case (their Montgomery table from the point prep), from
+    the identity, with b_t the table rolled by t
     lanes; BPR stage 1 over the same steps (bpt = steps, a lane a point,
     the engine's split) must give the same points as g.  Returns lane 0
     of g as the affine {"x", "y"}."""
     import torch
 
-    from webgpu_msm_bls12_377_tpu_torch.models.cuzk import (
-        mont_point_table,
-        words_to_device,
-    )
+    from webgpu_msm_bls12_377_tpu_torch.models.cuzk import words_to_device
     from webgpu_msm_bls12_377_tpu_torch.ops import bpr
     from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
     from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
+    from webgpu_msm_bls12_377_tpu_torch.ops.convert import WireLayout
     from webgpu_msm_bls12_377_tpu_torch.params import CurveId
 
     group = C.group_ops(CurveId(curve))
-    table = mont_point_table(words_to_device(pw, torch.device(DEV)), group)
+    layout = WireLayout.of(pw, False, group.ctx.nw - 1, 2)
+    table = K.point_prep(words_to_device(pw, torch.device(DEV)), layout,
+                         group, K.PLANE)
     pts = C.merge(group.from_affine(group.split_aff(table)))
     m = g = C.merge(group.zero(pts.shape[1], DEV))
     walk = []
@@ -1051,6 +1103,11 @@ def drive(label, path, fn, args, want, warm_runs=3):
     missing = set(PATHS[path]) - {k for k, v in launches.items() if v}
     if missing:
         raise SystemExit(f"{label}: kernels not launched: {missing}")
+    # the point prep is one launch a run, a batch's included
+    for prep in {"point_prep", "point_prep_ed"} & set(PATHS[path]):
+        if launches[prep] != 1:
+            raise SystemExit(f"{label}: {prep} launched {launches[prep]} "
+                             "times, not once")
     # a BPR reduction is stage 1 (where bpt > 1), stage 2 and the fold, one
     # launch each; the legacy paths reduce once a window group, the others
     # once a scalar set (the chain runs stage 1 alone, no reduction)
@@ -1135,8 +1192,8 @@ def main_paths(goldens):
                     or counts["pure_tree"].get("packed_finish")):
                 raise SystemExit("the pure tree must run several full levels "
                                  "and no packed finish")
-    # batches over a fixed point set: the point table converted once
-    # (kernel 1 launches = 1 + one Montgomery exit per set)
+    # batches over a fixed point set: the point prep once, a Montgomery
+    # exit per set
     t0 = time.perf_counter()
     sets = {20: batch_scalars(20, BATCH_SETS),
             17: batch_scalars(17, STREAM_BATCH_SETS)}
@@ -1149,10 +1206,11 @@ def main_paths(goldens):
         "stream)", batch_msm, (inputs[17][0], sets[17]), singles)
     for path, num in (("batch_tree", BATCH_SETS),
                       ("batch_stream", STREAM_BATCH_SETS)):
-        if counts[path]["mont_mul_const"] != 1 + num:
-            raise SystemExit(f"{path}: kernel 1 ran "
-                             f"{counts[path]['mont_mul_const']} times, not once "
-                             f"for the points and once per set")
+        got = tuple(counts[path][k] for k in PREP)
+        if got != (1, num):
+            raise SystemExit(f"{path}: kernel 1's entry and exit ran {got} "
+                             f"times, not once for the points and once per "
+                             "set")
     log(f"  2^20 batch: {medians['batch_tree'] / BATCH_SETS:.4f} s per set "
         f"(warm median of the batch / {BATCH_SETS}) beside "
         f"{medians['tree']:.4f} s for one warm compute_msm")
@@ -1237,11 +1295,10 @@ def edwards_paths(goldens, counts, medians):
     run("ed_batch_tree", f"Edwards 2^20 compute_msm_batch ({BATCH_SETS} sets, "
         "tree)", lambda pw, sws: batch_msm(pw, sws, ed), (inputs[20][0], sets),
         [golden(f"20:bench-20:batch{i}") for i in range(BATCH_SETS)])
-    # the points converted once: kernel 1 for the table and each set's
-    # exit, the lane-wise product once
+    # the point prep once, a Montgomery exit per set
     got = counts["ed_batch_tree"]
-    if (got["mont_mul_const_ed"], got["mont_mul_lanes_ed"]) != (1 + BATCH_SETS, 1):
-        raise SystemExit(f"Edwards batch: point prep ran {got}")
+    if tuple(got[k] for k in PREP_ED) != (1, BATCH_SETS):
+        raise SystemExit(f"Edwards batch: kernel 1 ran {got}")
     log(f"  Edwards 2^20 batch: {medians['ed_batch_tree'] / BATCH_SETS:.4f} s "
         f"per set beside {medians['ed_tree']:.4f} s for one warm "
         "compute_msm_edwards")
@@ -1255,7 +1312,7 @@ def timed_paths(inputs, ed_inputs):
     import torch
 
     from webgpu_msm_bls12_377_tpu_torch.models import cuzk, naive
-    from webgpu_msm_bls12_377_tpu_torch.ops import bpr, buckets, convert
+    from webgpu_msm_bls12_377_tpu_torch.ops import bpr, buckets
     from webgpu_msm_bls12_377_tpu_torch.ops import field as F
     from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
     from webgpu_msm_bls12_377_tpu_torch.ops.curve import G1
@@ -1300,10 +1357,17 @@ def timed_paths(inputs, ed_inputs):
                       (a, y, ctx), n * w["mm"],
                       2 * 4 * w["cw"] * n)
 
-    def mml(a, b):
-        n, w = a.shape[1], WORK["_ed"]
-        return record("mont_mul_lanes_ed", K_MML, MML_PLAIN,
-                      (a, b), n * w["mm"], 3 * 4 * w["cw"] * n)
+    def prep(words, layout, group=G1, out=K.SIGNED):
+        # a point's x and y read once (cw words each), its form written
+        # once: two 128-byte signed-table rows, or its column of the
+        # (26|27, N) table; a product a coordinate of the table (Edwards:
+        # x, y and t = x*y)
+        w, n, tag = WORK[group.ctx.tag], layout.n, group.ctx.tag
+        out_bytes = 2 * 4 * K.ROW_WORDS if out == K.SIGNED else 4 * group.aff_rows
+        return record("point_prep" + tag, K_PREP, PREP_PLAIN,
+                      (words, layout, group, out),
+                      n * (group.aff_rows // group.ctx.nw) * w["mm"],
+                      n * (2 * 4 * w["cw"] + out_bytes))
 
     def tree(arr_in, level_map, mode, last=False, sorted_vals=None, group=G1,
              rows=False):
@@ -1450,17 +1514,18 @@ def timed_paths(inputs, ed_inputs):
                      lambda n, w, *a: 2 * n * w["add_canon"],
                      lambda n, w, *a: 5 * w["pt"] * n)
 
-    K_MMC, K_MML, K_TREE = K.mont_mul_const, K.mont_mul_lanes, T.run_tree_level
+    K_MMC, K_PREP, K_TREE = K.mont_mul_const, K.point_prep, T.run_tree_level
     MMC_PLAIN = graphed(K.mont_mul_const_plain)
-    MML_PLAIN = graphed(K.mont_mul_lanes_plain)
+    PREP_PLAIN = graphed(K.point_prep_plain)
     K_FINISH, K_STAGE1 = T.packed_finish, K.bpr_stage1
     K_STAGE2, K_BFOLD = K.bpr_stage2, K.bpr_fold
-    replays += [MMC_PLAIN, MML_PLAIN]
+    replays += [MMC_PLAIN, PREP_PLAIN]
     K_STREAM, K_FUSED = S.accumulate_buckets_streamed, SK.fused_segments
     K_FOLD = SK.fold_pieces
     patches = [
-        (convert, "mont_mul_const", mmc), (cuzk, "mont_mul_const", mmc),
-        (naive, "mont_mul_const", mmc), (cuzk, "mont_mul_lanes", mml),
+        (cuzk, "mont_mul_const", mmc), (naive, "mont_mul_const", mmc),
+        (cuzk, "point_prep", prep), (naive, "point_prep", prep),
+        (K, "point_prep", prep),
         (T, "run_tree_level", tree), (T, "packed_finish", finish),
         (cuzk, "accumulate_buckets_streamed", stream),
         (SK, "fused_segments", fusedk), (SK, "fold_pieces", foldk),
@@ -1550,9 +1615,8 @@ def patched(patches):
 
 #: the engine's stages, as msm_device and compute_msm call them on the
 #: tree, stream and fused paths (a path reports the stages it ran)
-STAGES = ("words_to_device", "mont_point_table", "decompose_scalars_signed",
-          "build_bucket_plan", "build_hybrid_plan", "build_signed_table",
-          "tree_smvp_hybrid", "build_stream_layout",
+STAGES = ("words_to_device", "point_prep", "decompose_scalars_signed",
+          "build_bucket_plan", "build_hybrid_plan", "tree_smvp_hybrid", "build_stream_layout",
           "accumulate_buckets_streamed", "make_wide_rows", "pregather_signed",
           "accumulate_buckets_fused", "accumulate_buckets_windowed",
           "bpr_order_on", "permute_buckets", "reduce_buckets_prearranged",
@@ -1562,8 +1626,9 @@ STAGES = ("words_to_device", "mont_point_table", "decompose_scalars_signed",
 def stage_breakdown(pw, sw, run=run_msm):
     """Phase 5: one MSM (compute_msm, or `run`), after a warm-up call, with
     every engine stage fenced by torch.cuda.synchronize() and timed on the
-    host clock.  "other" is the rest of the call: wire-format checks and
-    chunk choice."""
+    host clock.  "other" is the rest of the call: wire-format checks,
+    chunk choice, and the transpose of point-major scalar words on the
+    card."""
     import torch
 
     from webgpu_msm_bls12_377_tpu_torch.models import cuzk
@@ -1617,10 +1682,14 @@ def batch_breakdown(pw, sws):
 
 
 def copy_breakdown(label, words):
-    """Phase 5: the engine's copy of host words to the card (laid out
-    straight into pinned memory, enqueued) beside one plain .to(device) of
-    the same words made contiguous (pageable, blocking), alternating,
-    fenced, host clock; the two must give the same tensor."""
+    """Phase 5: the engine's copy of host words to the card (pinned
+    chunks, filled by host threads, each copy enqueued as its chunk is
+    filled) beside one plain .to(device) of the same words made
+    contiguous (pageable, blocking) and beside the unchunked staging of
+    earlier versions in its three parts: the pinned buffer from PyTorch's
+    caching host allocator, the host fill (np.copyto) and the device copy
+    of the whole buffer; alternating, fenced, host clock; all must give
+    the same tensor."""
     import numpy as np
     import torch
 
@@ -1631,15 +1700,34 @@ def copy_breakdown(label, words):
     def plain(w):
         return torch.from_numpy(np.ascontiguousarray(w).view(np.int32)).to(dev)
 
-    ms = {"words_to_device": [], "plain .to(device)": []}
+    def unchunked(w):
+        host = w.view(np.int32)
+        t0 = time.perf_counter()
+        staged = torch.empty(host.shape, dtype=torch.int32, pin_memory=True)
+        t1 = time.perf_counter()
+        np.copyto(staged.numpy(), host)
+        t2 = time.perf_counter()
+        out = staged.to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for part, dt in (("pinned buffer", t1 - t0), ("host fill", t2 - t1),
+                         ("device copy", t3 - t2)):
+            ms[f"unchunked {part}"].append(round(dt * 1e3, 2))
+        return out
+
+    ms = {k: [] for k in ("words_to_device", "plain .to(device)",
+                          "unchunked total", "unchunked pinned buffer",
+                          "unchunked host fill", "unchunked device copy")}
     for _ in range(3):
         got, dt = fenced(words_to_device, words, dev)
         ms["words_to_device"].append(round(dt * 1e3, 2))
         want, dt = fenced(plain, words)
         ms["plain .to(device)"].append(round(dt * 1e3, 2))
-        if not torch.equal(got, want):
-            raise SystemExit(f"{label}: the two copies differ")
-    log(f"  {label} {words.nbytes / 1e6:.1f} MB, C-contiguous "
+        again, dt = fenced(unchunked, words)
+        ms["unchunked total"].append(round(dt * 1e3, 2))
+        if not (torch.equal(got, want) and torch.equal(again, want)):
+            raise SystemExit(f"{label}: the copies differ")
+    log(f"  {label} {words.shape} {words.nbytes / 1e6:.1f} MB, C-contiguous "
         f"{words.flags['C_CONTIGUOUS']}: " + "; ".join(
             f"{k} {statistics.median(v):.2f} ms {v}" for k, v in ms.items()))
 
@@ -1764,8 +1852,14 @@ def main(argv: list[str]) -> int:
         f" s of it per-set stages) beside {medians['tree']:.4f} s, the warm "
         "median of one 2^20 compute_msm")
     log("phase 5: host-to-device copies of the 2^20 case")
-    copy_breakdown("points", inputs[20][0])
-    copy_breakdown("scalars", inputs[20][1])
+    import numpy as np
+
+    wire_pw, wire_sw = (np.frombuffer(b, dtype="<u4").reshape(1 << 20, -1)
+                        for b in to_wire(*inputs[20]))
+    copy_breakdown("points (word-major)", inputs[20][0])
+    copy_breakdown("points (wire bytes, point-major)", wire_pw)
+    copy_breakdown("scalars (word-major)", inputs[20][1])
+    copy_breakdown("scalars (wire bytes, point-major)", wire_sw)
     if profile:
         from webgpu_msm_bls12_377_tpu_torch import (
             compute_msm,

@@ -124,6 +124,28 @@ def test_phase2_product_and_fold_cases_on_the_cpu(ctx, monkeypatch):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("ctx", [F.G1_CTX, F.ED_CTX], ids=["", "ed"])
+def test_phase2_prep_cases_on_the_cpu(ctx, monkeypatch):
+    """prep_cases builds the point prep's four cases (two layouts, two
+    forms) on the CPU: the wire words hold 0, 1, p - 1 and p, and each
+    case equals itself (the wrapper takes the plain form here)."""
+    from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
+
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    group = C.G1 if ctx is F.G1_CTX else C.EDWARDS
+    k = ctx.nw - 1
+    words = cs.wire_point_words(random.Random(3), ctx, 64)
+    vals = {sum(int(w) << (32 * i) for i, w in enumerate(row[c * k:(c + 1) * k]))
+            for row in words for c in range(2)}
+    assert {0, 1, ctx.p - 1, ctx.p} <= vals
+    cases = cs.prep_cases(random.Random(3), group, n=64)
+    assert [c[0] for c in cases] == ["point_prep" + ctx.tag] * 4
+    shapes = {tuple(c[1].shape) for c in cases}
+    assert shapes == {(128, 32), (group.aff_rows, 64)}
+    for _, got, want in cases:
+        assert torch.equal(got, want)
+
+
 def test_kernel_table_covers_every_path():
     """Every kernel has a source and a home path; the fused paths fold in
     one launch of the fold, not kernel 2's levels; phase 2's lane checks
@@ -136,3 +158,9 @@ def test_kernel_table_covers_every_path():
         assert not any(k.startswith("tree_level") for k in cs.PATHS[path])
     assert not set(cs.LANE_CHECKS) & set(cs.KERNELS)
     assert cs.KERNELS["fold_pieces_ed"][0].endswith("csrc/tree.cu")
+    # every path that converts points does so through the point prep, and
+    # the Montgomery table of the legacy, naive and chain paths too
+    for path, names in cs.PATHS.items():
+        if "mont_mul_const" in names or "mont_mul_const_ed" in names:
+            assert {"point_prep", "point_prep_ed"} & set(names)
+    assert cs.HOME["point_prep"] == "tree" and cs.HOME["point_prep_ed"] == "ed_tree"

@@ -155,14 +155,53 @@ def test_bpr_reduction_launches_at_most_three_kernels(dev, group, chunk,
                                              threads, group).to(dev))
 
 
-def test_edwards_mont_mul_lanes(dev):
-    """The Edwards point prep's t = x*y (no G1 counterpart)."""
-    ctx = C.EDWARDS.ctx
-    rng = random.Random("k-ed")
-    x, y = (rand_plane(rng, ctx.nw, LANES, ctx.p, dev, ctx.nw) for _ in range(2))
+PREP_CASES = [(group, major, form) for group in (C.G1, C.EDWARDS)
+              for major in ("word", "point") for form in ("signed", "plane")]
+
+
+@pytest.mark.parametrize("group,major,form", PREP_CASES, ids=[
+    f"{'ed-' if g is C.EDWARDS else ''}{m}-{f}" for g, m, f in PREP_CASES])
+def test_point_prep_against_plain(dev, group, major, form):
+    """Kernel 1's entry, one launch from wire words in either layout to
+    the signed table or the Montgomery table (Edwards with t = x*y), bit
+    for bit: random coordinates below R (wire words take any value), 0,
+    1, p - 1 and p among them (-0 stays 0)."""
+    from webgpu_msm_bls12_377_tpu_torch.ops.convert import WireLayout
+
+    ctx = group.ctx
+    k, p = ctx.nw - 1, ctx.p
+    rng = random.Random(f"prep{ctx.tag}{major}{form}")
+    vals = [[rng.randrange(1 << (32 * k)) for _ in range(LANES)]
+            for _ in range(2)]
+    for i, v in enumerate((0, 1, p - 1, p, 0, p - 1)):
+        vals[i % 2][5 * i] = v
+    pm = np.array([[(v >> (32 * w)) & 0xFFFFFFFF for c in range(2)
+                    for w in range(k) for v in (vals[c][j],)]
+                   for j in range(LANES)], dtype=np.uint32)
+    words = pm if major == "point" else np.ascontiguousarray(
+        pm.reshape(LANES, 2, k).transpose(1, 2, 0))
+    lay = WireLayout.of(words, major == "point", k, 2)
+    t = torch.from_numpy(words.view(np.int32)).to(dev)
+    out = K.SIGNED if form == "signed" else K.PLANE
     K.reset_launches()
-    same(K.mont_mul_lanes(x, y), K.mont_mul_lanes_plain(x, y))
-    assert K.launches["mont_mul_lanes_ed"] == 1
+    same(K.point_prep(t, lay, group, out), K.point_prep_plain(t, lay, group,
+                                                              out))
+    assert dict(K.launches) == {"point_prep" + ctx.tag: 1}
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 50000), (50000, 24), (8, 1 << 20),
+                                   (1 << 20, 8), (2, 8, 7)])
+def test_staged_copy_on_the_card(dev, shape):
+    """words_to_device through pinned memory equals a plain copy, in
+    either layout: in one piece (below four chunks' bytes) and in eight
+    chunks of one word plane or of many points each."""
+    from webgpu_msm_bls12_377_tpu_torch.models.cuzk import words_to_device
+
+    words = np.random.default_rng(sum(shape)).integers(
+        0, 1 << 32, size=shape, dtype=np.uint32)
+    got = words_to_device(words, dev)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), torch.from_numpy(words.view(np.int32)))
 
 
 @GROUPS
@@ -636,8 +675,8 @@ def test_pure_tree_engine_on_the_card(dev, msm_case):
 
 @pytest.mark.parametrize("mode", ["tree", "stream", "fused"])
 def test_batch_on_the_card(dev, msm_case, mode, monkeypatch):
-    """Three sets over one point set: one table conversion for the batch
-    (kernel 1 launches = 1 + one exit per set), results equal to
+    """Three sets over one point set: one point prep for the batch and
+    one Montgomery exit per set, results equal to
     compute_msm per set, and the per-set stage makes no call that waits
     for the device (PyTorch's sync debug mode raises on one)."""
     aff, scalars, want = msm_case
@@ -659,7 +698,8 @@ def test_batch_on_the_card(dev, msm_case, mode, monkeypatch):
     monkeypatch.setattr(CuzkMsmEngine, "_batch_sets", strict)
     K.reset_launches()
     assert eng.compute_msm_batch(aff, sets) == singles
-    assert K.launches["mont_mul_const"] == 1 + len(sets)
+    assert K.launches["point_prep"] == 1
+    assert K.launches["mont_mul_const"] == len(sets)
 
 
 @GROUPS
@@ -698,7 +738,8 @@ def test_engine_on_the_card_matches_oracle(dev):
     got = eng.compute_msm([crv.g1_to_affine(p) for p in pts], scalars)
     assert (got["x"], got["y"]) == crv.g1_to_affine(naive_msm(pts, scalars, G1))
     assert all(K.launches[k] > 0 for k in
-               ("mont_mul_const", "tree_level_aff", "tree_level_full",
+               ("point_prep", "mont_mul_const", "tree_level_aff",
+                "tree_level_full",
                 "packed_finish", "bpr_stage1", "bpr_stage2", "bpr_fold"))
 
 
@@ -745,8 +786,8 @@ def test_edwards_engine_on_the_card(dev, ed_case, mode, finish):
     K.reset_launches()
     got = eng.compute_msm(aff, scalars)
     assert (got["x"], got["y"]) == want
-    assert K.launches["mont_mul_const_ed"] == 2
-    assert K.launches["mont_mul_lanes_ed"] == 1
+    assert K.launches["point_prep_ed"] == 1
+    assert K.launches["mont_mul_const_ed"] == 1
     assert K.launches["bpr_fold_ed"] > 0
     assert not any(v for k, v in K.launches.items() if not k.endswith("_ed"))
     batch = eng.compute_msm_batch(aff, [scalars, scalars[::-1]])

@@ -499,8 +499,9 @@ def no_host_reads(monkeypatch, plain_modules):
 
 @pytest.mark.parametrize("mode", ["tree", "stream", "fused"])
 def test_batch_equals_per_set_msm_and_oracle(case, sets, mode, monkeypatch):
-    """compute_msm_batch == compute_msm per set == oracle; the point table
-    is built once for the batch; the per-set stage reads nothing back."""
+    """compute_msm_batch == compute_msm per set == oracle; the point prep
+    (and the fused path's wide rows) runs once for the batch; the per-set
+    stage reads nothing back."""
     eng = engine(smvp_mode=mode)
     singles = [eng.compute_msm(case["aff"], s) for s in sets]
     assert (singles[0]["x"], singles[0]["y"]) == case["want"]
@@ -508,8 +509,8 @@ def test_batch_equals_per_set_msm_and_oracle(case, sets, mode, monkeypatch):
         assert (got["x"], got["y"]) == crv.g1_to_affine(
             naive_msm(case["pts"], s, G1))
 
-    built = {"mont_point_table": 0,
-             "make_wide_rows" if mode == "fused" else "build_signed_table": 0}
+    built = {"point_prep": 0, **({"make_wide_rows": 0} if mode == "fused"
+                                 else {})}
     for name in built:
         real = getattr(cuzk, name)
 

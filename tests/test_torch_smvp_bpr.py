@@ -154,8 +154,8 @@ def levels(stage):
 
 
 def test_tree_table_matches_jax(stage):
-    """mont_point_table (kernel 1; for Edwards also t = x*y through the
-    lane-wise product) and the signed table (G1: (x, y), then (x, -y);
+    """mont_point_table (the point prep's plain Montgomery table; for
+    Edwards with t = x*y) and the signed table (G1: (x, y), then (x, -y);
     Edwards: (x, y, t), then (-x, y, -t)) against the JAX package's."""
     cv = stage["cv"]
     want = cv.carry(np.asarray(stage["table"]).reshape(cv.k * cv.w, N))

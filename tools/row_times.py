@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Times of TPU kernel rows 2-5, 9 and 10 and the fused path's fold (with
---bpr: rows 1 and 5-8) of the PyTorch/CUDA port on one GPU, for a
-checkout given by --root (default: this one), so that two commits can be
-compared on one card in one call (run parent, change, change, parent).
+--bpr: rows 1 and 5-8; with --prep: row 1's point prep and the copy) of
+the PyTorch/CUDA port on one GPU, for a checkout given by --root
+(default: this one), so that two commits can be compared on one card in
+one call (run parent, change, change, parent).
 
     python3 tools/row_times.py [--root DIR] [--label NAME] [--skip-fused]
                                [--skip-tail] [--variants]
     python3 tools/row_times.py --bpr [--root DIR] [--label NAME] [--variants]
+    python3 tools/row_times.py --prep [--root DIR] [--label NAME] [--variants]
     python3 tools/row_times.py --sass
 
 On the bench cases of DIR's chip_smoke.py (bench_case), both curves:
@@ -55,14 +57,13 @@ operands, CUDA events around each after a synchronize.  Prints the card
 but the variant builds.
 
 --bpr times only kernel 1 and BPR (rows 1 and 5-8), both curves:
-  - row 1 / 1e, kernel 1 (mont_mul_const) on the operands of its two
-    launches in one compute_msm at 2^20 (the point table's entry into the
-    Montgomery domain, the window sums' exit), each after one untimed
-    launch, median of five; the wrapper's pageable copy of the constant
-    (cudaMemcpyToSymbolAsync inside the timed window) beside a plain
-    pageable .to(device) of the same words; and, from torch.profiler over
-    five more launches, the kernel's and the host-to-device copies' device
-    time a launch;
+  - row 1 / 1e, kernel 1 on the operands of its launches in one
+    compute_msm at 2^20 (the point prep, point_prep, where the checkout
+    has it, else mont_mul_const's entry into the Montgomery domain and,
+    for Edwards, mont_mul_lanes; and the window sums' exit,
+    mont_mul_const), each after one untimed launch, median of five; and,
+    from torch.profiler over five more launches, the kernel's and the
+    host-to-device copies' device time a launch;
   - on the bucket plane that one compute_msm hands reduce_buckets_prearranged
     at 2^20 (chunk 16, the tree), 2^17 (chunk 15, the stream path) and 2^14
     (chunk 4, T = 8, the fused path): row 5, stage 1 at the engine's split;
@@ -76,6 +77,25 @@ but the variant builds.
     form; stage 1 at 2, 3 and 4 blocks a SM) and rows 5-8 timed again with
     each, with each library's ptxas registers and spills of stage 1,
     stage 2 and the fold.
+
+--prep times row 1's point prep and the copy before it, both curves, at
+2^20 and 2^17, on the bench case's word-major words and on its wire bytes
+(point-major words, as the buffer holds them), medians of five:
+  - the copy: the checkout's words_to_device (at each of --workers'
+    STAGE_WORKERS where the checkout has it), and the unchunked staging in its three
+    parts (the pinned buffer from the caching host allocator, the host
+    fill, the device copy), fenced, host clock; from bytes also the host
+    unpacking of earlier checkouts (points_buffer_to_words and
+    scalars_buffer_to_words), where the checkout's engine calls them;
+  - the table: the checkout's point prep on the copied words, CUDA events
+    (point_prep in its SIGNED and PLANE forms from either layout where
+    the checkout has it; else mont_point_table then build_signed_table
+    on word-major words), and its device time a call and its kernels
+    from torch.profiler;
+  - the warm compute_msm / compute_msm_edwards at 2^20 from words and
+    from bytes, host clock, fenced, median of five;
+  - with --variants, convert.cu built with -DMSM_MONT_C (the C-form
+    product) into build/variants/ and the point prep timed with it.
 
 --sass times nothing: for each field and each product form (the C form,
 and -DMSM_MONT_CHAIN) it compiles SASS_KERNELS, which call
@@ -116,6 +136,9 @@ BPR_VARIANTS = {
     "blocks3": ("-DSTAGE1_MIN_BLOCKS=3",),
     "blocks4": ("-DSTAGE1_MIN_BLOCKS=4",),
 }
+
+#: --prep --variants: extra nvcc flags of each variant build of convert.cu
+PREP_VARIANTS = {"c_form": ("-DMSM_MONT_C",)}
 
 #: --sass: one product of each kind, on its own
 SASS_KERNELS = r"""
@@ -275,6 +298,9 @@ def main() -> int:
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--bpr", action="store_true")
+    ap.add_argument("--prep", action="store_true")
+    ap.add_argument("--workers", default="1,2,4",
+                    help="--prep: host threads of the staged copy to time")
     opts = ap.parse_args()
     root = opts.root or __file__.rsplit("/tools/", 1)[0]
     sys.path.insert(0, root)
@@ -334,7 +360,14 @@ def main() -> int:
             sw = sw.copy()
             keep = np.random.default_rng(16).random(sw.shape[-1]) < 0.9
             sw[..., keep] = sw[..., :1]
-        table = mont_point_table(words_to_device(pw, dev), group)
+        if hasattr(K, "point_prep"):
+            from webgpu_msm_bls12_377_tpu_torch.ops.convert import WireLayout
+
+            table = K.point_prep(
+                words_to_device(pw, dev),
+                WireLayout.of(pw, False, group.ctx.nw - 1, 2), group, K.PLANE)
+        else:
+            table = mont_point_table(words_to_device(pw, dev), group)
         windows = num_windows_for(chunk)
         swd = torch.from_numpy(sw.view("int32")).to(dev)
         plan = build_bucket_plan(decompose_scalars_signed(swd, chunk, windows),
@@ -379,6 +412,8 @@ def main() -> int:
 
     if opts.bpr:
         return bpr_rows(opts, smi, kernel_ms)
+    if opts.prep:
+        return prep_rows(opts, smi, kernel_ms)
     fused_takes = takes(SK.accumulate_buckets_fused)
     rows_kw = {"rows": True} if "rows" in takes(T._tree_levels) else {}
     res = {"label": opts.label, "card": smi}
@@ -589,23 +624,25 @@ def bpr_rows(opts, smi, kernel_ms) -> int:
             pw, sw, _ = cs.bench_case(power, curve)
             names = [(cuzk, "reduce_buckets_prearranged")]
             if power == 20:
-                names += [(convert, "mont_mul_const"), (cuzk, "mont_mul_const")]
+                names += [(cuzk, "mont_mul_const")]
+                names += ([(cuzk, "point_prep")] if hasattr(cuzk, "point_prep")
+                          else [(convert, "mont_mul_const")])
             calls = captured(run, pw, sw, *names)
             key = f"{tag}_{power}"
             if power == 20:
-                # row 1: kernel 1's two launches of the call
-                mmc = calls.get("mont_mul_const", [])
-                for i, (a, y, *rest) in enumerate(mmc):
-                    ctx = rest[0] if rest else group.ctx
+                # row 1: kernel 1's launches of the call, each on its
+                # operands: the entry (the point prep) and the exit
+                launches = [("prep", K.point_prep, args)
+                            for args in calls.get("point_prep", [])]
+                launches += [("mmc", K.mont_mul_const, args)
+                             for args in calls.get("mont_mul_const", [])]
+                for i, (kind, fn, args) in enumerate(launches):
                     res[f"row1{key}_launch{i}"] = kernel_ms(
-                        lambda: K.mont_mul_const(a, y, ctx), 5)
-                    words = np.array([(y >> (32 * w)) & 0xFFFFFFFF
-                                      for w in range(ctx.nw)], dtype=np.uint32)
-                    res[f"row1{key}_launch{i}_copy"] = kernel_ms(
-                        lambda: torch.from_numpy(words.view(np.int32)).to(dev), 5)
+                        lambda: fn(*args), 5)
                     res[f"row1{key}_launch{i}_device_us"] = device_us(
-                        lambda: K.mont_mul_const(a, y, ctx))
-                    res[f"row1{key}_launch{i}_shape"] = list(a.shape)
+                        lambda: fn(*args))
+                    res[f"row1{key}_launch{i}_shape"] = [kind, list(
+                        args[0].shape)]
             # the tree, stream and fused paths reduce once a call
             buckets, windows, chunk_, threads, _ = calls[
                 "reduce_buckets_prearranged"][0]
@@ -657,6 +694,176 @@ def bpr_rows(opts, smi, kernel_ms) -> int:
     print(smi)
     print(json.dumps(res))
     return 0
+
+
+
+def prep_rows(opts, smi, kernel_ms) -> int:
+    """--prep: row 1's point prep and the copy (see the module docstring)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from webgpu_msm_bls12_377_tpu_torch import compute_msm, compute_msm_edwards
+    from webgpu_msm_bls12_377_tpu_torch.models import cuzk
+    from webgpu_msm_bls12_377_tpu_torch.ops import convert
+    from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
+    from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
+    from webgpu_msm_bls12_377_tpu_torch.ops import smvp_stream as S
+
+    dev = torch.device("cuda")
+    res = {"label": opts.label, "card": smi}
+    new = hasattr(K, "point_prep")
+    variants = {}
+    if opts.variants and new:
+        dirs = build_variants(K, PREP_VARIANTS, ("convert",))
+        variants = {v: load_variant(K, d, ("convert",)) for v, d in dirs.items()}
+        for v, d in dirs.items():
+            res[f"regs_{v}"] = {f.stem: prep_regs(f.read_text())
+                                for f in sorted(d.glob("*.log"))}
+    K._lib("convert")  # the checkout's own build
+    res["regs_default"] = {f.stem: prep_regs(f.read_text()) for f in
+                           sorted(K._build_dir().glob("convert*.log"))}
+    workers = ([int(w) for w in opts.workers.split(",")]
+               if hasattr(cuzk, "STAGE_WORKERS") else [None])
+
+    def host_ms(fn, reps=5):
+        """fn() fenced, host clock, after one untimed call: (median, all)."""
+        fn()
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out), out
+
+    def split(words, reps=5):
+        """The unchunked staging in its three parts, ms: (pinned buffer,
+        host fill, device copy) medians and all runs."""
+        host = words.view(np.int32)
+        parts = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            staged = torch.empty(host.shape, dtype=torch.int32,
+                                 pin_memory=True)
+            t1 = time.perf_counter()
+            np.copyto(staged.numpy(), host)
+            t2 = time.perf_counter()
+            staged.to(dev, non_blocking=True)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            parts.append([(t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3])
+        parts = parts[1:]
+        return {name: (statistics.median(p[i] for p in parts),
+                       [p[i] for p in parts])
+                for i, name in enumerate(("pinned", "fill", "device"))}
+
+    def device_us(fn, calls=5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return {e.key: [e.self_device_time_total / calls, e.count / calls]
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+
+    def copy_times(key, words):
+        for w in workers:
+            with contextlib.ExitStack() as stack:
+                if w is not None:
+                    stack.enter_context(staged_by(cuzk, w))
+                res[f"{key}_copy" + ("" if w is None else f"_w{w}")] = host_ms(
+                    lambda: cuzk.words_to_device(words, dev))
+        res[f"{key}_split"] = split(words)
+
+    for curve, group, tag in (("bls12_377", C.G1, ""),
+                              ("edwards_bls12", C.EDWARDS, "_ed")):
+        run = compute_msm if group is C.G1 else compute_msm_edwards
+        k = group.ctx.nw - 1
+        for power in (20, 17):
+            pw, sw, _ = cs.bench_case(power, curve)
+            pbuf, sbuf = cs.to_wire(pw, sw)
+            n = 1 << power
+            wire = np.frombuffer(pbuf, dtype="<u4").reshape(n, 2 * k)
+            wire_sw = np.frombuffer(sbuf, dtype="<u4").reshape(n, 8)
+            key = f"{tag}_{power}"
+            copy_times(f"words{key}", pw)
+            copy_times(f"bytes{key}", wire)
+            copy_times(f"scalars{key}", sw)
+            copy_times(f"bytes_scalars{key}", wire_sw)
+            if not new:
+                res[f"unpack{key}"] = host_ms(lambda: (
+                    convert.points_buffer_to_words(pbuf, 4 * k),
+                    convert.scalars_buffer_to_words(sbuf)))
+            if new:
+                from webgpu_msm_bls12_377_tpu_torch.ops.convert import (
+                    WireLayout,
+                )
+
+                forms = {"signed": K.SIGNED, "plane": K.PLANE}
+                for major, arr in (("words", pw), ("bytes", wire)):
+                    lay = WireLayout.of(arr, major == "bytes", k, 2)
+                    dw = cuzk.words_to_device(arr, dev)
+                    for fname, form in forms.items():
+                        name = f"prep_{major}_{fname}{key}"
+
+                        def prep():
+                            return K.point_prep(dw, lay, group, form)
+                        res[name] = kernel_ms(prep, 5)
+                        res[f"{name}_device_us"] = device_us(prep)
+                        for v, libs in variants.items():
+                            with using(K, libs):
+                                res[f"{name}_{v}"] = kernel_ms(prep, 5)
+            else:
+                dw = cuzk.words_to_device(pw, dev)
+
+                def prep():
+                    return S.build_signed_table(
+                        cuzk.mont_point_table(dw, group), group)
+                res[f"prep_words_signed{key}"] = kernel_ms(prep, 5)
+                res[f"prep_words_signed{key}_device_us"] = device_us(prep)
+                res[f"prep_words_plane{key}"] = kernel_ms(
+                    lambda: cuzk.mont_point_table(dw, group), 5)
+            if power == 20:
+                res[f"msm_words{key}"] = host_ms(lambda: run(pw, sw))
+                res[f"msm_bytes{key}"] = host_ms(lambda: run(pbuf, sbuf))
+            del pw, sw, pbuf, sbuf, wire, wire_sw
+    print(smi)
+    print(json.dumps(res))
+    return 0
+
+
+@contextlib.contextmanager
+def staged_by(cuzk, workers: int):
+    """The checkout's staged copy with `workers` host threads."""
+    saved = cuzk.STAGE_WORKERS
+    cuzk.STAGE_WORKERS = workers
+    try:
+        yield
+    finally:
+        cuzk.STAGE_WORKERS = saved
+
+
+def prep_regs(log: str) -> dict:
+    """{kernel: "<registers> regs, <spill stores> B spilled"} of one
+    convert library's ptxas log (the point prep's four forms, the exit)."""
+    out, kernel, spill = {}, None, "0"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if kernel and m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if kernel and m:
+            out[kernel] = f"{m.group(1)} regs, {spill} B spilled"
+            kernel = None
+    return out
 
 
 if __name__ == "__main__":

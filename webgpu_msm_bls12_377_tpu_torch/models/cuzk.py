@@ -4,9 +4,12 @@ Twisted Edwards BLS12 (the curve's group and field picked once per
 engine).
 
 compute_msm(points, scalars) -> {"x": int, "y": int} runs, on one device:
-  1. point prep: wire words -> Montgomery table (kernel 1; for Edwards
-     also t = x*y, kernel 1's lane-wise product), then the form the path
-     reads (signed table, wide rows, or the table itself);
+  0. the copy: wire words to the card as they come (a wire buffer's
+     point-major words, a word array's word-major ones), staged through
+     pinned memory in chunks whose copies start as each is filled;
+  1. point prep: wire words -> in one launch of kernel 1, the form the
+     path reads: the signed table (tree, stream) or the Montgomery table
+     (for Edwards with t = x*y; fused: then its wide rows; legacy);
   2. plan: signed window digits -> stable per-window sort -> bucket
      segments (plain PyTorch);
   3. SMVP, by _select_smvp (the JAX engine's policy on a TPU):
@@ -44,6 +47,7 @@ many rounds run, and so does the pure tree's.
 from __future__ import annotations
 
 import functools
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Sequence
 
 import numpy as np
@@ -59,19 +63,20 @@ from ..ops.buckets import (
     round_class,
     window_slice_indices,
 )
-from ..ops.convert import (
-    ints_to_words,
-    points_buffer_to_words,
-    scalars_buffer_to_words,
-    u32_words_to_limbs_mont,
-)
+from ..ops.convert import WireLayout, wire_words
 from ..ops.decompose import (
     SCALAR_BITS,
     choose_chunk_size,
     decompose_scalars_signed,
     num_windows_for,
 )
-from ..ops.kernels import mont_mul_const, mont_mul_lanes
+from ..ops.kernels import (
+    PLANE,
+    SIGNED,
+    mont_mul_const,
+    point_prep,
+    point_prep_plain,
+)
 from ..ops.smvp_kernel import (
     accumulate_buckets_fused,
     accumulate_buckets_windowed,
@@ -82,7 +87,6 @@ from ..ops.smvp_kernel import (
 )
 from ..ops.smvp_stream import (
     accumulate_buckets_streamed,
-    build_signed_table,
     build_stream_layout,
     permute_buckets,
     stream_supported,
@@ -106,6 +110,16 @@ TREE_MIN_N = 1 << 18
 #: bytes of one wire coordinate
 COORD_BYTES = {CurveId.BLS12_377: 48, CurveId.EDWARDS_BLS12: 32}
 SMVP_MODES = ("auto", "tree", "stream", "legacy", "fused")
+#: bytes of the pinned buffer that one chunk of the staged copy fills:
+#: a few MB, so that the first chunk's copy starts early and the host fill
+#: and the device copy overlap
+STAGE_CHUNK_BYTES = 4 << 20
+#: host threads that fill the pinned buffer (numpy's copy of a word array
+#: releases the GIL); an array of fewer than this many chunks is staged in
+#: one piece on the calling thread, which measured faster at 2^17 (4-13
+#: MB) and slower at 2^20 (32-101 MB) on an H100 machine, where one thread
+#: filling the chunks was slower than one piece (PERF.md)
+STAGE_WORKERS = 4
 
 
 def resolve_device(device) -> torch.device:
@@ -124,28 +138,53 @@ def _device_key(device) -> tuple[str, int]:
     return dev.type, dev.index or 0
 
 
+def staging_chunks(rows: int, row_bytes: int) -> list[tuple[int, int]]:
+    """The staged copy's chunks: [lo, hi) ranges of whole rows of about
+    STAGE_CHUNK_BYTES (at least one row each) that cover [0, rows) in
+    order; one chunk for all rows below STAGE_WORKERS chunks' bytes."""
+    if rows * row_bytes < STAGE_WORKERS * STAGE_CHUNK_BYTES:
+        return [(0, rows)]
+    step = max(1, STAGE_CHUNK_BYTES // row_bytes)
+    return [(lo, min(rows, lo + step)) for lo in range(0, rows, step)]
+
+
 def words_to_device(words: np.ndarray, device: torch.device) -> torch.Tensor:
-    """uint32 host word array -> int32 tensor of the same bits on device.
-    To a CUDA device the words are laid out contiguously straight into a
-    pinned buffer and the copy is only enqueued: the host does not wait
-    for the stream."""
+    """uint32 host word array -> int32 tensor of the same bits and shape on
+    device.  To a CUDA device the words go through a pinned buffer in
+    chunks of whole rows of the array's 2-D view (all axes but the last
+    merged: the points of point-major words, the word planes of word-major
+    ones), filled by STAGE_WORKERS host threads; each chunk's copy is enqueued
+    as soon as it is filled (a small array: one fill and one copy), and
+    the host does not wait for the stream."""
     host = words.view(np.int32)
     if device.type != "cuda":
-        return torch.from_numpy(np.ascontiguousarray(host)).to(device)
-    staged = torch.empty(host.shape, dtype=torch.int32, pin_memory=True)
-    np.copyto(staged.numpy(), host)
-    return staged.to(device, non_blocking=True)
+        return torch.from_numpy(host.copy()).to(device)
+    rows = host.reshape(int(np.prod(host.shape[:-1])), host.shape[-1])
+    staged = torch.empty(rows.shape, dtype=torch.int32, pin_memory=True)
+    pinned = staged.numpy()
+    chunks = staging_chunks(rows.shape[0], 4 * rows.shape[1])
+    if len(chunks) == 1:
+        np.copyto(pinned, rows)
+        return staged.to(device, non_blocking=True).reshape(host.shape)
+    out = torch.empty(rows.shape, dtype=torch.int32, device=device)
+
+    def fill(lo, hi):
+        np.copyto(pinned[lo:hi], rows[lo:hi])
+
+    with ThreadPoolExecutor(STAGE_WORKERS) as pool:
+        filled = [pool.submit(fill, lo, hi) for lo, hi in chunks]
+        for (lo, hi), done in zip(chunks, filled):
+            done.result()
+            out[lo:hi].copy_(staged[lo:hi], non_blocking=True)
+    return out.reshape(host.shape)
 
 
 def mont_point_table(point_words: torch.Tensor, group=C.G1) -> torch.Tensor:
-    """Wire words -> Montgomery affine table: G1 (2, 12, N) -> (26, N)
-    (x; y); Edwards (2, 8, N) -> (27, N) (x; y; t = x*y)."""
-    table = u32_words_to_limbs_mont(point_words, group.ctx)
-    if group is C.G1:
-        return table
-    nw = group.ctx.nw
-    t = mont_mul_lanes(table[:nw], table[nw:])
-    return torch.cat([table, t], dim=0)
+    """Plain form of the point prep's PLANE output from word-major wire
+    words: G1 (2, 12, N) -> (26, N) (x; y); Edwards (2, 8, N) -> (27, N)
+    (x; y; t = x*y)."""
+    layout = WireLayout.of(point_words, False, group.ctx.nw - 1, 2)
+    return point_prep_plain(point_words, layout, group, PLANE)
 
 
 class CuzkMsmEngine:
@@ -218,57 +257,70 @@ class CuzkMsmEngine:
         return self.chunk_size_override or choose_chunk_size(n)
 
     # -- input normalization (reference wire formats) -----------------------
+    # Prepared inputs are (host uint32 words, their WireLayout): a wire
+    # buffer's words in the order it holds them (point-major, a view, no
+    # copy), a uint32 array as given (word-major: points (2, k, N),
+    # scalars (8, N)), Python ints through their wire bytes.
 
-    def _prepare_points(self, points: Any) -> np.ndarray:
-        if isinstance(points, (bytes, bytearray, memoryview)):
-            return points_buffer_to_words(bytes(points), self.coord_bytes)
+    def _prepare_points(self, points: Any) -> tuple[np.ndarray, WireLayout]:
         if isinstance(points, np.ndarray) and points.dtype == np.uint32:
-            return points  # already (2, coord_bytes // 4, N)
-        num_u32 = self.coord_bytes // 4
-        xs = ints_to_words([p[0] for p in points], num_u32)
-        ys = ints_to_words([p[1] for p in points], num_u32)
-        return np.stack([xs, ys])
+            return points, WireLayout.of(points, False, self.coord_bytes // 4,
+                                         2)
+        if not isinstance(points, (bytes, bytearray, memoryview)):
+            cb = self.coord_bytes
+            points = b"".join(int(p[0]).to_bytes(cb, "little")
+                              + int(p[1]).to_bytes(cb, "little")
+                              for p in points)
+        return wire_words(points, self.coord_bytes, 2)
 
     @staticmethod
-    def _prepare_scalars(scalars: Any) -> np.ndarray:
-        if isinstance(scalars, (bytes, bytearray, memoryview)):
-            return scalars_buffer_to_words(bytes(scalars))
+    def _prepare_scalars(scalars: Any) -> tuple[np.ndarray, WireLayout]:
         if isinstance(scalars, np.ndarray) and scalars.dtype == np.uint32:
-            return scalars
-        return ints_to_words(list(scalars), SCALAR_BITS // 32)
+            return scalars, WireLayout.of(scalars, False, SCALAR_BITS // 32)
+        if not isinstance(scalars, (bytes, bytearray, memoryview)):
+            scalars = b"".join(int(s).to_bytes(SCALAR_BITS // 8, "little")
+                               for s in scalars)
+        return wire_words(scalars, SCALAR_BITS // 8)
 
     @staticmethod
-    def _validate(n: int, scalar_words: np.ndarray) -> None:
-        if scalar_words.shape[-1] != n:
-            raise ValueError(
-                f"point/scalar count mismatch: {n} vs {scalar_words.shape[-1]}"
-            )
+    def _validate(n: int, scalars: tuple[np.ndarray, WireLayout]) -> None:
+        words, layout = scalars
+        if layout.n != n:
+            raise ValueError(f"point/scalar count mismatch: {n} vs {layout.n}")
         if n == 0:
             raise ValueError("empty MSM")
         # the signed decomposition's final carry is zero only below 2^253
-        if bool((scalar_words[7] >> 29).any()):
+        if bool((layout.word(words, 0, 7) >> 29).any()):
             raise ValueError("scalars must be < 2^253")
 
     # -- device pipeline ------------------------------------------------------
 
-    def msm_device(
-        self, point_words: np.ndarray, scalar_words: np.ndarray, chunk_size: int
-    ) -> torch.Tensor:
-        """The device pipeline: returns the (39|36, num_windows) canonical
+    def msm_device(self, points, scalars, chunk_size: int) -> torch.Tensor:
+        """The device pipeline over prepared points and scalars (host words
+        and their layouts): returns the (39|36, num_windows) canonical
         window sums in plain (non-Montgomery) form, on the device."""
-        path = self._select_smvp(chunk_size, point_words.shape[-1])
-        points = self._point_prep(path, point_words)
-        sw = words_to_device(scalar_words, self.device)
-        return self._msm_set(self._smvp_fn(path), points, sw, chunk_size)
+        path = self._select_smvp(chunk_size, points[1].n)
+        prepared = self._point_prep(path, points)
+        return self._msm_set(self._smvp_fn(path), prepared,
+                             self._scalars_to_device(scalars), chunk_size)
 
-    def _point_prep(self, path: str, point_words: np.ndarray) -> torch.Tensor:
-        """Everything that depends on the points alone: the copy, the
-        Montgomery table, and the form of it that the path's SMVP reads."""
-        table = mont_point_table(words_to_device(point_words, self.device),
-                                 self.group)
+    def _point_prep(self, path: str, points) -> torch.Tensor:
+        """Everything that depends on the points alone: the copy, then the
+        point prep's one launch into the form the path's SMVP reads (the
+        fused path's wide rows from the Montgomery table)."""
+        words, layout = points
+        dev_words = words_to_device(words, self.device)
         if path in ("tree", "stream"):
-            return build_signed_table(table, self.group)
+            return point_prep(dev_words, layout, self.group, SIGNED)
+        table = point_prep(dev_words, layout, self.group, PLANE)
         return make_wide_rows(table, self.group) if path == "fused" else table
+
+    def _scalars_to_device(self, scalars) -> torch.Tensor:
+        """Prepared scalars -> their (8, N) words on the device (point-major
+        wire words transposed there, after the copy)."""
+        words, layout = scalars
+        sw = words_to_device(words, self.device)
+        return sw.T.contiguous() if layout.point_major else sw
 
     def _smvp_fn(self, path: str, batch: bool = False):
         if path == "tree":
@@ -392,12 +444,15 @@ class CuzkMsmEngine:
         return {"x": x, "y": y}
 
     def compute_msm(self, points: Any, scalars: Any) -> dict[str, int]:
-        point_words = self._prepare_points(points)
-        scalar_words = self._prepare_scalars(scalars)
-        n = point_words.shape[-1]
-        self._validate(n, scalar_words)
+        return self._compute(self._prepare_points(points), scalars)
+
+    def _compute(self, points, scalars: Any) -> dict[str, int]:
+        """compute_msm over prepared points."""
+        scalars = self._prepare_scalars(scalars)
+        n = points[1].n
+        self._validate(n, scalars)
         chunk_size = self._chunk_for(n)
-        coords = self.msm_device(point_words, scalar_words, chunk_size)
+        coords = self.msm_device(points, scalars, chunk_size)
         return self._finalize(coords, chunk_size)
 
     def compute_msm_batch(
@@ -426,31 +481,31 @@ class CuzkMsmEngine:
                 f"the engine runs on {self.device}, not on {devices[0]}: "
                 "give the device to the constructor"
             )
-        point_words = self._prepare_points(points)
-        n = point_words.shape[-1]
+        points = self._prepare_points(points)
+        n = points[1].n
         chunk_size = self._chunk_for(n)
         path = self._select_smvp(chunk_size, n)
         if path not in ("tree", "stream", "fused"):
-            return [self.compute_msm(point_words, sc) for sc in scalars_batch]
+            return [self._compute(points, sc) for sc in scalars_batch]
         sws = [self._prepare_scalars(sc) for sc in scalars_batch]
         for sw in sws:
             self._validate(n, sw)
-        shared = self._batch_prep(path, point_words)
+        shared = self._batch_prep(path, points)
         coords = self._batch_sets(shared, sws, chunk_size)
         return self._batch_finish(coords, chunk_size)
 
-    def _batch_prep(self, path: str, point_words: np.ndarray):
+    def _batch_prep(self, path: str, points):
         """The batch's shared work: (the path's SMVP, the prepared points)."""
-        return self._smvp_fn(path, batch=True), self._point_prep(path, point_words)
+        return self._smvp_fn(path, batch=True), self._point_prep(path, points)
 
-    def _batch_sets(self, shared, scalar_words_list, chunk_size: int):
+    def _batch_sets(self, shared, scalars_list, chunk_size: int):
         """Per-set work, enqueued back to back: nothing here makes the host
         wait for the device."""
         smvp, points = shared
         return [
-            self._msm_set(smvp, points, words_to_device(sw, self.device),
+            self._msm_set(smvp, points, self._scalars_to_device(sc),
                           chunk_size)
-            for sw in scalar_words_list
+            for sc in scalars_list
         ]
 
     def _batch_finish(self, coords, chunk_size: int) -> list[dict[str, int]]:

@@ -5,8 +5,9 @@ multiplied by its scalar with a branch-free double-and-add over all lanes
 at once (256 launches of kernel 7's masked_add_and_double, bit t of the
 scalar words, least significant first), then the products are folded with
 a log-depth tree of kernel 7's fused_add and leave the Montgomery domain
-through kernel 1.  It costs ~256 point operations per point against the
-cuZK pipeline's ~16, and is a correctness and throughput baseline only.
+through kernel 1, whose point prep also made the Montgomery table.  It
+costs ~256 point operations per point against the cuZK pipeline's ~16,
+and is a correctness and throughput baseline only.
 All of it runs in the canonical domain, for either curve (the group picks
 the planes and the kernels' builds).
 """
@@ -17,9 +18,16 @@ import numpy as np
 import torch
 
 from ..ops import curve as C
-from ..ops.kernels import fused_add, masked_add_and_double, mont_mul_const
+from ..ops.convert import WireLayout
+from ..ops.kernels import (
+    PLANE,
+    fused_add,
+    masked_add_and_double,
+    mont_mul_const,
+    point_prep,
+)
 from ..params import CurveId
-from .cuzk import mont_point_table, resolve_device, words_to_device
+from .cuzk import resolve_device, words_to_device
 
 SCALAR_BITS = 256
 G1 = C.G1
@@ -70,8 +78,9 @@ class NaiveMsmEngine:
         group = self.group
 
         def fn(point_words: np.ndarray, scalar_words: np.ndarray):
-            table = mont_point_table(words_to_device(point_words, self.device),
-                                     group)
+            layout = WireLayout.of(point_words, False, group.ctx.nw - 1, 2)
+            table = point_prep(words_to_device(point_words, self.device),
+                               layout, group, PLANE)
             sw = words_to_device(scalar_words, self.device)
             total = tree_sum(batched_scalar_mult(table, sw, group), group)
             return mont_mul_const(total, 1, group.ctx)

@@ -1,25 +1,82 @@
-"""Point coordinate conversion (wire words -> Montgomery words) and packing.
+"""Wire words: their two layouts, the repack to field words, and the host
+packing.
 
 Wire coordinates are little-endian 32-bit words: 12 per BLS12-377
-coordinate, 8 per Edwards BLS12 coordinate.  The port's field elements
-are 13 and 9 such words (params.py), so the repack of the JAX package's
-limbs_from_u32_words becomes "append one zero word", and the Montgomery
-entry is kernel 1 with y = R^2 mod p.
+coordinate, 8 per Edwards BLS12 coordinate, 8 per scalar.  The port's
+field elements are 13 and 9 such words (params.py), so the repack of the
+JAX package's limbs_from_u32_words becomes "append one zero word" (the
+point prep, ops/kernels.py:point_prep, keeps that word in registers).
+Words come word-major (the packers' (2, k, N) and (8, N) arrays) or
+point-major (a wire buffer's (N, 2k) and (N, 8) words, as they arrive);
+WireLayout says which, and gives N.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..params import CurveId
-from .field import G1_CTX, NW, FieldCtx, field_ctx, ints_to_plane
-from .kernels import mont_mul_const
+from .field import NW, field_ctx, ints_to_plane
 
 JAX_WORD_BITS = 13
 #: 13-bit limbs per field element in the JAX package: BLS12-377 30
 #: (R = 2^390), Edwards BLS12 20 (R = 2^260)
 JAX_NUM_WORDS = {CurveId.BLS12_377: 30, CurveId.EDWARDS_BLS12: 20}
+
+
+class WireLayout(NamedTuple):
+    """n values of `coords` coordinates of k 32-bit words each, held
+    word-major ((coords, k, n), or (k, n) for one coordinate: word i of
+    every value in a row) or point-major ((n, coords * k): a value's
+    words together, as a wire buffer holds them)."""
+
+    point_major: bool
+    n: int
+    k: int
+    coords: int = 1
+
+    @classmethod
+    def of(cls, words, point_major: bool, k: int, coords: int = 1):
+        """The layout of a C-contiguous word array, its shape checked."""
+        shape = tuple(words.shape)
+        n = shape[0] if point_major else shape[-1]
+        layout = cls(point_major, n, k, coords)
+        if shape != layout.shape:
+            raise ValueError(f"expected {'point' if point_major else 'word'}"
+                             f"-major words of shape {layout.shape}, got "
+                             f"{shape}")
+        return layout
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        if self.point_major:
+            return (self.n, self.coords * self.k)
+        return (self.k, self.n) if self.coords == 1 else (
+            self.coords, self.k, self.n)
+
+    def strides(self) -> tuple[int, int, int]:
+        """(coordinate, word, value) strides of a C-contiguous array, in
+        words."""
+        if self.point_major:
+            return self.k, 1, self.coords * self.k
+        return self.k * self.n, self.n, 1
+
+    def word(self, words, coord: int, i: int):
+        """Word i of coordinate `coord` of every value: an (n,) view."""
+        if self.point_major:
+            return words[:, coord * self.k + i]
+        return words[i] if self.coords == 1 else words[coord, i]
+
+    def word_major(self, words: torch.Tensor) -> torch.Tensor:
+        """The (coords, k, n) word-major form of a tensor of this layout
+        (a copy from point-major words)."""
+        if self.point_major:
+            return words.reshape(self.n, self.coords, self.k).permute(
+                1, 2, 0).contiguous()
+        return words.reshape(self.coords, self.k, self.n)
 
 
 def limbs_from_u32_words(words: torch.Tensor, nw: int = NW) -> torch.Tensor:
@@ -30,15 +87,6 @@ def limbs_from_u32_words(words: torch.Tensor, nw: int = NW) -> torch.Tensor:
         dtype=torch.int32, device=words.device,
     )
     return torch.cat([words.to(torch.int32), pad], dim=-2)
-
-
-def u32_words_to_limbs_mont(words: torch.Tensor,
-                            ctx: FieldCtx = G1_CTX) -> torch.Tensor:
-    """(g, k, N) wire words of g coordinates -> (g*nw, N) Montgomery plane
-    (one kernel-1 launch for all g coordinates)."""
-    limbs = limbs_from_u32_words(words, ctx.nw)
-    return mont_mul_const(limbs.reshape(-1, limbs.shape[-1]), ctx.params.r2,
-                          ctx)
 
 
 def from_jax_limbs(arr, montgomery: bool,
@@ -122,6 +170,21 @@ def scalars_buffer_to_words(buf: bytes) -> np.ndarray:
     if len(buf) % 32:
         raise ValueError(f"buffer length {len(buf)} not a multiple of 32")
     return words_by_row(np.frombuffer(buf, dtype="<u4").reshape(-1, 8))
+
+
+def wire_words(buf, value_bytes: int,
+               coords: int = 1) -> tuple[np.ndarray, WireLayout]:
+    """A little-endian wire buffer of values of `coords` coordinates of
+    value_bytes bytes each (points: x||y, 48 or 32 bytes a coordinate;
+    scalars: 32 bytes) -> its point-major (N, coords * value_bytes / 4)
+    uint32 words, a view of the buffer in the order it holds them, and
+    their layout."""
+    per_value, nbytes = coords * value_bytes, memoryview(buf).nbytes
+    if nbytes % per_value:
+        raise ValueError(f"buffer length {nbytes} not a multiple of "
+                         f"{per_value}")
+    words = np.frombuffer(buf, dtype="<u4").reshape(-1, per_value // 4)
+    return words, WireLayout.of(words, True, value_bytes // 4, coords)
 
 
 def ints_to_words(vals, num_u32: int) -> np.ndarray:

@@ -1,15 +1,15 @@
 """CUDA kernel build, loading and launch accounting; the lane-wise
-kernels: 1 (constant product, and the Edwards lane-wise product), 4 (lazy
-BPR family: stage 1, stage 2 and the window fold, each in one launch, and
-the lane-wise add), 6
-(legacy SMVP round) and 7 (canonical add, double-and-add step,
-running-sum step), and tree.cu's Montgomery products on their own
-(field_mul_lanes).
+kernels: 1 (the point prep: wire words to the Montgomery table or the
+signed table in one launch; and the constant product of the Montgomery
+exit), 4 (lazy BPR family: stage 1, stage 2 and the window fold, each in
+one launch, and the lane-wise add), 6 (legacy SMVP round) and 7
+(canonical add, double-and-add step, running-sum step), and tree.cu's
+Montgomery products on their own (field_mul_lanes).
 
 Every kernel source under csrc/ is compiled by nvcc for sm_90a into a
 shared library with a plain C interface, loaded with ctypes, and a second
 time with -DMSM_CURVE_ED, for the Edwards field and curve
-(libmsm_<source>_ed.so): 16 libraries, 35 entry points.  The build runs
+(libmsm_<source>_ed.so): 16 libraries, 36 entry points.  The build runs
 at first use, one nvcc per library, all started together, into
 <repo>/build/kernels/<hash of the sources>/ (listed in .gitignore), so a
 fresh checkout builds everything the first time a kernel launches and a
@@ -42,6 +42,7 @@ import torch
 
 from . import curve as C
 from . import field as F
+from .convert import WireLayout, limbs_from_u32_words
 from .curve import G1
 from .field import ED_CTX, G1_CTX, FieldCtx
 
@@ -67,6 +68,7 @@ _INT = ctypes.c_int
 #: C signature (after the leading pointers) of every entry point
 _ARGTYPES = {
     "convert": {
+        "msm_point_prep": [_P, _P, _I64, _I64, _I64, _I64, _INT, _P, _P],
         "msm_mont_mul_const": [_P, _P, _P, _I64, _I64, _P],
     },
     "tree": {
@@ -101,7 +103,6 @@ _ARGTYPES = {
     },
 }
 _ARGTYPES.update({s + ED_CTX.tag: dict(_ARGTYPES[s]) for s in SOURCES})
-_ARGTYPES["convert" + ED_CTX.tag]["msm_mont_mul_lanes"] = [_P, _P, _P, _I64, _P]
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -256,8 +257,86 @@ def check_plane(t: torch.Tensor, rows: int, cols: int | None = None) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Kernel 1: REDC(a * y) for a constant y
+# Kernel 1: the point prep (Montgomery entry) and REDC(a * y) for a
+# constant y (the exit)
 # ---------------------------------------------------------------------------
+
+#: words of one signed-table row: G1 x, y and six zero words; Edwards x, y,
+#: t and five zero words (the fused path's row, ops/smvp_kernel.py)
+ROW_WORDS = 32
+#: point_prep's forms (csrc/convert.cu PREP_SIGNED, PREP_PLANE): the
+#: (2N, ROW_WORDS) signed table of the tree and stream paths, or the
+#: (26|27, N) Montgomery table of the others
+SIGNED, PLANE = 0, 1
+
+
+def _words(v: int, nw: int) -> np.ndarray:
+    """v as nw little-endian u32 words (a kernel's constant operand)."""
+    return np.array([(v >> (32 * i)) & 0xFFFFFFFF for i in range(nw)],
+                    dtype=np.uint32)
+
+
+def build_signed_table(table: torch.Tensor, group=G1) -> torch.Tensor:
+    """Montgomery affine table -> row-major signed table (2N, ROW_WORDS)
+    int32: rows [0, N) hold the points, rows [N, 2N) their negatives
+    (G1: (x, y), then (x, -y); Edwards: (x, y, t), then (-x, y, -t)), the
+    affine coordinates in words [0, aff_rows) and zeros after them (the
+    fused path's 32-word row, 16-byte aligned, so a kernel reads a row as
+    seven 16-byte loads).  One table serves the stream kernel and tree
+    level 1; point_prep builds it in its one launch."""
+    n = check_plane(table, group.aff_rows)
+    neg = C.merge(group.neg_affine(group.split_aff(table)))
+    out = torch.zeros((2 * n, ROW_WORDS), dtype=torch.int32,
+                      device=table.device)
+    out[:n, :group.aff_rows] = table.T
+    out[n:, :group.aff_rows] = neg.T
+    return out
+
+
+def point_prep_plain(words: torch.Tensor, layout: WireLayout, group=G1,
+                     out: int = SIGNED) -> torch.Tensor:
+    """Plain form of point_prep: the wire words made word-major, a zero
+    top word appended (limbs_from_u32_words), kernel 1's entry
+    (mont_mul_const_plain with R^2 mod p), for Edwards t = x*y
+    (mont_mul_canon), then the signed table (build_signed_table) or the
+    Montgomery table itself."""
+    ctx = group.ctx
+    limbs = limbs_from_u32_words(layout.word_major(words), ctx.nw)
+    table = mont_mul_const_plain(limbs.reshape(-1, layout.n), ctx.params.r2,
+                                 ctx)
+    if group is not G1:
+        nw = ctx.nw
+        table = torch.cat([table, F.mont_mul_canon(table[:nw], table[nw:],
+                                                   ctx)])
+    return table if out == PLANE else build_signed_table(table, group)
+
+
+def point_prep(words: torch.Tensor, layout: WireLayout, group=G1,
+               out: int = SIGNED) -> torch.Tensor:
+    """The point prep in one launch: wire words (int32 bits of the u32
+    words, in `layout`: word-major (2, k, N) or point-major (N, 2k), k = 12
+    for G1, 8 for Edwards) -> out SIGNED: the (2N, ROW_WORDS) signed table
+    (build_signed_table's), or PLANE: the canonical Montgomery affine
+    table, G1 (26, N) (x; y), Edwards (27, N) (x; y; t = x*y)."""
+    ctx = group.ctx
+    if layout.coords != 2 or layout.k != ctx.nw - 1:
+        raise ValueError(f"expected {ctx.nw - 1} words a coordinate of x "
+                         f"and y, got {layout.coords} of {layout.k}")
+    if tuple(words.shape) != layout.shape:
+        raise ValueError(f"words of shape {tuple(words.shape)} do not have "
+                         f"the layout's {layout.shape}")
+    if out not in (SIGNED, PLANE):
+        raise ValueError(f"unknown point prep form {out}")
+    if not on_cuda(words):
+        return point_prep_plain(words, layout, group, out)
+    n = layout.n
+    shape = (2 * n, ROW_WORDS) if out == SIGNED else (group.aff_rows, n)
+    res = torch.empty(shape, dtype=torch.int32, device=words.device)
+    r2 = _words(ctx.params.r2, ctx.nw)
+    launch("convert" + ctx.tag, "msm_point_prep", "point_prep" + ctx.tag, n,
+           words.data_ptr(), res.data_ptr(), n, *layout.strides(), out,
+           r2.ctypes.data)
+    return res
 
 
 def mont_mul_const_plain(a: torch.Tensor, y: int,
@@ -275,8 +354,8 @@ def mont_mul_const_plain(a: torch.Tensor, y: int,
 def mont_mul_const(a: torch.Tensor, y: int,
                    ctx: FieldCtx = G1_CTX) -> torch.Tensor:
     """REDC(a * y) mod p lane-wise over a (g*nw, N) plane, for a constant
-    y < p: y = R^2 mod p enters the Montgomery domain (to_mont), y = 1
-    leaves it (from_mont).  Outputs are canonical."""
+    y < p: y = 1 leaves the Montgomery domain (from_mont; the window sums'
+    exit), y = R^2 mod p enters it (to_mont).  Outputs are canonical."""
     nw = ctx.nw
     if not 0 <= y < ctx.p:
         raise ValueError("the constant must be a canonical residue")
@@ -286,33 +365,12 @@ def mont_mul_const(a: torch.Tensor, y: int,
         return mont_mul_const_plain(a, y, ctx)
     n = a.shape[1]
     out = torch.empty_like(a)
-    y_words = np.array(
-        [(y >> (32 * i)) & 0xFFFFFFFF for i in range(nw)], dtype=np.uint32
-    )
+    y_words = _words(y, nw)
     launch(
         "convert" + ctx.tag, "msm_mont_mul_const", "mont_mul_const" + ctx.tag,
         a.numel() // nw, a.data_ptr(), out.data_ptr(), y_words.ctypes.data,
         a.shape[0] // nw, n,
     )
-    return out
-
-
-def mont_mul_lanes_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return F.mont_mul_canon(a, b, ED_CTX)
-
-
-def mont_mul_lanes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """REDC(a * b) mod p lane-wise over two canonical (9, N) Edwards
-    planes: the Edwards table's t = x*y at point prep (built into the
-    Edwards library of csrc/convert.cu only)."""
-    n = check_plane(a, ED_CTX.nw)
-    check_plane(b, ED_CTX.nw, n)
-    if not on_cuda(a, b):
-        return mont_mul_lanes_plain(a, b)
-    out = torch.empty_like(a)
-    tag = ED_CTX.tag
-    launch("convert" + tag, "msm_mont_mul_lanes", "mont_mul_lanes" + tag, n,
-           a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
     return out
 
 

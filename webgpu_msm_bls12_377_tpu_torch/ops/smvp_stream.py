@@ -28,13 +28,11 @@ import torch
 from . import curve as C
 from .buckets import IDX_MASK, SIGN_BIT
 from .curve import G1
-from .kernels import check_plane, launch, on_cuda
+# the signed table's plain form lives beside kernel 1, which builds it
+from .kernels import ROW_WORDS, build_signed_table, check_plane, launch, on_cuda
 
 #: lanes of one slab on the TPU; stream_supported keeps its policy
 TPU_SLAB_LANES = 256
-#: words of one signed-table row: G1 x, y and six zero words; Edwards x, y,
-#: t and five zero words (the fused path's row, ops/smvp_kernel.py)
-ROW_WORDS = 32
 
 
 def stream_supported(chunk_size: int) -> bool:
@@ -42,23 +40,6 @@ def stream_supported(chunk_size: int) -> bool:
     a TPU: a window's 2^(chunk_size-1) buckets fill whole 256-lane slabs
     (chunk_size >= 9).  Kernel 5 itself has no lane constraint."""
     return (1 << (chunk_size - 1)) % TPU_SLAB_LANES == 0
-
-
-def build_signed_table(table: torch.Tensor, group=G1) -> torch.Tensor:
-    """Montgomery affine table -> row-major signed table (2N, ROW_WORDS)
-    int32: rows [0, N) hold the points, rows [N, 2N) their negatives
-    (G1: (x, y), then (x, -y); Edwards: (x, y, t), then (-x, y, -t)), the
-    affine coordinates in words [0, aff_rows) and zeros after them (the
-    fused path's 32-word row, 16-byte aligned, so a kernel reads a row as
-    seven 16-byte loads).  One table serves the stream kernel and tree
-    level 1."""
-    n = check_plane(table, group.aff_rows)
-    neg = C.merge(group.neg_affine(group.split_aff(table)))
-    out = torch.zeros((2 * n, ROW_WORDS), dtype=torch.int32,
-                      device=table.device)
-    out[:n, :group.aff_rows] = table.T
-    out[n:, :group.aff_rows] = neg.T
-    return out
 
 
 def check_signed_table(table: torch.Tensor) -> int:
