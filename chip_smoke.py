@@ -47,7 +47,9 @@ Phases, each of which fails the run on any error:
      which first reproduces the 2^16 golden.  Cold time,
      median of 3 warm runs, and each kernel's launches in one run (counts
      zeroed just before, read just after); every path must launch the
-     kernels it names, and together the paths cover every kernel;
+     kernels it names (the point prep, the legacy SMVP and the scalar
+     multiplication once a run), and together the paths cover every
+     kernel;
   4. one more run of each path (2^20 tree, 2^17 stream, 2^16 legacy, 2^16
      naive, the chain, 2^10 and 2^14 default fused, the forced fused run
      at 2^16 and chunk 15, 2^18 pure tree; Edwards 2^20 tree, 2^17
@@ -60,7 +62,7 @@ Phases, each of which fails the run on any error:
      rate in the carry-chain Montgomery product on its own (tree.cu
      msm_word_rate, both fields), and every row's bound again at that
      rate (int_bound_ms).  The plain forms of the lane-wise kernels (1, the
-     canonical family, the legacy round) are
+     canonical add and running add) are
      replayed from CUDA graphs, one captured per shape, and kernel 8's
      round from one graph a launch (fused_plain_graphed); phase 2 holds
      the replays against the plain forms run eagerly;
@@ -158,12 +160,14 @@ KERNELS = {
                  "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:435"),
     "stream_buckets": ("webgpu_msm_bls12_377_tpu_torch/csrc/stream.cu",
                        "webgpu_msm_bls12_377_tpu/ops/smvp_stream.py:541"),
-    "masked_add_mixed": ("webgpu_msm_bls12_377_tpu_torch/csrc/legacy.cu",
-                         "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:272"),
+    # every legacy round in one launch: the TPU's masked mixed add
+    "legacy_buckets": ("webgpu_msm_bls12_377_tpu_torch/csrc/legacy.cu",
+                       "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:272"),
     "fused_add": ("webgpu_msm_bls12_377_tpu_torch/csrc/canon.cu",
                   "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:302"),
-    "masked_add_and_double": ("webgpu_msm_bls12_377_tpu_torch/csrc/canon.cu",
-                              "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:488"),
+    # the whole double-and-add in one launch: the TPU's one step
+    "scalar_mult": ("webgpu_msm_bls12_377_tpu_torch/csrc/canon.cu",
+                    "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:488"),
     "fused_running_add": ("webgpu_msm_bls12_377_tpu_torch/csrc/canon.cu",
                           "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:415"),
     "fused_buckets": ("webgpu_msm_bls12_377_tpu_torch/csrc/fused.cu",
@@ -192,23 +196,27 @@ PATHS = {
     "tree": (*PREP, "tree_level_aff", "tree_level_full",
              "packed_finish", *BPR),
     "stream": ("stream_buckets", *PREP, *BPR),
-    "legacy": ("masked_add_mixed", *PREP, *BPR),
-    "naive": ("masked_add_and_double", "fused_add", *PREP),
-    # no engine of either package calls fused_running_add: the chain
-    # drives it, beside BPR stage 1 on the same steps, whose g must be the
-    # same points
-    "running_sum": ("fused_running_add", "bpr_stage1", "point_prep"),
     # default options at 2^10 and 2^14: chunk 4 has 8 buckets a window,
     # one per BPR lane, so BPR runs no stage 1 (stage 2 no doublings); the
     # fused kernel's row is the 2^10 run's (phase 4 times the 2^14 run
     # too); the fused paths fold each bucket's pieces in one launch of
-    # tree.cu's fold
+    # tree.cu's fold (its row is the 2^10 run's)
     "fused_10": ("fused_buckets", "fold_pieces", *PREP,
                  "bpr_stage2", "bpr_fold"),
     "fused": ("fused_buckets", "fold_pieces", *PREP,
               "bpr_stage2", "bpr_fold"),
-    # the 2^14 case forced off its default path, for the times alone
-    "legacy_14": ("masked_add_mixed", *PREP, "bpr_stage2", "bpr_fold"),
+    # the legacy path sums every bucket in one launch (at 2^16, chunk 15:
+    # ~4 entries a bucket)
+    "legacy": ("legacy_buckets", *PREP, *BPR),
+    "naive": ("scalar_mult", "fused_add", *PREP),
+    # no engine of either package calls fused_running_add: the chain
+    # drives it, beside BPR stage 1 on the same steps, whose g must be the
+    # same points
+    "running_sum": ("fused_running_add", "bpr_stage1", "point_prep"),
+    # the 2^14 case forced off its default path, for the times alone; at
+    # chunk 4 the legacy path sums pieces and folds them
+    "legacy_14": ("legacy_buckets", "fold_pieces", *PREP, "bpr_stage2",
+                  "bpr_fold"),
     "stream_14": ("stream_buckets", *PREP),
     "fused_forced": ("fused_buckets", "fold_pieces", *PREP, *BPR),
     "pure_tree": ("tree_level_aff", "tree_level_full", *PREP, *BPR),
@@ -217,23 +225,26 @@ PATHS = {
     "ed_stream": ("stream_buckets_ed", *PREP_ED, *BPR_ED),
     "ed_pure_tree": ("tree_level_aff_ed", "tree_level_full_ed", *PREP_ED,
                      *BPR_ED),
-    # Edwards on the G1 shapes above: Pippenger and naive at 2^16, the
-    # chain, the default fused path at 2^10 and 2^14 (the kernel's row from
-    # 2^10), and the 2^14 case forced through legacy
-    "ed_legacy": ("masked_add_mixed_ed", *PREP_ED, *BPR_ED),
-    "ed_naive": ("masked_add_and_double_ed", "fused_add_ed", *PREP_ED),
-    "ed_running_sum": ("fused_running_add_ed", "bpr_stage1_ed",
-                       "point_prep_ed"),
+    # Edwards on the G1 shapes above: the default fused path at 2^10 and
+    # 2^14 (the kernel's and the fold's rows from 2^10), Pippenger and
+    # naive at 2^16, the chain, and the 2^14 case forced through legacy
     "ed_fused_10": ("fused_buckets_ed", "fold_pieces_ed", *PREP_ED,
                     "bpr_stage2_ed", "bpr_fold_ed"),
+    "ed_legacy": ("legacy_buckets_ed", *PREP_ED, *BPR_ED),
+    "ed_naive": ("scalar_mult_ed", "fused_add_ed", *PREP_ED),
+    "ed_running_sum": ("fused_running_add_ed", "bpr_stage1_ed",
+                       "point_prep_ed"),
 }
 PATHS["batch_tree"], PATHS["batch_stream"] = PATHS["tree"], PATHS["stream"]
 PATHS["ed_batch_tree"] = PATHS["ed_tree"]
 # the 2^20 cases again from the reference's wire bytes
 PATHS["wire_tree"], PATHS["ed_wire_tree"] = PATHS["tree"], PATHS["ed_tree"]
 PATHS["ed_fused"] = PATHS["ed_fused_10"]
-PATHS["ed_legacy_14"] = ("masked_add_mixed_ed", *PREP_ED,
+PATHS["ed_legacy_14"] = ("legacy_buckets_ed", "fold_pieces_ed", *PREP_ED,
                          "bpr_stage2_ed", "bpr_fold_ed")
+#: the kernels a run launches once: the point prep (a batch's included),
+#: and the whole legacy SMVP and the whole scalar multiplication
+ONCE = ("point_prep", "legacy_buckets", "scalar_mult")
 HOME = {k: path for path in reversed(PATHS) for k in PATHS[path]}
 #: phase 2's entry points that no path launches: tree.cu's Montgomery
 #: products on their own (the carry-chain schedule at extreme operands),
@@ -510,8 +521,9 @@ def canonical_kernel_cases(rng, group, points, plan, windows, n=4096):
     kernel 8 over its pieces, the fold, both passes in one dispatch and
     window by window against the same functions run with their plain
     forms (plain_passes), and kernel 8 on hand-made segments over random rows (empty,
-    length 1, long, overlapping); the legacy round and the canonical family
-    on random canonical lanes, identity, equal and inverse operands among
+    length 1, long, overlapping); kernel 6 (legacy_cases), the scalar
+    multiplication (scalar_mult_cases), and the add and the running add on
+    random canonical lanes, identity, equal and inverse operands among
     them."""
     import torch
 
@@ -558,20 +570,14 @@ def canonical_kernel_cases(rng, group, points, plan, windows, n=4096):
     cases.append((name, SK.fused_segments(rrows, rstarts, rlens, group),
                   SK.accumulate_buckets_fused_plain(rrows, rstarts, rlens,
                                                     group)))
+    cases += legacy_cases(rng, group, points, plan, pp)
+    cases += scalar_mult_cases(rng, group)
     # canonical kernels: operands below p
     ca, cg, cb = (rand_plane(rng, group.rows, n, p, nw) for _ in range(3))
     cg, cb = edge_lanes(group, ca, cg), edge_lanes(group, ca, cb)
-    aff = rand_plane(rng, group.aff_rows, n, p, nw)
-    bits, valid = (torch.randint(0, 2, (n,), dtype=torch.int32,
-                                 generator=torch.Generator().manual_seed(seed))
-                   .to(DEV) for seed in (1, 2))
     pairs = [
-        ("masked_add_mixed", K.masked_add_mixed(ca, aff, bits, valid, group),
-         K.masked_add_mixed_plain(ca, aff, bits, valid, group)),
         ("fused_add", K.fused_add(ca, cb, group),
          K.fused_add_plain(ca, cb, group)),
-        ("masked_add_and_double", K.masked_add_and_double(ca, cg, bits, group),
-         K.masked_add_and_double_plain(ca, cg, bits, group)),
         ("fused_running_add", K.fused_running_add(ca, cg, cb, group),
          K.fused_running_add_plain(ca, cg, cb, group)),
     ]
@@ -581,6 +587,60 @@ def canonical_kernel_cases(rng, group, points, plan, windows, n=4096):
         for x, y in zip(got, want):
             cases.append((name + tag, x, y))
     return cases
+
+
+def legacy_cases(rng, group, points, plan, pp):
+    """Phase 2 for kernel 6 of one curve: legacy_buckets over the signed
+    table of the small real plan's points, on its whole buckets (empty
+    and longer than a piece among them) and on its pieces (pp: at most
+    PIECE entries), and on hand-made segments of a random entry stream with
+    random signs (empty, length 1, 65, 300, overlapping)."""
+    import torch
+
+    from webgpu_msm_bls12_377_tpu_torch.ops import buckets as B
+    from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
+    from webgpu_msm_bls12_377_tpu_torch.ops import smvp_kernel as SK
+
+    name, npts = "legacy_buckets" + group.ctx.tag, points.shape[1]
+    table = K.build_signed_table(points, group)
+    if int(plan.lens.min()) != 0 or int(plan.lens.max()) <= SK.PIECE:
+        raise SystemExit("the legacy plan lacks an empty or a long bucket")
+    cases = [(name, B.legacy_buckets(table, plan.sorted_vals, s, ln, group),
+              B.legacy_buckets_plain(table, plan.sorted_vals, s, ln, group))
+             for s, ln in ((plan.starts, plan.lens), (pp.starts, pp.lens))]
+    count = 3000
+    vals = torch.tensor([rng.randrange(npts) | (rng.randrange(2) << 30)
+                         for _ in range(count)], dtype=torch.int32, device=DEV)
+    rlens = [0, 1, 2, 65, 0, 33, 1, 300] + [rng.randrange(9) for _ in range(992)]
+    rstarts = [rng.randrange(count - ln + 1) for ln in rlens]
+    rstarts, rlens = (torch.tensor(v, dtype=torch.int32, device=DEV)
+                      for v in (rstarts, rlens))
+    cases.append((name, B.legacy_buckets(table, vals, rstarts, rlens, group),
+                  B.legacy_buckets_plain(table, vals, rstarts, rlens, group)))
+    return cases
+
+
+def scalar_mult_cases(rng, group, n=2048):
+    """Phase 2 for kernel 7's scalar multiplication of one curve: random
+    canonical affine lanes, scalars 0, 1, r - 1, 2^253 - 1, 2^256 - 1 and
+    a lone top bit among random 256-bit ones, at bits 0, 1, 253 and 256."""
+    import numpy as np
+    import torch
+
+    from webgpu_msm_bls12_377_tpu_torch import params as PP
+    from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
+
+    order = (PP.SCALAR_FIELD if group.ctx.tag == ""
+             else PP.EDWARDS_SUBGROUP_CHARACTERISTIC)
+    table = rand_plane(rng, group.aff_rows, n, group.ctx.p, group.ctx.nw)
+    ks = [0, 1, order - 1, (1 << 253) - 1, (1 << 256) - 1, 1 << 255] + [
+        rng.randrange(1 << 256) for _ in range(n - 6)]
+    words = np.array([[(k >> (32 * i)) & 0xFFFFFFFF for k in ks]
+                      for i in range(8)], dtype=np.uint32)
+    sw = torch.from_numpy(words.view(np.int32)).to(DEV)
+    return [("scalar_mult" + group.ctx.tag, K.scalar_mult(table, sw, bits, group),
+             K.scalar_mult_plain(table, sw, bits, group))
+            for bits in (0, 1, 253, 256)]
 
 
 def check_kernels_random() -> None:
@@ -817,8 +877,9 @@ def bench_case(power: int, curve: str = "bls12_377"):
     (harness/testdata.py:make_bench_case): ks and scalars from
     random.Random(f"bench-{power}-{curve}") (drawn in bulk by
     randrange_words), ks below the curve's subgroup order, points k_i * G
-    computed on the card with kernel 7's canonical double-and-add (the
-    curve's build) and made affine there by batch_inverse.  Returns the point
+    computed on the card with kernel 7's scalar multiplication (one launch
+    of the curve's build over the broadcast generator, 253 bits) and made
+    affine there by batch_inverse.  Returns the point
     words (2, 12|8, n), the scalar words (8, n) and the ks' words (8, n)
     (msm_oracle's input)."""
     import numpy as np
@@ -842,16 +903,13 @@ def bench_case(power: int, curve: str = "bls12_377"):
         gen_affine = (gx, gy, gx * gy % mp.p)
     n = 1 << power
     words = MTWords(random.Random(f"bench-{power}-{curve}"))
-    kw = torch.from_numpy(randrange_words(words, 1, order, n).astype(np.int64))
-    kw = kw.to(DEV)
+    ks = randrange_words(words, 1, order, n)
     scalars = randrange_words(words, 0, 1 << 253, n)
     gen = F.ints_to_plane([mp.to_mont(v) for v in gen_affine], nw=nw).to(DEV)
-    temp = C.merge(group.from_affine(tuple(
-        gen[:, i:i + 1].expand(nw, n) for i in range(len(gen_affine)))))
-    res = C.merge(group.zero(n, DEV))
-    for bit in range(253):
-        bits = ((kw[bit // 32] >> (bit % 32)) & 1).to(torch.int32)
-        res, temp = K.masked_add_and_double(res, temp, bits, group)
+    # the generator's Montgomery table column in every lane
+    table = gen.T.reshape(-1, 1).expand(-1, n).contiguous()
+    res = K.scalar_mult(table, torch.from_numpy(ks.view(np.int32)).to(DEV),
+                        253, group)
     # x, y and the last coordinate z (Edwards: (x, y, t, z))
     proj = group.canon(group.split(res))
     zinv = batch_inverse(proj[-1], ctx)
@@ -861,7 +919,6 @@ def bench_case(power: int, curve: str = "bls12_377"):
     # plane's 13 or 9 zero below p
     cw = 12 if group is C.G1 else 8
     point_words = aff.cpu().numpy().view(np.uint32).reshape(2, nw, n)[:, :cw]
-    ks = kw.cpu().numpy().astype(np.uint32)
     return np.ascontiguousarray(point_words), scalars, ks
 
 
@@ -1103,19 +1160,21 @@ def drive(label, path, fn, args, want, warm_runs=3):
     missing = set(PATHS[path]) - {k for k, v in launches.items() if v}
     if missing:
         raise SystemExit(f"{label}: kernels not launched: {missing}")
-    # the point prep is one launch a run, a batch's included
-    for prep in {"point_prep", "point_prep_ed"} & set(PATHS[path]):
-        if launches[prep] != 1:
-            raise SystemExit(f"{label}: {prep} launched {launches[prep]} "
+    # the point prep, the legacy SMVP and the scalar multiplication are
+    # one launch a run
+    for name in {k + tag for k in ONCE for tag in ("", "_ed")} & set(
+            PATHS[path]):
+        if launches[name] != 1:
+            raise SystemExit(f"{label}: {name} launched {launches[name]} "
                              "times, not once")
     # a BPR reduction is stage 1 (where bpt > 1), stage 2 and the fold, one
-    # launch each; the legacy paths reduce once a window group, the others
-    # once a scalar set (the chain runs stage 1 alone, no reduction)
+    # launch each, once a scalar set (the chain runs stage 1 alone, no
+    # reduction)
     sets = len(want) if isinstance(want, list) else 1
     for tag in ("", "_ed") if "running_sum" not in path else ():
         s1, s2, fold = (launches.get(k + tag, 0) for k in BPR)
         if (s2 != fold or s1 > s2 or launches.get("bpr_add" + tag) or (
-                s2 and "legacy" not in path and s2 != sets)):
+                s2 and s2 != sets)):
             raise SystemExit(f"{label}: BPR launched stage 1 {s1}, stage 2 "
                              f"{s2} and the fold {fold} times for {sets} "
                              "scalar sets")
@@ -1162,8 +1221,8 @@ def main_paths(goldens):
             run("wire_tree", "2^20 compute_msm from wire bytes (tree)",
                 compute_msm, to_wire(pw, sw), want)
         if power == 14:
-            # what the default policy passes over at this size: ~12,000
-            # lockstep rounds of kernel 6 (one warm run), and kernel 5
+            # what the default policy passes over at this size: kernel 6
+            # over pieces and the fold (one warm run), and kernel 5
             run("legacy_14", "2^14 compute_msm (legacy forced, chunk 4)",
                 engine_msm(smvp_mode="legacy"), (pw, sw), want, warm_runs=1)
             for forced in FORCED_14:
@@ -1493,22 +1552,40 @@ def timed_paths(inputs, ed_inputs):
                           muls(n, w, *planes), nbytes(n, w, *planes))
         return run
 
-    mixed = lanes(K.masked_add_mixed, K.masked_add_mixed_plain,
-                  "masked_add_mixed", 4,
-                  lambda n, w, acc, aff, sign, valid:
-                  int(valid.sum()) * w["add_mixed_canon"],
-                  # a masked lane's result is acc: it needs neither its
-                  # addend nor its sign
-                  lambda n, w, acc, aff, sign, valid:
-                  n * (2 * w["pt"] + 4) + int(valid.sum()) * (w["aff"] + 4))
+    def legacyk(table, sorted_vals, starts, lens, group=G1):
+        # every entry of a segment is one canonical mixed add, the one into
+        # the identity included (the function's result is that chain's
+        # coordinates); an entry's index and its row read once, a
+        # segment's start, length and sum; the plain form (lockstep
+        # rounds up to the longest segment, read back) runs eagerly
+        w = WORK[group.ctx.tag]
+        entries = int(lens.sum())
+        log(f"  legacy_buckets{group.ctx.tag}: {lens.numel()} segments, "
+            f"{entries} entries, the longest {int(lens.max())}")
+        return record("legacy_buckets" + group.ctx.tag, K_LEGACY,
+                      buckets.legacy_buckets_plain,
+                      (table, sorted_vals, starts, lens, group),
+                      entries * w["add_mixed_canon"],
+                      entries * (ROW + 4) + lens.numel() * (8 + w["pt"]))
+
+    def smult(table, scalars, bits, group=G1):
+        # what the data needs: popcount(k) canonical adds and bitlen(k) - 1
+        # doublings a lane (k cut to its low bits bits); a lane's point
+        # and scalar read once and r written once; the plain form (bits
+        # one-step plain forms) runs eagerly
+        w, n = WORK[group.ctx.tag], scalars.shape[1]
+        ks = [k % (1 << bits) for k in words_to_ints(
+            scalars.cpu().numpy().view("uint32"))]
+        adds = sum(bin(k).count("1") for k in ks)
+        dbls = sum(max(k.bit_length() - 1, 0) for k in ks)
+        return record("scalar_mult" + group.ctx.tag, K_SMULT,
+                      K.scalar_mult_plain, (table, scalars, bits, group),
+                      adds * w["add_canon"] + dbls * w["dbl_canon"],
+                      n * (w["aff"] + 32 + w["pt"]))
+
     cadd = lanes(K.fused_add, K.fused_add_plain, "fused_add", 2,
                  lambda n, w, *a: n * w["add_canon"],
                  lambda n, w, *a: 3 * w["pt"] * n)
-    cmasked = lanes(K.masked_add_and_double, K.masked_add_and_double_plain,
-                    "masked_add_and_double", 3,
-                    lambda n, w, r, t, bits: int(bits.sum()) * w["add_canon"]
-                    + n * w["dbl_canon"],
-                    lambda n, w, *a: (4 * w["pt"] + 4) * n)
     crunning = lanes(K.fused_running_add, K.fused_running_add_plain,
                      "fused_running_add", 3,
                      lambda n, w, *a: 2 * n * w["add_canon"],
@@ -1522,6 +1599,7 @@ def timed_paths(inputs, ed_inputs):
     replays += [MMC_PLAIN, PREP_PLAIN]
     K_STREAM, K_FUSED = S.accumulate_buckets_streamed, SK.fused_segments
     K_FOLD = SK.fold_pieces
+    K_LEGACY, K_SMULT = buckets.legacy_buckets, K.scalar_mult
     patches = [
         (cuzk, "mont_mul_const", mmc), (naive, "mont_mul_const", mmc),
         (cuzk, "point_prep", prep), (naive, "point_prep", prep),
@@ -1531,8 +1609,8 @@ def timed_paths(inputs, ed_inputs):
         (SK, "fused_segments", fusedk), (SK, "fold_pieces", foldk),
         (bpr, "bpr_stage1", stage1), (bpr, "bpr_stage2", stage2),
         (bpr, "bpr_fold", fold),
-        (buckets, "masked_add_mixed", mixed),
-        (naive, "fused_add", cadd), (naive, "masked_add_and_double", cmasked),
+        (cuzk, "legacy_buckets", legacyk), (cuzk, "fold_pieces", foldk),
+        (naive, "fused_add", cadd), (naive, "scalar_mult", smult),
         (K, "fused_running_add", crunning), (K, "bpr_stage1", stage1),
     ]
     runs = (("tree", run_msm, inputs[20]), ("stream", run_msm, inputs[17]),

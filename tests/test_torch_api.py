@@ -88,6 +88,38 @@ def test_entry_points_take_the_reference_keywords(curve, capsys, tmp_path,
     assert capsys.readouterr().out == ""
 
 
+@CURVES
+def test_engine_takes_force_recompile(curve, monkeypatch):
+    """CuzkMsmEngine(..., force_recompile=True), as the JAX constructor
+    takes it: on the CPU it compiles nothing and the engine answers as
+    before; on a CUDA device (resolve_device stubbed, no card here) it
+    rebuilds every library once, at construction; the Pippenger engine
+    passes the keyword on."""
+    from webgpu_msm_bls12_377_tpu_torch.models import (
+        CuzkMsmEngine,
+        PippengerMsmEngine,
+        cuzk,
+    )
+    from webgpu_msm_bls12_377_tpu_torch.params import CurveId
+
+    cid = CurveId(curve)
+    _, aff, scalars, want = msm_case(curve)
+    rebuilt = []
+    monkeypatch.setattr(K, "rebuild", lambda: rebuilt.append(1))
+    for cls in (CuzkMsmEngine, PippengerMsmEngine):
+        got = cls(cid, chunk_size=4, num_bpr_threads=4, force_recompile=True,
+                  device="cpu").compute_msm(aff, scalars)
+        assert (got["x"], got["y"]) == want
+    assert rebuilt == []
+    monkeypatch.setattr(cuzk, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    CuzkMsmEngine(cid, force_recompile=True)
+    assert rebuilt == [1]
+    PippengerMsmEngine(cid, force_recompile=True)
+    CuzkMsmEngine(cid)
+    assert rebuilt == [1, 1]
+
+
 def test_rebuild_replaces_each_library_in_place(tmp_path, monkeypatch):
     """kernels.rebuild (force_recompile on the card) compiles every library
     into a fresh directory and renames each over its old build: the build

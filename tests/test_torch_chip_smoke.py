@@ -149,7 +149,8 @@ def test_phase2_prep_cases_on_the_cpu(ctx, monkeypatch):
 def test_kernel_table_covers_every_path():
     """Every kernel has a source and a home path; the fused paths fold in
     one launch of the fold, not kernel 2's levels; phase 2's lane checks
-    are no path's kernels."""
+    are no path's kernels; the legacy SMVP and the scalar multiplication
+    are homed on the legacy and naive paths."""
     named = {k for names in cs.PATHS.values() for k in names}
     assert named == set(cs.KERNELS) == set(cs.HOME)
     for path in ("fused_10", "fused", "fused_forced", "ed_fused_10",
@@ -164,3 +165,17 @@ def test_kernel_table_covers_every_path():
         if "mont_mul_const" in names or "mont_mul_const_ed" in names:
             assert {"point_prep", "point_prep_ed"} & set(names)
     assert cs.HOME["point_prep"] == "tree" and cs.HOME["point_prep_ed"] == "ed_tree"
+    # rows 11 and 12a: one launch a run on the legacy and naive paths (the
+    # 2^14 legacy case sums pieces and folds them), homed there; the
+    # fold's row stays the fused path's
+    for tag in ("", "_ed"):
+        assert cs.KERNELS["legacy_buckets" + tag][1].endswith(
+            "pallas_kernels.py:272")
+        assert cs.KERNELS["scalar_mult" + tag][1].endswith(
+            "pallas_kernels.py:488")
+        pre = "ed_" if tag else ""
+        assert cs.HOME["legacy_buckets" + tag] == pre + "legacy"
+        assert cs.HOME["scalar_mult" + tag] == pre + "naive"
+        assert "fold_pieces" + tag in cs.PATHS[pre + "legacy_14"]
+        assert cs.HOME["fold_pieces" + tag] == pre + "fused_10"
+    assert set(cs.ONCE) <= {k for k in cs.KERNELS}

@@ -15,11 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from webgpu_msm_bls12_377_tpu_torch import params as PP
 from webgpu_msm_bls12_377_tpu_torch.models import (
     CuzkMsmEngine,
     NaiveMsmEngine,
     PippengerMsmEngine,
 )
+from webgpu_msm_bls12_377_tpu_torch.ops import buckets as B
 from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
 from webgpu_msm_bls12_377_tpu_torch.ops import field as F
 from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
@@ -588,26 +590,91 @@ def edge_lanes(group, a, b):
 
 @GROUPS
 def test_canonical_family_and_masked_add_mixed(dev, group):
+    """The canonical add and running add on random lanes (identity, equal
+    and inverse operands among them), and kernel 6 and the scalar
+    multiplication, which replace the one-step masked mixed add and
+    double-and-add, on random lanes too: one launch each."""
     ctx, tag = group.ctx, group.ctx.tag
     rng = random.Random("k67" + tag)
     a, g, b = (rand_plane(rng, group.rows, LANES, ctx.p, dev, ctx.nw)
                for _ in range(3))
     g, b = edge_lanes(group, a, g), edge_lanes(group, a, b)
     aff = rand_plane(rng, group.aff_rows, LANES, ctx.p, dev, ctx.nw)
-    gen = torch.Generator().manual_seed(3)
-    bits, valid = (torch.randint(0, 2, (LANES,), dtype=torch.int32,
-                                 generator=gen).to(dev) for _ in range(2))
+    table = K.build_signed_table(aff, group)
+    vals = torch.tensor([rng.randrange(LANES) | (rng.randrange(2) << 30)
+                         for _ in range(LANES)], dtype=torch.int32, device=dev)
+    starts = torch.arange(LANES, dtype=torch.int32, device=dev)
+    lens = torch.ones(LANES, dtype=torch.int32, device=dev)
+    sw = torch.randint(-(1 << 31), 1 << 31, (8, LANES), dtype=torch.int32,
+                       generator=torch.Generator().manual_seed(3)).to(dev)
     K.reset_launches()
-    same(K.masked_add_mixed(a, aff, bits, valid, group),
-         K.masked_add_mixed_plain(a, aff, bits, valid, group))
+    same(B.legacy_buckets(table, vals, starts, lens, group),
+         B.legacy_buckets_plain(table, vals, starts, lens, group))
     same(K.fused_add(a, b, group), K.fused_add_plain(a, b, group))
-    same(K.masked_add_and_double(a, g, bits, group),
-         K.masked_add_and_double_plain(a, g, bits, group))
+    same(K.scalar_mult(aff, sw, 2, group), K.scalar_mult_plain(aff, sw, 2, group))
     same(K.fused_running_add(a, g, b, group),
          K.fused_running_add_plain(a, g, b, group))
     assert dict(K.launches) == {
-        k + tag: 1 for k in ("masked_add_mixed", "fused_add",
-                             "masked_add_and_double", "fused_running_add")}
+        k + tag: 1 for k in ("legacy_buckets", "fused_add", "scalar_mult",
+                             "fused_running_add")}
+
+
+def scalar_words_of(ks, dev):
+    return torch.from_numpy(ints_to_words(ks, 8).view(np.int32)).to(dev)
+
+
+@GROUPS
+@pytest.mark.parametrize("lanes", [1, 129, LANES])
+def test_scalar_mult_on_the_card(dev, group, lanes):
+    """msm_scalar_mult against its plain form (bits one-step plain forms),
+    bit for bit: scalars 0, 1, r - 1, 2^253 - 1, 2^256 - 1 and a lone top
+    bit among random ones, at bits 0, 1, 200, 253 and 256."""
+    ctx = group.ctx
+    rng = random.Random(f"smult{ctx.tag}{lanes}")
+    order = (PP.SCALAR_FIELD if group is C.G1
+             else PP.EDWARDS_SUBGROUP_CHARACTERISTIC)
+    table = rand_plane(rng, group.aff_rows, lanes, ctx.p, dev, ctx.nw)
+    ks = ([0, 1, order - 1, (1 << 253) - 1, (1 << 256) - 1, 1 << 255]
+          + [rng.randrange(1 << 256) for _ in range(lanes)])[:lanes]
+    sw = scalar_words_of(ks, dev)
+    K.reset_launches()
+    for bits in (0, 1, 200, 253, 256):
+        same(K.scalar_mult(table, sw, bits, group),
+             K.scalar_mult_plain(table, sw, bits, group))
+    assert K.launches["scalar_mult" + ctx.tag] == 5
+
+
+@GROUPS
+def test_legacy_buckets_on_the_card(dev, group):
+    """msm_legacy_buckets against its plain form (lockstep rounds of the
+    masked mixed add), bit for bit: hand-made segments of a random entry
+    stream (empty, length 1, 65, 300, overlapping), and a real chunk-4
+    plan's buckets (empty and long among them) and its pieces."""
+    ctx, tag = group.ctx, group.ctx.tag
+    rng = random.Random("legacy" + tag)
+    npts = 512
+    aff = rand_plane(rng, group.aff_rows, npts, ctx.p, dev, ctx.nw)
+    table = K.build_signed_table(aff, group)
+    count = 3000
+    vals = torch.tensor([rng.randrange(npts) | (rng.randrange(2) << 30)
+                         for _ in range(count)], dtype=torch.int32, device=dev)
+    lens = [0, 1, 2, 65, 0, 33, 1, 300] + [rng.randrange(9) for _ in range(500)]
+    starts = [rng.randrange(count - ln + 1) for ln in lens]
+    segs = [tuple(torch.tensor(v, dtype=torch.int32, device=dev)
+                  for v in (starts, lens))]
+    sw = torch.tensor(ints_to_words([rng.randrange(1 << 253)
+                                     for _ in range(npts)], 8).view(np.int32))
+    plan = build_bucket_plan(decompose_scalars_signed(
+        sw.to(dev), 4, num_windows_for(4)), 4)
+    assert int(plan.lens.min()) == 0 and int(plan.lens.max()) > SK.PIECE
+    pp = SK.piece_plan(plan.starts, plan.lens, plan.sorted_vals.shape[0], npts)
+    K.reset_launches()
+    for v, (s, ln) in [(vals, segs[0]), (plan.sorted_vals, (plan.starts,
+                                                           plan.lens)),
+                       (plan.sorted_vals, (pp.starts, pp.lens))]:
+        same(B.legacy_buckets(table, v, s, ln, group),
+             B.legacy_buckets_plain(table, v, s, ln, group))
+    assert K.launches["legacy_buckets" + tag] == 3
 
 
 @pytest.fixture(scope="module")
@@ -627,7 +694,7 @@ def case_of(request, group):
 
 @GROUPS
 @pytest.mark.parametrize("mode,kernel", [("stream", "stream_buckets"),
-                                         ("legacy", "masked_add_mixed")])
+                                         ("legacy", "legacy_buckets")])
 def test_stream_and_legacy_engines_on_the_card(dev, request, group, mode,
                                                kernel):
     aff, scalars, want = case_of(request, group)
@@ -637,7 +704,7 @@ def test_stream_and_legacy_engines_on_the_card(dev, request, group, mode,
     K.reset_launches()
     got = eng.compute_msm(aff, scalars)
     assert (got["x"], got["y"]) == want
-    assert K.launches[kernel + tag] > 0 and K.launches["bpr_fold" + tag] > 0
+    assert K.launches[kernel + tag] == 1 and K.launches["bpr_fold" + tag] == 1
     assert all(k.endswith("_ed") == bool(tag) for k in K.launches)
 
 
@@ -658,7 +725,7 @@ def test_fused_engine_on_the_card(dev, request, group, chunk):
     # one fold, in one launch
     assert K.launches["fold_pieces" + tag] == 1
     assert K.launches["tree_level_full" + tag] == 0
-    assert K.launches["masked_add_mixed" + tag] == 0
+    assert K.launches["legacy_buckets" + tag] == 0
     assert K.launches["stream_buckets" + tag] == 0
     assert all(k.endswith("_ed") == bool(tag) for k in K.launches)
 
@@ -723,7 +790,7 @@ def test_naive_engine_on_the_card(dev, request, group):
         want = crv.ed_to_affine(naive_msm(
             [crv.ed_from_affine(*a) for a in aff], scalars, EDWARDS))
     assert got == want
-    assert K.launches["masked_add_and_double" + tag] == 256
+    assert K.launches["scalar_mult" + tag] == 1
     assert K.launches["fused_add" + tag] == 6
 
 

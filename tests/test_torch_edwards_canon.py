@@ -319,12 +319,12 @@ def test_canonical_kernels_match_jax(kernel):
     ma, mb, mg = C.merge(pa), C.merge(pb), C.merge(pg)
     if kernel == "masked_add_mixed":
         paff, jaff = both_affine(b)
-        got = K.masked_add_mixed(ma, C.merge(paff), f1, f2, ED)
+        got = K.masked_add_mixed_plain(ma, C.merge(paff), f1, f2, ED)
         want = jpk.masked_add_mixed(JED, ja, jaff, j1, j2)
     elif kernel == "fused_add":
         got, want = K.fused_add(ma, mb, ED), jpk.fused_add(JED, ja, jb)
     elif kernel == "masked_add_and_double":
-        got = K.masked_add_and_double(ma, mb, f1, ED)
+        got = K.masked_add_and_double_plain(ma, mb, f1, ED)
         want = jpk.masked_add_and_double(JED, ja, jb, j1)
     else:
         got = K.fused_running_add(ma, mg, mb, ED)

@@ -191,13 +191,13 @@ print("ok")
 
 
 def test_port_refuses_nothing_for_edwards():
-    """The port's one NotImplementedError is the device pool's (ROADMAP
-    item 16): every single-device call answers on both curves."""
+    """The port's one NotImplementedError is the device pool's (ROADMAP,
+    "Multi-device"): every single-device call answers on both curves."""
     raises = [f.name for f in PKG.rglob("*.py")
               for line in f.read_text().splitlines()
               if "NotImplementedError" in line]
     assert raises == ["cuzk.py"]
-    assert "item 16" in (PKG / "models" / "cuzk.py").read_text()
+    assert "Multi-device" in (PKG / "models" / "cuzk.py").read_text()
 
 
 def test_port_sources_name_no_jax():

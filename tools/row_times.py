@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Times of TPU kernel rows 2-5, 9 and 10 and the fused path's fold (with
---bpr: rows 1 and 5-8; with --prep: row 1's point prep and the copy) of
-the PyTorch/CUDA port on one GPU, for a checkout given by --root
-(default: this one), so that two commits can be compared on one card in
-one call (run parent, change, change, parent).
+--bpr: rows 1 and 5-8; with --prep: row 1's point prep and the copy; with
+--baseline: rows 11 and 12a-c) of the PyTorch/CUDA port on one GPU, for
+a checkout given by --root (default: this one), so that two commits can
+be compared on one card in one call (run parent, change, change, parent).
 
     python3 tools/row_times.py [--root DIR] [--label NAME] [--skip-fused]
                                [--skip-tail] [--variants]
     python3 tools/row_times.py --bpr [--root DIR] [--label NAME] [--variants]
     python3 tools/row_times.py --prep [--root DIR] [--label NAME] [--variants]
+    python3 tools/row_times.py --baseline [--root DIR] [--label NAME]
+                               [--variants]
     python3 tools/row_times.py --sass
 
 On the bench cases of DIR's chip_smoke.py (bench_case), both curves:
@@ -97,6 +99,28 @@ but the variant builds.
   - with --variants, convert.cu built with -DMSM_MONT_C (the C-form
     product) into build/variants/ and the point prep timed with it.
 
+--baseline times the rows that only the baseline engines and the chain
+reach, both curves, on the bench cases (chip_smoke.py's bench_case, whose
+time at 2^16 and 2^14 is reported too):
+  - row 11, the legacy SMVP with its BPR (CuzkMsmEngine._smvp_legacy) on
+    the operands of one PippengerMsmEngine call at 2^16 (chunk 15) and of
+    one call forced through legacy at 2^14 (chunk 4); where the checkout
+    sums buckets in one launch (legacy_buckets), also that launch over the
+    engine's pieces and over whole buckets, and the fold of the pieces;
+  - row 12a, the naive engine's scalar multiplication
+    (batched_scalar_mult), and row 12b, its tree sum (tree_sum, fused_add
+    launches), on the operands of one NaiveMsmEngine call at 2^16;
+  - row 12c, the running-sum chain's eight fused_running_add launches at
+    2^16 (chip_smoke.py's running_sum_chain), each on its operands;
+  - the warm PippengerMsmEngine and NaiveMsmEngine calls at 2^16 and the
+    forced legacy call at 2^14, host clock, fenced, median of five (two
+    for a checkout that runs the 2^14 legacy call in rounds);
+  each kernel time with the profiler's device time a call;
+  - with --variants, legacy.cu and canon.cu built with each of
+    BASELINE_VARIANTS' flags (the C-form product; 1, 2 and 3 blocks a SM)
+    and the rows timed again with each, with each library's ptxas
+    registers and spills.
+
 --sass times nothing: for each field and each product form (the C form,
 and -DMSM_MONT_CHAIN) it compiles SASS_KERNELS, which call
 csrc/field.cuh's mont_mul once (one_mont_mul) and mont_mul_pair once
@@ -139,6 +163,13 @@ BPR_VARIANTS = {
 
 #: --prep --variants: extra nvcc flags of each variant build of convert.cu
 PREP_VARIANTS = {"c_form": ("-DMSM_MONT_C",)}
+#: --baseline --variants: extra nvcc flags of each variant build of
+#: legacy.cu and canon.cu
+BASELINE_VARIANTS = {
+    "c_form": ("-DMSM_MONT_C",),
+    **{f"blocks{b}": (f"-DLEGACY_MIN_BLOCKS={b}", f"-DCANON_MIN_BLOCKS={b}")
+       for b in (1, 2, 3)},
+}
 
 #: --sass: one product of each kind, on its own
 SASS_KERNELS = r"""
@@ -263,7 +294,13 @@ def using(K, libs):
 #: ptxas_regs' kernels: (key, a part of the mangled name)
 PTXAS_KERNELS = (("full", "tree_level_kernelILb0ELi2"), ("fold", "fold_pieces"),
                  ("stream", "stream_buckets"), ("stage1", "stage1_kernel"),
-                 ("stage2", "stage2_kernel"), ("bpr_fold", "fold_kernel"))
+                 ("stage2", "stage2_kernel"), ("bpr_fold", "fold_kernel"),
+                 ("legacy", "legacy_buckets_kernel"),
+                 ("masked_add_mixed", "masked_add_mixed_kernel"),
+                 ("scalar_mult", "scalar_mult_kernel"),
+                 ("masked_add_and_double", "masked_add_and_double_kernel"),
+                 ("fused_add", "fused_add_kernel"),
+                 ("running_add", "fused_running_add_kernel"))
 
 
 def ptxas_regs(log: str) -> dict:
@@ -299,6 +336,7 @@ def main() -> int:
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--bpr", action="store_true")
     ap.add_argument("--prep", action="store_true")
+    ap.add_argument("--baseline", action="store_true")
     ap.add_argument("--workers", default="1,2,4",
                     help="--prep: host threads of the staged copy to time")
     opts = ap.parse_args()
@@ -414,6 +452,8 @@ def main() -> int:
         return bpr_rows(opts, smi, kernel_ms)
     if opts.prep:
         return prep_rows(opts, smi, kernel_ms)
+    if opts.baseline:
+        return baseline_rows(opts, smi, kernel_ms)
     fused_takes = takes(SK.accumulate_buckets_fused)
     rows_kw = {"rows": True} if "rows" in takes(T._tree_levels) else {}
     res = {"label": opts.label, "card": smi}
@@ -550,11 +590,164 @@ def main() -> int:
     return 0
 
 
+def device_us(fn, calls=5):
+    """{device op: [us a call, launches a call]} from torch.profiler over
+    `calls` calls of fn."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: [e.self_device_time_total / calls, e.count / calls]
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def captured(fn, args, *names):
+    """One fn(*args) with each (module or class, name) wrapped to keep its
+    arguments: {name: [args, ...]} (a method's include its self)."""
+    calls = {name: [] for _, name in names}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in names]
+
+    def keep(name, real):
+        def run(*a):
+            calls[name].append(a)
+            return real(*a)
+        return run
+    for mod, name, real in saved:
+        setattr(mod, name, keep(name, real))
+    try:
+        fn(*args)
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+    return calls
+
+
+def baseline_rows(opts, smi, kernel_ms) -> int:
+    """--baseline: rows 11 and 12a-c (see the module docstring)."""
+    import torch
+
+    import chip_smoke as cs
+    from webgpu_msm_bls12_377_tpu_torch.models import (
+        CuzkMsmEngine,
+        NaiveMsmEngine,
+        PippengerMsmEngine,
+        naive,
+    )
+    from webgpu_msm_bls12_377_tpu_torch.ops import buckets
+    from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
+    from webgpu_msm_bls12_377_tpu_torch.ops import smvp_kernel as SK
+    from webgpu_msm_bls12_377_tpu_torch.params import CurveId
+
+    res = {"label": opts.label, "card": smi}
+    sources = ("legacy", "canon")
+    variants = {}
+    if opts.variants:
+        t0 = time.perf_counter()
+        dirs = build_variants(K, BASELINE_VARIANTS, sources)
+        res["variant_build_s"] = time.perf_counter() - t0
+        variants = {v: load_variant(K, d, sources) for v, d in dirs.items()}
+        for v, d in dirs.items():
+            for f in sorted(d.glob("*.log")):
+                res[f"regs_{v}_{f.stem}"] = ptxas_regs(f.read_text())
+    K._lib("canon")  # the checkout's own build
+    for f in sorted(K._build_dir().glob("*.log")):
+        if f.stem.startswith(sources):
+            res[f"regs_default_{f.stem}"] = ptxas_regs(f.read_text())
+    fresh = hasattr(K, "scalar_mult")  # the one-launch entries
+
+    def timed(key, fn, reps=5, calls=5):
+        """Events (median of reps after a warm call) and the profiler's
+        device time a call; with variants, again on each variant build."""
+        res[key] = kernel_ms(fn, reps)
+        res[f"{key}_device_us"] = device_us(fn, calls)
+        for v, libs in variants.items():
+            with using(K, libs):
+                res[f"{key}_{v}"] = kernel_ms(fn, reps)
+
+    def warm(key, fn, args, reps):
+        fn(*args)
+        times = []
+        for _ in range(reps):
+            _, dt = cs.fenced(fn, *args)
+            times.append(dt)
+        res[key] = statistics.median(times), times
+
+    for curve, tag in (("bls12_377", ""), ("edwards_bls12", "_ed")):
+        cid = CurveId(curve)
+        for power, chunk, forced in ((16, 15, False), (14, 4, True)):
+            t0 = time.perf_counter()
+            pw, sw, _ = cs.bench_case(power, curve)
+            torch.cuda.synchronize()
+            key = f"{tag}_{power}"
+            res[f"bench_case{key}_s"] = time.perf_counter() - t0
+            # row 11: the legacy SMVP with its BPR, on the operands of one
+            # call (the parent's rounds, gathers, readback and groups; or
+            # the one launch over the pieces and the fold)
+            eng = (CuzkMsmEngine(cid, chunk_size=chunk, smvp_mode="legacy")
+                   if forced else PippengerMsmEngine(cid))
+            calls = captured(eng.compute_msm, (pw, sw),
+                             (CuzkMsmEngine, "_smvp_legacy"))
+            args = calls["_smvp_legacy"][0]
+            smvp = CuzkMsmEngine._smvp_legacy
+            slow = forced and not fresh  # ~20,000 launches a call
+            timed(f"row11{key}_smvp", lambda: smvp(*args),
+                  reps=2 if slow else 5, calls=1 if slow else 5)
+            if fresh:
+                _, table, plan, _, _ = args
+                group = eng.group
+                pp = SK.piece_plan(plan.starts, plan.lens,
+                                   plan.sorted_vals.shape[0],
+                                   table.shape[0] // 2)
+                res[f"row11{key}_shape"] = dict(
+                    buckets=plan.lens.numel(), pieces=int(pp.counts.sum()),
+                    entries=int(plan.lens.sum()),
+                    longest=int(plan.lens.max()))
+                timed(f"row11{key}_pieces", lambda: buckets.legacy_buckets(
+                    table, plan.sorted_vals, pp.starts, pp.lens, group))
+                timed(f"row11{key}_unsplit", lambda: buckets.legacy_buckets(
+                    table, plan.sorted_vals, plan.starts, plan.lens, group),
+                    reps=3, calls=1)
+                sums = buckets.legacy_buckets(table, plan.sorted_vals,
+                                              pp.starts, pp.lens, group)
+                res[f"fold{key}"] = kernel_ms(lambda: SK.fold_pieces(
+                    sums, pp.counts, pp.offsets, pp.caps, group), 5)
+            warm(f"msm{key}_legacy", eng.compute_msm, (pw, sw),
+                 2 if slow else 5)
+            if power != 16:
+                continue
+            # rows 12a and 12b: the naive engine's scalar multiplication
+            # and tree sum on one call's operands
+            fn = NaiveMsmEngine(cid).build_fn()
+            calls = captured(fn, (pw, sw), (naive, "batched_scalar_mult"),
+                             (naive, "tree_sum"))
+            sm_args = calls["batched_scalar_mult"][0]
+            ts_args = calls["tree_sum"][0]
+            timed(f"row12a{key}", lambda: naive.batched_scalar_mult(*sm_args))
+            timed(f"row12b{key}", lambda: naive.tree_sum(*ts_args))
+            warm(f"msm{key}_naive", fn, (pw, sw), 5)
+            # row 12c: the running-sum chain's steps, each on its operands
+            calls = captured(cs.running_sum_chain, (pw, curve),
+                             (K, "fused_running_add"))
+            steps = calls["fused_running_add"]
+
+            def chain():
+                for a in steps:
+                    K.fused_running_add(*a)
+            timed(f"row12c{key}", chain)
+            del args, calls, sm_args, ts_args, steps
+    print(smi)
+    print(json.dumps(res))
+    return 0
+
+
 def bpr_rows(opts, smi, kernel_ms) -> int:
     """--bpr: rows 1 and 5-8 (see the module docstring)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     from webgpu_msm_bls12_377_tpu_torch import compute_msm, compute_msm_edwards
@@ -579,43 +772,12 @@ def bpr_rows(opts, smi, kernel_ms) -> int:
     for f in sorted(K._build_dir().glob("bpr*.log")):
         res[f"regs_default_{f.stem}"] = ptxas_regs(f.read_text())
 
-    def device_us(fn, calls=5):
-        """{device op: [us a call, launches a call]} from torch.profiler
-        over `calls` calls of fn."""
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        return {e.key: [e.self_device_time_total / calls, e.count / calls]
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA}
-
     def each_variant(key, fn):
         res[key] = kernel_ms(fn, 5)
         res[f"{key}_device_us"] = device_us(fn)
         for v, libs in variants.items():
             with using(K, libs):
                 res[f"{key}_{v}"] = kernel_ms(fn, 5)
-
-    def captured(fn, pw, sw, *names):
-        """One fn(pw, sw) with each (module, name) wrapped to keep its
-        arguments: {name: [args, ...]}."""
-        calls = {name: [] for _, name in names}
-        saved = [(mod, name, getattr(mod, name)) for mod, name in names]
-
-        def keep(name, real):
-            def run(*args):
-                calls[name].append(args)
-                return real(*args)
-            return run
-        for mod, name, real in saved:
-            setattr(mod, name, keep(name, real))
-        try:
-            fn(pw, sw)
-        finally:
-            for mod, name, real in saved:
-                setattr(mod, name, real)
-        return calls
 
     for curve, group, tag in (("bls12_377", C.G1, ""),
                               ("edwards_bls12", C.EDWARDS, "_ed")):
@@ -627,7 +789,7 @@ def bpr_rows(opts, smi, kernel_ms) -> int:
                 names += [(cuzk, "mont_mul_const")]
                 names += ([(cuzk, "point_prep")] if hasattr(cuzk, "point_prep")
                           else [(convert, "mont_mul_const")])
-            calls = captured(run, pw, sw, *names)
+            calls = captured(run, (pw, sw), *names)
             key = f"{tag}_{power}"
             if power == 20:
                 # row 1: kernel 1's launches of the call, each on its
@@ -701,7 +863,6 @@ def prep_rows(opts, smi, kernel_ms) -> int:
     """--prep: row 1's point prep and the copy (see the module docstring)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
     from webgpu_msm_bls12_377_tpu_torch import compute_msm, compute_msm_edwards
@@ -760,15 +921,6 @@ def prep_rows(opts, smi, kernel_ms) -> int:
         return {name: (statistics.median(p[i] for p in parts),
                        [p[i] for p in parts])
                 for i, name in enumerate(("pinned", "fill", "device"))}
-
-    def device_us(fn, calls=5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        return {e.key: [e.self_device_time_total / calls, e.count / calls]
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA}
 
     def copy_times(key, words):
         for w in workers:

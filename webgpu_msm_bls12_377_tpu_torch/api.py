@@ -17,11 +17,9 @@ from typing import Any
 
 def _run(curve, points, scalars, log_result, force_recompile, device):
     from .models.cuzk import CuzkMsmEngine
-    from .ops import kernels
 
-    engine = CuzkMsmEngine(curve, device=device)
-    if force_recompile and engine.device.type == "cuda":
-        kernels.rebuild()
+    engine = CuzkMsmEngine(curve, device=device,
+                           force_recompile=force_recompile)
     result = engine.compute_msm(points, scalars)
     if log_result:
         print(result)

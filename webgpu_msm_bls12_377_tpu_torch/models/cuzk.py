@@ -8,8 +8,9 @@ compute_msm(points, scalars) -> {"x": int, "y": int} runs, on one device:
      point-major words, a word array's word-major ones), staged through
      pinned memory in chunks whose copies start as each is filled;
   1. point prep: wire words -> in one launch of kernel 1, the form the
-     path reads: the signed table (tree, stream) or the Montgomery table
-     (for Edwards with t = x*y; fused: then its wide rows; legacy);
+     path reads: the signed table (tree, stream, legacy) or the
+     Montgomery table (for Edwards with t = x*y; fused: then its wide
+     rows);
   2. plan: signed window digits -> stable per-window sort -> bucket
      segments (plain PyTorch);
   3. SMVP, by _select_smvp (the JAX engine's policy on a TPU):
@@ -26,9 +27,10 @@ compute_msm(points, scalars) -> {"x": int, "y": int} runs, on one device:
        rows and kernel 2's full levels folding each bucket's pieces
        (ops/smvp_kernel.py), window by window where a window's buckets
        fill whole blocks, else in one pass of each;
-     - "legacy" (otherwise, and PippengerMsmEngine): per window group,
-       lockstep rounds of kernel 6, the group's round count read back
-       once as the per-window maxima;
+     - "legacy" (otherwise, and PippengerMsmEngine): kernel 6 over every
+       bucket in one launch, a thread a bucket, or where buckets run
+       longer than PIECE entries on average (chunk 4), over their pieces of
+       at most PIECE entries, folded as on the fused path;
   4. BPR (kernel 4): every path gathers its buckets into BPR walk order
      once (tree and stream compose that into their block permute) and
      runs reduce_buckets_prearranged;
@@ -40,8 +42,7 @@ stream and fused paths), then reads every set's window sums back in one
 copy.
 PyTorch runs eagerly, so the JAX package's plan/main program split, its
 size classes and their host readbacks, and its compile caches have no
-counterpart here; the legacy path's readback stays, since it fixes how
-many rounds run, and so does the pure tree's.
+counterpart here; the pure tree's readback of its level count stays.
 """
 
 from __future__ import annotations
@@ -55,14 +56,9 @@ import torch
 
 from ..ops import curve as C
 from ..ops import field as F
+from ..ops import kernels
 from ..ops.bpr import bpr_order_on, reduce_buckets_prearranged
-from ..ops.buckets import (
-    BucketPlan,
-    accumulate_buckets,
-    build_bucket_plan,
-    round_class,
-    window_slice_indices,
-)
+from ..ops.buckets import build_bucket_plan, legacy_buckets
 from ..ops.convert import WireLayout, wire_words
 from ..ops.decompose import (
     SCALAR_BITS,
@@ -78,10 +74,13 @@ from ..ops.kernels import (
     point_prep_plain,
 )
 from ..ops.smvp_kernel import (
+    PIECE,
     accumulate_buckets_fused,
     accumulate_buckets_windowed,
+    fold_pieces,
     fused_supported,
     make_wide_rows,
+    piece_plan,
     pregather_signed,
     windowed_supported,
 )
@@ -198,13 +197,16 @@ class CuzkMsmEngine:
         num_bpr_threads: int = 512,
         tree_finish: int | None = None,  # K, the hybrid finish level
         smvp_mode: str = "auto",
+        force_recompile: bool = False,
         device=None,
     ):
         """smvp_mode "auto" follows the JAX engine's policy (_select_smvp)
         and answers at every n; "tree", "stream", "fused" and "legacy"
         force that path at any n and chunk size.  tree_finish is K of the
         hybrid tree; None means 2 under "auto" and the pure tree under an
-        explicit "tree"."""
+        explicit "tree".  force_recompile compiles every kernel library
+        again from csrc/ (kernels.rebuild) on a CUDA device; an engine on
+        the CPU launches no kernel and compiles nothing."""
         if num_bpr_threads < 1 or num_bpr_threads & (num_bpr_threads - 1):
             raise ValueError(
                 f"num_bpr_threads must be a power of two, got {num_bpr_threads}"
@@ -221,6 +223,8 @@ class CuzkMsmEngine:
         self.tree_finish = tree_finish
         self.smvp_mode = smvp_mode
         self.device = resolve_device(device)
+        if force_recompile and self.device.type == "cuda":
+            kernels.rebuild()
 
     def _select_smvp(self, chunk_size: int, n: int) -> str:
         """Resolve smvp_mode to the path for this size.  "auto" is the JAX
@@ -310,7 +314,7 @@ class CuzkMsmEngine:
         fused path's wide rows from the Montgomery table)."""
         words, layout = points
         dev_words = words_to_device(words, self.device)
-        if path in ("tree", "stream"):
+        if path in ("tree", "stream", "legacy"):
             return point_prep(dev_words, layout, self.group, SIGNED)
         table = point_prep(dev_words, layout, self.group, PLANE)
         return make_wide_rows(table, self.group) if path == "fused" else table
@@ -403,31 +407,31 @@ class CuzkMsmEngine:
             buckets, num_windows, chunk_size, self.num_bpr_threads, group
         )
 
-    @staticmethod
-    def _window_groups(wmax) -> dict[int, tuple[int, ...]]:
-        """Partition windows by SMVP round class from per-window maxima."""
-        groups: dict[int, list[int]] = {}
-        for w, m in enumerate(wmax):
-            groups.setdefault(round_class(int(m)), []).append(w)
-        return {cls: tuple(ws) for cls, ws in groups.items()}
-
-    def _smvp_legacy(self, table, plan, chunk_size, num_windows):
-        h = 1 << (chunk_size - 1)
-        # the path's one host readback: num_windows maxima pick the rounds
-        wmax = plan.lens.reshape(num_windows, h).max(dim=1).values.tolist()
-        wsums = torch.empty((self.group.rows, num_windows), dtype=torch.int32,
-                            device=self.device)
-        for rounds, windows in sorted(self._window_groups(wmax).items()):
-            idx = torch.as_tensor(window_slice_indices(windows, h),
-                                  device=self.device)
-            plan_g = BucketPlan(plan.sorted_vals, plan.starts[idx], plan.lens[idx])
-            buckets = accumulate_buckets(table, plan_g, rounds, self.group)
-            order = self._bpr_order(len(windows), chunk_size)
-            wsums[:, list(windows)] = reduce_buckets_prearranged(
-                buckets[:, order], len(windows), chunk_size,
-                self.num_bpr_threads, self.group
-            )
-        return wsums
+    def _smvp_legacy(self, signed_table, plan, chunk_size, num_windows):
+        """Kernel 6 in one launch, then one BPR over all windows.  Where a
+        window's mean bucket (n / h entries) is longer than PIECE, as at
+        chunk 4, the launch sums pieces of at most PIECE entries, one
+        thread each, and a second launch folds each bucket's pieces
+        (tree.cu's fold, as on the fused path): one thread a bucket would
+        walk a chain of thousands of adds on a few SMs.  Else one thread
+        sums a whole bucket, word for word the JAX package's legacy sum;
+        a bucket summed in pieces is the same point."""
+        group, n = self.group, signed_table.shape[0] // 2
+        if n >> (chunk_size - 1) > PIECE:
+            pp = piece_plan(plan.starts, plan.lens, plan.sorted_vals.shape[0],
+                            n, PIECE)
+            sums = legacy_buckets(signed_table, plan.sorted_vals, pp.starts,
+                                  pp.lens, group)
+            buckets, _ = fold_pieces(sums, pp.counts, pp.offsets, pp.caps,
+                                     group)
+        else:
+            buckets = legacy_buckets(signed_table, plan.sorted_vals,
+                                     plan.starts, plan.lens, group)
+        order = self._bpr_order(num_windows, chunk_size)
+        return reduce_buckets_prearranged(
+            buckets[:, order], num_windows, chunk_size, self.num_bpr_threads,
+            group
+        )
 
     def _finalize(self, coords: torch.Tensor, chunk_size: int) -> dict[str, int]:
         nw = self.group.ctx.nw
@@ -467,14 +471,14 @@ class CuzkMsmEngine:
         converted and tabled once; each set then costs its scalar copy,
         plan, SMVP, BPR and Montgomery exit, enqueued without the host
         waiting for the device, and every set's window sums come back in
-        one copy before the host Horner.  The legacy path, whose round
-        counts are read back, runs compute_msm per set.  devices may name
+        one copy before the host Horner.  The legacy path (a baseline)
+        runs compute_msm per set.  devices may name
         the engine's own device; a pool of more than one is not ported
-        (ROADMAP item 16)."""
+        (ROADMAP, "Multi-device")."""
         if devices is not None and len(devices) > 1:
             raise NotImplementedError(
                 "set-parallel batches over a device pool are not ported: "
-                "ROADMAP item 16"
+                "see ROADMAP, \"Multi-device\""
             )
         if devices and _device_key(devices[0]) != _device_key(self.device):
             raise ValueError(

@@ -1,10 +1,11 @@
 """Naive device MSM: per-point double-and-add, then a tree sum.
 
 The baseline engine of the JAX package's models/naive.py: every point is
-multiplied by its scalar with a branch-free double-and-add over all lanes
-at once (256 launches of kernel 7's masked_add_and_double, bit t of the
-scalar words, least significant first), then the products are folded with
-a log-depth tree of kernel 7's fused_add and leave the Montgomery domain
+multiplied by its scalar with the double-and-add over the scalar's 256
+bits, least significant first (the JAX package's 256 steps of
+masked_add_and_double; here one launch of kernel 7's scalar_mult, one
+thread a lane's whole chain), then the products are folded with a
+log-depth tree of kernel 7's fused_add and leave the Montgomery domain
 through kernel 1, whose point prep also made the Montgomery table.  It
 costs ~256 point operations per point against the cuZK pipeline's ~16,
 and is a correctness and throughput baseline only.
@@ -21,15 +22,15 @@ from ..ops import curve as C
 from ..ops.convert import WireLayout
 from ..ops.kernels import (
     PLANE,
+    SCALAR_BITS,
     fused_add,
-    masked_add_and_double,
     mont_mul_const,
     point_prep,
+    scalar_mult,
 )
 from ..params import CurveId
 from .cuzk import resolve_device, words_to_device
 
-SCALAR_BITS = 256
 G1 = C.G1
 
 
@@ -38,13 +39,7 @@ def batched_scalar_mult(table: torch.Tensor, scalar_words: torch.Tensor,
     """k_i * P_i for every lane: table the Montgomery affine plane (G1
     (26, N) (x; y), Edwards (27, N) (x; y; t)), scalar_words (8, N) int32
     (the u32 bits).  Returns the (39|36, N) canonical plane."""
-    n = table.shape[1]
-    acc = C.merge(group.zero(n, table.device))
-    temp = C.merge(group.from_affine(group.split_aff(table)))
-    for t in range(SCALAR_BITS):
-        bit = (scalar_words[t // 32] >> (t % 32)) & 1
-        acc, temp = masked_add_and_double(acc, temp, bit, group)
-    return acc
+    return scalar_mult(table, scalar_words, SCALAR_BITS, group)
 
 
 def tree_sum(points: torch.Tensor, group=G1) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Windowed bucket-method (Pippenger) MSM engine.
 
 The classic method is the legacy path of CuzkMsmEngine: signed digit
-decomposition, per-window-group bucket accumulation in masked lockstep
-rounds (ops/buckets.py:accumulate_buckets, kernel 6), running-sum bucket
+decomposition, bucket accumulation (ops/buckets.py:legacy_buckets, kernel
+6: every bucket's sum in one launch, the TPU's masked lockstep rounds
+walked by one thread a bucket, or a piece of one), running-sum bucket
 reduction (ops/bpr.py:reduce_buckets_prearranged) and the host Horner
 walk.  This class pins that configuration under its name, as the JAX
 package's models/pippenger.py does.

@@ -9,14 +9,18 @@ One stable sort per window row orders the entries by slot; segment
 bounds then give each bucket's start and length.  The sort is stable, as
 the JAX package's lax.sort is, so the plan matches it entry for entry.
 
-accumulate_buckets is the legacy SMVP over such a plan: every bucket of a
-window group advances in lockstep, round t adding entry t of each bucket
-with kernel 6 (the masked canonical mixed add), for either curve.  The
-point table stays the limb-major (26|27, N) plane: a round's column
-gather yields the (26|27, B) operand the kernel reads, so the JAX
-package's row-major copy (table_to_rows) is not needed, and neither is
-its batching of several rounds' gathers into one (GATHER_BATCH, a TPU
-gather-latency device).
+legacy_buckets is the legacy SMVP over such a plan, for either curve:
+kernel 6 sums every segment (a bucket, or a piece of one) of the sorted
+entry stream with the canonical complete mixed add, from the identity and
+in entry order, one thread a segment, reading each addend's row of the
+row-major signed table (kernel 1's SIGNED form) with its sign applied.
+Its plain form runs the TPU's lockstep rounds of the masked mixed add
+(ops/kernels.py:masked_add_mixed_plain), as many as the longest segment;
+the two agree bit for bit.  accumulate_buckets keeps the JAX package's
+signature (a Montgomery table and a round count) over the same kernel.
+The JAX package's row-major copy (table_to_rows), its per-round gathers
+and their batching (GATHER_BATCH, a TPU gather-latency device) have no
+counterpart: the kernel reads the signed table's rows itself.
 """
 
 from __future__ import annotations
@@ -27,7 +31,13 @@ import numpy as np
 import torch
 
 from . import curve as C
-from .kernels import masked_add_mixed
+from .kernels import (
+    ROW_WORDS,
+    build_signed_table,
+    launch,
+    masked_add_mixed_plain,
+    on_cuda,
+)
 
 SIGN_BIT = 30
 IDX_MASK = (1 << SIGN_BIT) - 1
@@ -70,10 +80,27 @@ def segment_bounds(sorted_keys: torch.Tensor, num_buckets: int) -> torch.Tensor:
     return torch.searchsorted(sorted_keys.contiguous(), q, side="left")
 
 
+def check_signed_table(table: torch.Tensor) -> int:
+    """Points of a signed table (2N, ROW_WORDS): N."""
+    if table.dim() != 2 or table.shape[1] != ROW_WORDS or table.shape[0] % 2:
+        raise ValueError(
+            f"expected a (2N, {ROW_WORDS}) signed table, got {tuple(table.shape)}")
+    return table.shape[0] // 2
+
+
+def signed_rows(table: torch.Tensor, sorted_vals: torch.Tensor, i, group=C.G1):
+    """Affine coordinates of sorted-stream entries i from the signed
+    table."""
+    n = check_signed_table(table)
+    v = sorted_vals[i].to(torch.int64)
+    row = (v & IDX_MASK) + torch.where(((v >> SIGN_BIT) & 1) == 1, 0, n)
+    return group.split_aff(table[row, :group.aff_rows].T)
+
+
 def round_class(max_len: int, step: int = 16) -> int:
-    """Legacy SMVP round count: the maximum bucket length rounded up to a
-    multiple of step (the JAX package's classes; used per window group,
-    since the top scalar window has far denser buckets than the rest)."""
+    """Legacy SMVP round count of the JAX package: the maximum bucket
+    length rounded up to a multiple of step (its classes, used there per
+    window group; the port's kernel runs each bucket's own length)."""
     m = max(int(max_len), 1)
     return -(-m // step) * step
 
@@ -85,24 +112,61 @@ def window_slice_indices(windows, h: int) -> np.ndarray:
     )
 
 
+def legacy_buckets_plain(table, sorted_vals, starts, lens, group=C.G1):
+    """Plain form of legacy_buckets: lockstep rounds of
+    masked_add_mixed_plain, round t adding entry t of every segment
+    longer than t (its row of the signed table, the sign already applied),
+    as many rounds as the longest segment."""
+    ns = starts.shape[0]
+    acc = C.merge(group.zero(ns, table.device))
+    starts = starts.to(torch.int64)
+    last = max(sorted_vals.shape[0] - 1, 0)
+    ones = torch.ones(ns, dtype=torch.int32, device=table.device)
+    for t in range(int(lens.max()) if ns else 0):
+        aff = C.merge(signed_rows(table, sorted_vals,
+                                  (starts + t).clamp(max=last), group))
+        acc = masked_add_mixed_plain(acc, aff, ones,
+                                     (t < lens).to(torch.int32), group)
+    return acc
+
+
+def legacy_buckets(table: torch.Tensor, sorted_vals: torch.Tensor,
+                   starts: torch.Tensor, lens: torch.Tensor,
+                   group=C.G1) -> torch.Tensor:
+    """The legacy SMVP in one launch of kernel 6: per segment s, the
+    canonical complete mixed-add sum, from the identity and in order, of
+    entries starts[s] .. starts[s] + lens[s] - 1 of the sorted entry
+    stream (point index | positive-sign bit 30), each the row of the (2N,
+    ROW_WORDS) signed table that holds its signed point.  Returns the
+    (39|36, S) canonical plane in the order of starts (an empty segment:
+    the identity), bit for bit the TPU's lockstep rounds of
+    masked_add_mixed."""
+    n_points = check_signed_table(table)
+    ns = starts.shape[0]
+    if starts.shape != (ns,) or lens.shape != (ns,) or sorted_vals.dim() != 1:
+        raise ValueError("sorted_vals, starts and lens must be vectors, "
+                         "starts and lens of one length")
+    if not on_cuda(table, sorted_vals, starts, lens):
+        return legacy_buckets_plain(table, sorted_vals, starts, lens, group)
+    out = torch.empty((group.rows, ns), dtype=torch.int32, device=table.device)
+    tag = group.ctx.tag
+    launch("legacy" + tag, "msm_legacy_buckets", "legacy_buckets" + tag, ns,
+           table.data_ptr(), n_points, sorted_vals.data_ptr(),
+           starts.data_ptr(), lens.data_ptr(), out.data_ptr(), ns)
+    return out
+
+
 def accumulate_buckets(
     table: torch.Tensor, plan: BucketPlan, num_rounds: int, group=C.G1
 ) -> torch.Tensor:
-    """Legacy SMVP: per-bucket signed point sums in lockstep rounds.
+    """The JAX package's legacy SMVP: per-bucket signed point sums of
+    num_rounds lockstep rounds, so entries past num_rounds are left out
+    (round_class makes it at least the longest bucket).
 
     table: Montgomery affine plane, G1 (26, N) (x; y) or Edwards (27, N)
-    (x; y; t); plan.starts / plan.lens may cover a subset of the buckets;
-    num_rounds must be at least the longest of them (round_class).  Returns
-    the (39|36, B) canonical bucket plane in the order of plan.starts
-    (empty buckets: the identity)."""
-    num_buckets = plan.starts.shape[0]
-    total = plan.sorted_vals.shape[0]
-    starts = plan.starts.to(torch.int64)
-    acc = C.merge(group.zero(num_buckets, table.device))
-    for t in range(num_rounds):
-        v = plan.sorted_vals[(starts + t).clamp(max=total - 1)]
-        aff = table[:, (v & IDX_MASK).to(torch.int64)]
-        sign_pos = (v >> SIGN_BIT) & 1
-        valid = (t < plan.lens).to(torch.int32)
-        acc = masked_add_mixed(acc, aff, sign_pos, valid, group)
-    return acc
+    (x; y; t); plan.starts / plan.lens may cover a subset of the buckets.
+    Returns the (39|36, B) canonical bucket plane in the order of
+    plan.starts (empty buckets: the identity): legacy_buckets over the
+    signed table built from it."""
+    return legacy_buckets(build_signed_table(table, group), plan.sorted_vals,
+                          plan.starts, plan.lens.clamp(max=num_rounds), group)

@@ -2,9 +2,10 @@
 kernels: 1 (the point prep: wire words to the Montgomery table or the
 signed table in one launch; and the constant product of the Montgomery
 exit), 4 (lazy BPR family: stage 1, stage 2 and the window fold, each in
-one launch, and the lane-wise add), 6 (legacy SMVP round) and 7
-(canonical add, double-and-add step, running-sum step), and tree.cu's
-Montgomery products on their own (field_mul_lanes).
+one launch, and the lane-wise add), 6 (the legacy SMVP: every segment's
+canonical sum in one launch) and 7 (canonical add, the whole
+double-and-add of a scalar multiplication, running-sum step), and
+tree.cu's Montgomery products on their own (field_mul_lanes).
 
 Every kernel source under csrc/ is compiled by nvcc for sm_90a into a
 shared library with a plain C interface, loaded with ctypes, and a second
@@ -91,11 +92,11 @@ _ARGTYPES = {
         "msm_stream_buckets": [_P, _I64, _P, _P, _P, _P, _I64, _P],
     },
     "legacy": {
-        "msm_masked_add_mixed": [_P, _P, _P, _P, _P, _I64, _P],
+        "msm_legacy_buckets": [_P, _I64, _P, _P, _P, _P, _I64, _P],
     },
     "canon": {
         "msm_fused_add": [_P, _P, _P, _I64, _P],
-        "msm_masked_add_and_double": [_P, _P, _P, _P, _P, _I64, _P],
+        "msm_scalar_mult": [_P, _P, _INT, _P, _I64, _P],
         "msm_fused_running_add": [_P, _P, _P, _P, _P, _I64, _P],
     },
     "fused": {
@@ -575,37 +576,20 @@ def bpr_add(a, b, group=G1):
 
 
 # ---------------------------------------------------------------------------
-# Kernel 6: one lockstep round of the legacy SMVP
+# Kernel 6's round (the legacy SMVP's plain form; the kernel, every
+# segment's sum in one launch, is ops/buckets.py:legacy_buckets)
 # ---------------------------------------------------------------------------
 
 
 def masked_add_mixed_plain(acc, aff, sign_pos, valid, group=G1):
+    """One lockstep round: select(valid, acc + (sign_pos ? aff : -aff),
+    acc), the canonical complete mixed add (the TPU's masked_add_mixed)."""
     parts = group.split_aff(aff)
     neg = group.neg_affine(parts)
     pos = (sign_pos != 0)[None]
     signed = tuple(torch.where(pos, a, b) for a, b in zip(parts, neg))
     new = group.add_mixed(group.split(acc), signed)
     return C.merge(group.select(valid != 0, new, group.split(acc)))
-
-
-def masked_add_mixed(acc, aff, sign_pos, valid, group=G1):
-    """select(valid, acc + (sign_pos ? aff : -aff), acc), the canonical
-    complete mixed add: acc (39|36, B) canonical, aff (26|27, B) canonical
-    affine points (never the identity on a valid lane), sign_pos and valid
-    (B,) int32."""
-    n = check_plane(acc, group.rows)
-    check_plane(aff, group.aff_rows, n)
-    for t in (sign_pos, valid):
-        if t.shape != (n,):
-            raise ValueError(f"lane flags must be ({n},), got {tuple(t.shape)}")
-    if not on_cuda(acc, aff, sign_pos, valid):
-        return masked_add_mixed_plain(acc, aff, sign_pos, valid, group)
-    out = torch.empty_like(acc)
-    tag = group.ctx.tag
-    launch("legacy" + tag, "msm_masked_add_mixed", "masked_add_mixed" + tag, n,
-           acc.data_ptr(), aff.data_ptr(), sign_pos.data_ptr(),
-           valid.data_ptr(), out.data_ptr(), n)
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -642,22 +626,43 @@ def fused_add(a, b, group=G1):
     return out
 
 
-def masked_add_and_double(r, t, bits, group=G1):
-    """One canonical double-and-add step: (bit ? r + t : r, 2t); bits (L,)
-    int32."""
-    n = check_plane(r, group.rows)
-    check_plane(t, group.rows, n)
-    if bits.shape != (n,):
-        raise ValueError(f"bits must be ({n},), got {tuple(bits.shape)}")
-    if not on_cuda(r, t, bits):
-        return masked_add_and_double_plain(r, t, bits, group)
-    r2, t2 = torch.empty_like(r), torch.empty_like(t)
+#: the most bits scalar_mult takes: a scalar's 8 u32 words
+SCALAR_BITS = 256
+
+
+def scalar_mult_plain(table, scalars, bits, group=G1):
+    """Plain form of scalar_mult: `bits` steps of
+    masked_add_and_double_plain from r = the identity and t = P, bit i of
+    the scalar words (least significant first) at step i."""
+    n = table.shape[1]
+    r = C.merge(group.zero(n, table.device))
+    t = C.merge(group.from_affine(group.split_aff(table)))
+    for i in range(bits):
+        bit = (scalars[i // 32] >> (i % 32)) & 1
+        r, t = masked_add_and_double_plain(r, t, bit, group)
+    return r
+
+
+def scalar_mult(table, scalars, bits=SCALAR_BITS, group=G1):
+    """k_i * P_i for every lane in one launch: table the canonical
+    Montgomery affine plane (G1 (26, N) (x; y), Edwards (27, N) (x; y; t)),
+    scalars the (8, N) int32 bits of the u32 words of k_i, least
+    significant first; the double-and-add over k_i's low `bits` bits (0 to
+    256).  Returns the canonical (39|36, N) plane of r, bit for bit `bits`
+    steps of the TPU's masked_add_and_double (r' = bit ? r + t : r, t' =
+    2t) from r = the identity and t = P.  One thread a lane, which stops
+    after its scalar's top set bit."""
+    n = check_plane(table, group.aff_rows)
+    check_plane(scalars, SCALAR_BITS // 32, n)
+    if not 0 <= bits <= SCALAR_BITS:
+        raise ValueError(f"bits must be in [0, {SCALAR_BITS}], got {bits}")
+    if not on_cuda(table, scalars):
+        return scalar_mult_plain(table, scalars, bits, group)
+    out = torch.empty((group.rows, n), dtype=torch.int32, device=table.device)
     tag = group.ctx.tag
-    launch("canon" + tag, "msm_masked_add_and_double",
-           "masked_add_and_double" + tag, n,
-           r.data_ptr(), t.data_ptr(), bits.data_ptr(), r2.data_ptr(),
-           t2.data_ptr(), n)
-    return r2, t2
+    launch("canon" + tag, "msm_scalar_mult", "scalar_mult" + tag, n,
+           table.data_ptr(), scalars.data_ptr(), bits, out.data_ptr(), n)
+    return out
 
 
 def fused_running_add(m, g, b, group=G1):

@@ -26,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from . import curve as C
-from .buckets import IDX_MASK, SIGN_BIT
+from .buckets import check_signed_table, signed_rows
 from .curve import G1
 # the signed table's plain form lives beside kernel 1, which builds it
 from .kernels import ROW_WORDS, build_signed_table, check_plane, launch, on_cuda
@@ -40,23 +40,6 @@ def stream_supported(chunk_size: int) -> bool:
     a TPU: a window's 2^(chunk_size-1) buckets fill whole 256-lane slabs
     (chunk_size >= 9).  Kernel 5 itself has no lane constraint."""
     return (1 << (chunk_size - 1)) % TPU_SLAB_LANES == 0
-
-
-def check_signed_table(table: torch.Tensor) -> int:
-    """Points of a signed table (2N, ROW_WORDS): N."""
-    if table.dim() != 2 or table.shape[1] != ROW_WORDS or table.shape[0] % 2:
-        raise ValueError(
-            f"expected a (2N, {ROW_WORDS}) signed table, got {tuple(table.shape)}")
-    return table.shape[0] // 2
-
-
-def signed_rows(table: torch.Tensor, sorted_vals: torch.Tensor, i, group=G1):
-    """Affine coordinates of sorted-stream entries i from the signed
-    table."""
-    n = check_signed_table(table)
-    v = sorted_vals[i].to(torch.int64)
-    row = (v & IDX_MASK) + torch.where(((v >> SIGN_BIT) & 1) == 1, 0, n)
-    return group.split_aff(table[row, :group.aff_rows].T)
 
 
 class StreamLayout(NamedTuple):

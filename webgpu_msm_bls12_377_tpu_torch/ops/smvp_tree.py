@@ -34,16 +34,15 @@ import numpy as np
 import torch
 
 from . import curve as C
+from .buckets import check_signed_table, signed_rows
 from .curve import G1
 from .kernels import check_plane, launch, on_cuda
 from .smvp_stream import (
     StreamLayout,
     build_stream_layout,
-    check_signed_table,
     node_rows,
     node_words,
     packed_finish,
-    signed_rows,
 )
 
 FLAG_INVALID = 1 << 29
