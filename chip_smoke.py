@@ -13,7 +13,8 @@ Phases, each of which fails the run on any error:
      on random inputs of a few thousand lanes (the point prep from wire
      words in both layouts to both its forms, 0, 1, p - 1 and p among the
      coordinates; identity, equal and inverse
-     operands among the canonical family's; BPR stage 2 and the fold at
+     operands among the canonical family's, the tree sum from one block
+     to 256 and at 2^18, each launch twice; BPR stage 2 and the fold at
      T = 1 to 1,024 lanes a window, 1, 3 and 17 windows, bpt 1, 2 and 64),
      and on a small real plan for
      the tree, finish, stream and fused kernels (the fused path's two
@@ -33,11 +34,12 @@ Phases, each of which fails the run on any error:
      path (chunks 9 and 13); the fused path forced at 2^16 and chunk 15;
      the pure tree forced at 2^18;
      PippengerMsmEngine (legacy path) and NaiveMsmEngine at 2^16; a
-     running-sum chain through the one kernel no engine calls, held
-     against the bigint oracle; compute_msm_batch of 8 scalar sets at
-     2^20 (tree) against the pinned batch goldens and of 4 sets at 2^17
-     (stream) against compute_msm per set, each with PyTorch's sync debug
-     mode raising on any wait for the device between sets.  Edwards:
+     running-sum chain through the one kernel no engine calls (one launch
+     over the walk), held against the bigint oracle; compute_msm_batch of
+     8 scalar sets at 2^20 (tree) against the pinned batch goldens and of
+     4 sets at 2^17 (stream) against compute_msm per set, each with
+     PyTorch's sync debug mode raising on any wait for the device between
+     sets.  Edwards:
      compute_msm_edwards with default options at the same six sizes and
      from wire bytes at 2^20, the
      2^14 case forced through legacy, Pippenger, naive and the chain at
@@ -47,9 +49,9 @@ Phases, each of which fails the run on any error:
      which first reproduces the 2^16 golden.  Cold time,
      median of 3 warm runs, and each kernel's launches in one run (counts
      zeroed just before, read just after); every path must launch the
-     kernels it names (the point prep, the legacy SMVP and the scalar
-     multiplication once a run), and together the paths cover every
-     kernel;
+     kernels it names (the point prep, the legacy SMVP, the scalar
+     multiplication, the tree sum and the running sum once a run), and
+     together the paths cover every kernel;
   4. one more run of each path (2^20 tree, 2^17 stream, 2^16 legacy, 2^16
      naive, the chain, 2^10 and 2^14 default fused, the forced fused run
      at 2^16 and chunk 15, 2^18 pure tree; Edwards 2^20 tree, 2^17
@@ -62,7 +64,7 @@ Phases, each of which fails the run on any error:
      rate in the carry-chain Montgomery product on its own (tree.cu
      msm_word_rate, both fields), and every row's bound again at that
      rate (int_bound_ms).  The plain forms of the lane-wise kernels (1, the
-     canonical add and running add) are
+     tree sum and the running sum) are
      replayed from CUDA graphs, one captured per shape, and kernel 8's
      round from one graph a launch (fused_plain_graphed); phase 2 holds
      the replays against the plain forms run eagerly;
@@ -163,13 +165,16 @@ KERNELS = {
     # every legacy round in one launch: the TPU's masked mixed add
     "legacy_buckets": ("webgpu_msm_bls12_377_tpu_torch/csrc/legacy.cu",
                        "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:272"),
-    "fused_add": ("webgpu_msm_bls12_377_tpu_torch/csrc/canon.cu",
-                  "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:302"),
+    # the naive engine's whole tree sum in one launch: the TPU's add, a
+    # launch a level
+    "tree_sum": ("webgpu_msm_bls12_377_tpu_torch/csrc/canon.cu",
+                 "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:302"),
     # the whole double-and-add in one launch: the TPU's one step
     "scalar_mult": ("webgpu_msm_bls12_377_tpu_torch/csrc/canon.cu",
                     "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:488"),
-    "fused_running_add": ("webgpu_msm_bls12_377_tpu_torch/csrc/canon.cu",
-                          "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:415"),
+    # the whole running-sum chain in one launch: the TPU's one step
+    "running_sum": ("webgpu_msm_bls12_377_tpu_torch/csrc/canon.cu",
+                    "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:415"),
     "fused_buckets": ("webgpu_msm_bls12_377_tpu_torch/csrc/fused.cu",
                       "webgpu_msm_bls12_377_tpu/ops/smvp_kernel.py:223"),
     # the fused path's fold: row 3's full-level pairing, every bucket in
@@ -208,11 +213,11 @@ PATHS = {
     # the legacy path sums every bucket in one launch (at 2^16, chunk 15:
     # ~4 entries a bucket)
     "legacy": ("legacy_buckets", *PREP, *BPR),
-    "naive": ("scalar_mult", "fused_add", *PREP),
-    # no engine of either package calls fused_running_add: the chain
-    # drives it, beside BPR stage 1 on the same steps, whose g must be the
-    # same points
-    "running_sum": ("fused_running_add", "bpr_stage1", "point_prep"),
+    "naive": ("scalar_mult", "tree_sum", *PREP),
+    # no engine of either package calls the running add: the chain drives
+    # it in one launch over the walk, beside BPR stage 1 on the same walk,
+    # whose g must be the same points
+    "running_sum": ("running_sum", "bpr_stage1", "point_prep"),
     # the 2^14 case forced off its default path, for the times alone; at
     # chunk 4 the legacy path sums pieces and folds them
     "legacy_14": ("legacy_buckets", "fold_pieces", *PREP, "bpr_stage2",
@@ -231,9 +236,8 @@ PATHS = {
     "ed_fused_10": ("fused_buckets_ed", "fold_pieces_ed", *PREP_ED,
                     "bpr_stage2_ed", "bpr_fold_ed"),
     "ed_legacy": ("legacy_buckets_ed", *PREP_ED, *BPR_ED),
-    "ed_naive": ("scalar_mult_ed", "fused_add_ed", *PREP_ED),
-    "ed_running_sum": ("fused_running_add_ed", "bpr_stage1_ed",
-                       "point_prep_ed"),
+    "ed_naive": ("scalar_mult_ed", "tree_sum_ed", *PREP_ED),
+    "ed_running_sum": ("running_sum_ed", "bpr_stage1_ed", "point_prep_ed"),
 }
 PATHS["batch_tree"], PATHS["batch_stream"] = PATHS["tree"], PATHS["stream"]
 PATHS["ed_batch_tree"] = PATHS["ed_tree"]
@@ -243,8 +247,10 @@ PATHS["ed_fused"] = PATHS["ed_fused_10"]
 PATHS["ed_legacy_14"] = ("legacy_buckets_ed", "fold_pieces_ed", *PREP_ED,
                          "bpr_stage2_ed", "bpr_fold_ed")
 #: the kernels a run launches once: the point prep (a batch's included),
-#: and the whole legacy SMVP and the whole scalar multiplication
-ONCE = ("point_prep", "legacy_buckets", "scalar_mult")
+#: the whole legacy SMVP, the whole scalar multiplication, the whole tree
+#: sum and the whole running-sum chain
+ONCE = ("point_prep", "legacy_buckets", "scalar_mult", "tree_sum",
+        "running_sum")
 HOME = {k: path for path in reversed(PATHS) for k in PATHS[path]}
 #: phase 2's entry points that no path launches: tree.cu's Montgomery
 #: products on their own (the carry-chain schedule at extreme operands),
@@ -522,9 +528,9 @@ def canonical_kernel_cases(rng, group, points, plan, windows, n=4096):
     window by window against the same functions run with their plain
     forms (plain_passes), and kernel 8 on hand-made segments over random rows (empty,
     length 1, long, overlapping); kernel 6 (legacy_cases), the scalar
-    multiplication (scalar_mult_cases), and the add and the running add on
-    random canonical lanes, identity, equal and inverse operands among
-    them."""
+    multiplication (scalar_mult_cases), the tree sum (tree_cases) and the
+    running sum over 1 and 3 steps on random canonical lanes, identity,
+    equal and inverse operands among them."""
     import torch
 
     from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
@@ -572,20 +578,49 @@ def canonical_kernel_cases(rng, group, points, plan, windows, n=4096):
                                                     group)))
     cases += legacy_cases(rng, group, points, plan, pp)
     cases += scalar_mult_cases(rng, group)
-    # canonical kernels: operands below p
-    ca, cg, cb = (rand_plane(rng, group.rows, n, p, nw) for _ in range(3))
-    cg, cb = edge_lanes(group, ca, cg), edge_lanes(group, ca, cb)
-    pairs = [
-        ("fused_add", K.fused_add(ca, cb, group),
-         K.fused_add_plain(ca, cb, group)),
-        ("fused_running_add", K.fused_running_add(ca, cg, cb, group),
-         K.fused_running_add_plain(ca, cg, cb, group)),
-    ]
-    for name, got, want in pairs:
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        for x, y in zip(got, want):
-            cases.append((name + tag, x, y))
+    cases += tree_cases(rng, group)
+    # the running sum: operands below p, m with identity lanes, the
+    # addends with identity, equal and inverse lanes
+    ca, cg = (rand_plane(rng, group.rows, n, p, nw) for _ in range(2))
+    ca = edge_lanes(group, cg, ca)
+    walk = torch.cat([edge_lanes(group, ca, rand_plane(rng, group.rows, n, p,
+                                                       nw))
+                      for _ in range(3)], dim=1)
+    for steps in (1, 3):
+        steps_walk = walk[:, :steps * n].contiguous()
+        got = K.running_sum(ca, cg, steps_walk, steps, group)
+        want = K.running_sum_plain(ca, cg, steps_walk, steps, group)
+        cases += [("running_sum" + tag, x, y) for x, y in zip(got, want)]
+    return cases
+
+
+def tree_cases(rng, group, widths=(512, 1 << 16, 1 << 18)):
+    """Phase 2 for the tree sum of one curve: widths 1 and 2, then
+    `widths` (512: two blocks and the last block's finish; 2^16: 256
+    blocks, the naive call's width; 2^18: a thread first folds four lanes
+    on its own), whose planes are random canonical
+    lanes x, then x's edge lanes (the first level meets the identity, an
+    equal and an inverse lane), x twice (every first-level add a
+    doubling) or x's negation (the first level all identities); each
+    plane's plain form run once and its kernel launched twice, as state
+    left by the first launch would spoil the second."""
+    import torch
+
+    from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
+    from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
+
+    ctx, tag = group.ctx, group.ctx.tag
+    planes = [rand_plane(rng, group.rows, w, ctx.p, ctx.nw) for w in (1, 2)]
+    for width in widths:
+        x = rand_plane(rng, group.rows, width // 2, ctx.p, ctx.nw)
+        neg = C.merge(group.neg(group.split(x)))
+        planes += [torch.cat([x, edge_lanes(group, x, x.flip(1))], dim=1),
+                   torch.cat([x, x], dim=1), torch.cat([x, neg], dim=1)]
+    cases = []
+    for pts in planes:
+        want = K.tree_sum_plain(pts, group)
+        cases += [("tree_sum" + tag, K.tree_sum(pts, group), want)
+                  for _ in range(2)]
     return cases
 
 
@@ -1045,12 +1080,12 @@ def same_points_on_card(a, b, group):
 
 
 def running_sum_chain(pw, curve="bls12_377", steps=8):
-    """`steps` canonical running-sum steps (fused_running_add) over all
-    points of a case (their Montgomery table from the point prep), from
-    the identity, with b_t the table rolled by t
-    lanes; BPR stage 1 over the same steps (bpt = steps, a lane a point,
-    the engine's split) must give the same points as g.  Returns lane 0
-    of g as the affine {"x", "y"}."""
+    """`steps` canonical running-sum steps over all points of a case
+    (their Montgomery table from the point prep), from the identity, with
+    b_t the table rolled by t lanes: the step-major walk of the b_t, then
+    one running_sum launch over it; BPR stage 1 over the same walk (bpt =
+    steps, a lane a point, the engine's split) must give the same points
+    as g.  Returns lane 0 of g as the affine {"x", "y"}."""
     import torch
 
     from webgpu_msm_bls12_377_tpu_torch.models.cuzk import words_to_device
@@ -1065,15 +1100,13 @@ def running_sum_chain(pw, curve="bls12_377", steps=8):
     table = K.point_prep(words_to_device(pw, torch.device(DEV)), layout,
                          group, K.PLANE)
     pts = C.merge(group.from_affine(group.split_aff(table)))
-    m = g = C.merge(group.zero(pts.shape[1], DEV))
-    walk = []
-    for t in range(steps):
-        b = torch.roll(pts, t, dims=1).contiguous()
-        m, g = K.fused_running_add(m, g, b, group)
-        walk.append(b)
     lanes = pts.shape[1]
-    _, lg = K.bpr_stage1(torch.cat(walk, dim=1), steps,
-                         bpr.stage1_split(lanes, steps, group), group)
+    zero = C.merge(group.zero(lanes, DEV))
+    walk = torch.cat([torch.roll(pts, t, dims=1) for t in range(steps)],
+                     dim=1)
+    _, g = K.running_sum(zero, zero, walk, steps, group)
+    _, lg = K.bpr_stage1(walk, steps, bpr.stage1_split(lanes, steps, group),
+                         group)
     lazy = C.merge(group.canon(group.split(lg)))
     if not same_points_on_card(g, lazy, group):
         raise SystemExit("running-sum chain: the canonical steps and BPR "
@@ -1583,13 +1616,21 @@ def timed_paths(inputs, ed_inputs):
                       adds * w["add_canon"] + dbls * w["dbl_canon"],
                       n * (w["aff"] + 32 + w["pt"]))
 
-    cadd = lanes(K.fused_add, K.fused_add_plain, "fused_add", 2,
-                 lambda n, w, *a: n * w["add_canon"],
-                 lambda n, w, *a: 3 * w["pt"] * n)
-    crunning = lanes(K.fused_running_add, K.fused_running_add_plain,
-                     "fused_running_add", 3,
-                     lambda n, w, *a: 2 * n * w["add_canon"],
-                     lambda n, w, *a: 5 * w["pt"] * n)
+    # the tree sum: N - 1 canonical adds; every lane read once, one point
+    # written
+    tsum = lanes(K.tree_sum, K.tree_sum_plain, "tree_sum", 1,
+                 lambda n, w, *a: (n - 1) * w["add_canon"],
+                 lambda n, w, *a: (n + 1) * w["pt"])
+
+    def rsum(m, g, walk, steps, group=G1):
+        # two canonical adds a step a lane; m, g and every step's addends
+        # read once, m and g written once; the plain form (steps one-step
+        # plain forms) replayed from a CUDA graph
+        w, n = WORK[group.ctx.tag], m.shape[1]
+        return record("running_sum" + group.ctx.tag, K_RSUM, RSUM_PLAIN,
+                      (m, g, walk, steps, group),
+                      2 * steps * n * w["add_canon"],
+                      (steps + 4) * n * w["pt"])
 
     K_MMC, K_PREP, K_TREE = K.mont_mul_const, K.point_prep, T.run_tree_level
     MMC_PLAIN = graphed(K.mont_mul_const_plain)
@@ -1600,6 +1641,8 @@ def timed_paths(inputs, ed_inputs):
     K_STREAM, K_FUSED = S.accumulate_buckets_streamed, SK.fused_segments
     K_FOLD = SK.fold_pieces
     K_LEGACY, K_SMULT = buckets.legacy_buckets, K.scalar_mult
+    K_RSUM, RSUM_PLAIN = K.running_sum, graphed(K.running_sum_plain)
+    replays.append(RSUM_PLAIN)
     patches = [
         (cuzk, "mont_mul_const", mmc), (naive, "mont_mul_const", mmc),
         (cuzk, "point_prep", prep), (naive, "point_prep", prep),
@@ -1610,8 +1653,8 @@ def timed_paths(inputs, ed_inputs):
         (bpr, "bpr_stage1", stage1), (bpr, "bpr_stage2", stage2),
         (bpr, "bpr_fold", fold),
         (cuzk, "legacy_buckets", legacyk), (cuzk, "fold_pieces", foldk),
-        (naive, "fused_add", cadd), (naive, "scalar_mult", smult),
-        (K, "fused_running_add", crunning), (K, "bpr_stage1", stage1),
+        (naive, "tree_sum", tsum), (naive, "scalar_mult", smult),
+        (K, "running_sum", rsum), (K, "bpr_stage1", stage1),
     ]
     runs = (("tree", run_msm, inputs[20]), ("stream", run_msm, inputs[17]),
             ("legacy", pippenger_msm, inputs[16]),

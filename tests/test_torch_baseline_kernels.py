@@ -15,6 +15,15 @@
   most PIECE entries, folded, give the same points.
 - The legacy engine (PippengerMsmEngine) makes one bucket launch, one fold
   and one BPR a call and equals the JAX PippengerMsmEngine.
+- tree_sum (TPU row 12b, the naive engine's tree sum in one launch): its
+  plain form equals the JAX package's models/naive.py tree_sum (log2 N
+  levels of fused_add, its jnp branch) word for word at widths 1, 2, 8
+  and 16, with identity, equal and inverse partners; a model of the
+  kernel's schedule (blocks over lane residues, a thread's own levels,
+  shared-memory levels, the last block over the partials) equals it too.
+- running_sum (TPU row 12c, the running-sum chain in one launch): its
+  plain form over 1, 3 and 8 steps of a step-major walk equals as many
+  chained calls of the JAX package's fused_running_add, word for word.
 
 JAX values cross with from_jax_limbs (13-bit limbs, R = 2^390 or 2^260,
 to 32-bit words, R = 2^416 or 2^288); canonical values have one
@@ -22,7 +31,9 @@ representation, so every comparison is exact.  Inputs from random.Random
 and numpy seeds.
 """
 
+import functools
 import random
+from dataclasses import astuple
 
 import jax
 import jax.numpy as jnp
@@ -36,11 +47,13 @@ from webgpu_msm_bls12_377_tpu.models import naive as jnaive
 from webgpu_msm_bls12_377_tpu.ops import buckets as jbuck
 from webgpu_msm_bls12_377_tpu.ops import curve as jcurve
 from webgpu_msm_bls12_377_tpu.ops import decompose as jdec
+from webgpu_msm_bls12_377_tpu.ops import pallas_kernels as jpk
 from webgpu_msm_bls12_377_tpu.params import CurveId as JCurveId
 from webgpu_msm_bls12_377_tpu_torch import params as PP
 from webgpu_msm_bls12_377_tpu_torch.models import PippengerMsmEngine, cuzk
 from webgpu_msm_bls12_377_tpu_torch.ops import buckets, decompose
 from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
+from webgpu_msm_bls12_377_tpu_torch.ops import field as F
 from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
 from webgpu_msm_bls12_377_tpu_torch.ops import smvp_kernel as SK
 from webgpu_msm_bls12_377_tpu_torch.ops.convert import (
@@ -298,3 +311,254 @@ def test_legacy_engine_makes_one_bucket_launch_and_one_bpr(
         want_calls.append("fold_pieces")
     assert sorted(calls) == sorted(want_calls)
     assert got == want
+
+
+# -- row 12b: tree_sum ---------------------------------------------------------
+
+
+def oracle_ops(curve):
+    """The oracle's point type, identity, negation and from_affine."""
+    if curve == "bls12_377":
+        return crv.ProjectivePoint, crv.G1_ZERO, crv.g1_neg, crv.g1_from_affine
+    return crv.ExtendedPoint, crv.ED_ZERO, crv.ed_neg, crv.ed_from_affine
+
+
+def both_points(curve, pts, rng):
+    """Oracle points (G1 projective, Edwards extended), each at a random
+    representative (every coordinate times one lam) -> the same points
+    as canonical Montgomery planes of both packages: the port's merged
+    (39|36, n) plane and the JAX group's Point of (w, n) limb planes."""
+    group, jgroup, w = SPEC[curve][:3]
+    p, nw = group.ctx.p, group.ctx.nw
+    cols = [[] for _ in astuple(pts[0])]
+    for pt in pts:
+        lam = rng.randrange(1, p)
+        for col, c in zip(cols, astuple(pt)):
+            col.append(c * lam % p)
+    port = torch.cat([F.ints_to_plane([v * (1 << 32 * nw) % p for v in col],
+                                      nw=nw) for col in cols])
+    jax_pt = jgroup.Point(*(jnp.asarray(np.array(
+        [[(v * (1 << 13 * w) % p >> (13 * i)) & 0x1FFF for v in col]
+         for i in range(w)], dtype=np.uint32)) for col in cols))
+    assert torch.equal(carry(jax_pt, curve), port)
+    return port, jax_pt
+
+
+def random_points(curve, n, rng):
+    _, _, _, _, _, gen, mult, to_aff, _ = SPEC[curve]
+    from_aff = oracle_ops(curve)[3]
+    return [from_aff(*to_aff(mult(gen, rng.randrange(1, 1 << 60))))
+            for _ in range(n)]
+
+
+def tree_points(curve, width, kind, rng):
+    """width oracle points for the tree: "edges": the first level meets
+    the identity (lane half), an equal partner (half + 1: a doubling
+    through the add) and an inverse one (half + 2: the identity out);
+    "double": the halves are equal (every first-level add a doubling, the
+    identity at lane 0 among them); "inverse": the second half negates
+    the first (the first level all identities, added up after)."""
+    _, zero, neg, _ = oracle_ops(curve)
+    half = width // 2
+    pts = random_points(curve, width, rng)
+    if kind == "edges":
+        for off, make in ((0, lambda q: zero), (1, lambda q: q), (2, neg)):
+            if off < half:
+                pts[half + off] = make(pts[off])
+    elif kind == "double":
+        pts[0] = zero
+        pts[half:] = pts[:half]
+    else:
+        pts[half:] = [neg(q) for q in pts[:half]]
+    return pts
+
+
+TREE_CASES = [(1, "edges")] + [(w, k) for w in (2, 8, 16)
+                               for k in ("edges", "double", "inverse")]
+#: lanes of the jitted JAX adds: every level of a width-16 tree fits
+JAX_LANES = 8
+
+
+@functools.lru_cache(maxsize=None)
+def jax_kernel(curve, name):
+    """The JAX package's lane-wise fused_add or fused_running_add (its jnp
+    branch off a TPU), jitted: one compile a curve."""
+    jgroup, fn = SPEC[curve][1], getattr(jpk, name)
+    return jax.jit(lambda *pts: fn(jgroup, *pts))
+
+
+def jax_fused_add_padded(curve):
+    """fused_add(group, a, b) for the JAX tree_sum's levels: the operands
+    padded with their first lane to JAX_LANES lanes (the add is lane-wise),
+    added by jax_kernel's one compile, cut back."""
+    add = jax_kernel(curve, "fused_add")
+
+    def run(group, a, b):
+        n = a[0].shape[-1]
+
+        def pad(pt):
+            return type(pt)(*(jnp.concatenate(
+                [c] + [c[:, :1]] * (JAX_LANES - n), axis=1) for c in pt))
+        return type(a)(*(c[:, :n] for c in add(pad(a), pad(b))))
+    return run
+
+
+@CURVES
+@pytest.mark.parametrize("width,kind", TREE_CASES,
+                         ids=[f"{w}-{k}" for w, k in TREE_CASES])
+def test_tree_sum_plain_matches_jax_tree_sum(curve, width, kind, monkeypatch):
+    """The port's tree_sum (its plain form here) against the JAX package's
+    models/naive.py:tree_sum, word for word: the same pairs (lane i +
+    lane i + half) at every level.  The JAX tree runs as written, its
+    levels' lane-wise fused_add on padded lanes (one compile a curve)."""
+    group, jgroup = SPEC[curve][:2]
+    rng = random.Random(f"tree-{curve}-{width}-{kind}")
+    port, jpts = both_points(curve, tree_points(curve, width, kind, rng), rng)
+    monkeypatch.setattr(jnaive, "fused_add", jax_fused_add_padded(curve))
+    want = carry(jnaive.tree_sum(jgroup, jpts), curve)
+    got = K.tree_sum(port, group)
+    assert got.shape == (group.rows, 1)
+    assert torch.equal(got, want)
+    assert torch.equal(K.tree_sum_plain(port, group), want)
+
+
+def brev(s: int, bits: int) -> int:
+    """The low `bits` bits of s reversed (__brev(s) >> (32 - bits))."""
+    return int(f"{s:0{bits}b}"[::-1], 2) if bits else 0
+
+
+def tree_sum_kernel_model(points, group, threads):
+    """csrc/canon.cu's tree_sum_kernel schedule, `threads` threads a block:
+    G = N / (2 threads) blocks (at least 1, at most 2 threads), block b
+    the lanes b + G k; block_fold (a thread's elements t + threads r
+    folded on its own depth first, in bit-reversed order of the first
+    level's pairs, then a level a step over the threads), then the last
+    block's block_fold over the G partials; each add a one-lane
+    fused_add_plain."""
+    n = points.shape[1]
+    blocks = min(max(n // (2 * threads), 1), 2 * threads)
+
+    def add(x, y):
+        return K.fused_add_plain(x, y, group)
+
+    def thread_fold(col, base, stride, per):
+        pairs = per // 2
+        bits = pairs.bit_length() - 1
+        stack = []
+        for s in range(pairs):
+            r = brev(s, bits)
+            stack.append(add(col(base + stride * r),
+                             col(base + stride * (r + pairs))))
+            c = s + 1
+            while c % 2 == 0:
+                top = stack.pop()
+                stack[-1] = add(stack[-1], top)
+                c //= 2
+        assert len(stack) == 1
+        return stack[0]
+
+    def block_fold(col, base, stride, count):
+        width = min(count, threads)
+        sm = [thread_fold(col, base + stride * t, stride * threads,
+                          count // threads) if count > threads
+              else col(base + stride * t) for t in range(width)]
+        off = width // 2
+        while off >= 1:
+            for t in range(off):
+                sm[t] = add(sm[t], sm[t + off])
+            off //= 2
+        return sm[0]
+
+    def lanes(plane):
+        return lambda j: plane[:, j:j + 1]
+
+    parts = [block_fold(lanes(points), b, blocks, n // blocks)
+             for b in range(blocks)]
+    if blocks == 1:
+        return parts[0]
+    return block_fold(lanes(torch.cat(parts, dim=1)), 0, 1, blocks)
+
+
+@CURVES
+@pytest.mark.parametrize("threads", [2, 4])
+def test_tree_sum_kernel_schedule_is_the_tree(curve, threads):
+    """The kernel's schedule, at 2 and 4 threads a block (so that small
+    widths take one block, several, and a thread's own levels over up to
+    16 elements), against the plain tree word for word: the same pairs,
+    only in another order of evaluation."""
+    group = SPEC[curve][0]
+    ctx = group.ctx
+    rng = random.Random(f"tree-model-{curve}-{threads}")
+    for width in (1, 2, 4, 8, 16, 32, 64, 128):
+        plane = F.ints_to_plane([rng.randrange(ctx.p) for _ in range(
+            width * group.rows // ctx.nw)], nw=ctx.nw)
+        plane = plane.reshape(ctx.nw, group.rows // ctx.nw, width)
+        plane = plane.transpose(0, 1).reshape(group.rows, width)
+        assert torch.equal(tree_sum_kernel_model(plane, group, threads),
+                           K.tree_sum_plain(plane, group)), width
+
+
+# -- row 12c: running_sum ------------------------------------------------------
+
+
+@CURVES
+@pytest.mark.parametrize("steps", [1, 3, 8])
+def test_running_sum_plain_matches_chained_jax_fused_running_add(curve, steps):
+    """running_sum over a step-major walk against `steps` chained calls of
+    the JAX package's fused_running_add (its jnp branch), word for word;
+    m starts at the identity in lane 0 and g in lane 1, and step 0's
+    addends are equal to m (lane 2) and its inverse (lane 3)."""
+    group, jgroup = SPEC[curve][:2]
+    _, zero, neg, _ = oracle_ops(curve)
+    n = 8
+    rng = random.Random(f"running-{curve}-{steps}")
+    m0, g0 = random_points(curve, n, rng), random_points(curve, n, rng)
+    m0[0], g0[1] = zero, zero
+    walk = random_points(curve, steps * n, rng)
+    walk[2], walk[3] = m0[2], neg(m0[3])
+    pm, jm = both_points(curve, m0, rng)
+    pg, jg = both_points(curve, g0, rng)
+    pw, jw = both_points(curve, walk, rng)
+    step = jax_kernel(curve, "fused_running_add")
+    for t in range(steps):
+        jm, jg = step(jm, jg, jgroup.Point(*(c[:, t * n:(t + 1) * n]
+                                             for c in jw)))
+    want = carry(jm, curve), carry(jg, curve)
+    got = K.running_sum_plain(pm, pg, pw, steps, group)
+    for g_, w_ in zip(got, want):
+        assert g_.shape == (group.rows, n)
+        assert torch.equal(g_, w_)
+    # the wrapper takes the plain form for CPU tensors; one step is the
+    # one-step counterpart of the JAX function
+    for g_, w_ in zip(K.running_sum(pm, pg, pw, steps, group), want):
+        assert torch.equal(g_, w_)
+    assert all(torch.equal(a, b) for a, b in zip(
+        K.fused_running_add(pm, pg, pw[:, :n], group),
+        K.fused_running_add_plain(pm, pg, pw[:, :n], group)))
+
+
+@CURVES
+def test_tree_sum_and_running_sum_check_their_operands(curve):
+    group = SPEC[curve][0]
+    rows = group.rows
+    plane = C.merge(group.zero(8))
+    for width in (0, 3, 6, 12):
+        with pytest.raises(ValueError, match="power-of-two"):
+            K.tree_sum(torch.zeros((rows, width), dtype=torch.int32), group)
+    with pytest.raises(ValueError):
+        K.tree_sum(plane[:rows - 1], group)
+    walk = torch.cat([plane] * 3, dim=1)
+    assert all(torch.equal(x, plane) for x in
+               K.running_sum(plane, plane, walk, 3, group))
+    for steps in (0, -1):
+        with pytest.raises(ValueError, match="steps"):
+            K.running_sum(plane, plane, walk, steps, group)
+    with pytest.raises(ValueError):
+        K.running_sum(plane, plane, walk, 2, group)  # 24 columns, not 16
+    with pytest.raises(ValueError):
+        K.running_sum(plane, plane[:, :4], walk, 3, group)
+    with pytest.raises(ValueError):
+        K.running_sum(plane[:rows - 1], plane[:rows - 1], walk[:rows - 1], 3,
+                      group)
+    # one level of the tree has no kernel: CPU only
+    assert torch.equal(K.fused_add(plane, plane, group), plane)

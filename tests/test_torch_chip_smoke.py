@@ -3,8 +3,9 @@ random.Random's own, word for word and in the generator's state after them;
 the product-tree inversion equals pow(z, -1, p); a tiny bench case equals
 the seed scheme computed with Python integers and the bigint oracle; the
 MSM oracle of the bench cases equals the naive bigint MSM; phase 2's
-product and fold cases are made on the CPU too; and the kernel table
-covers every path.  Exact equality throughout.
+product, fold and tree-sum cases are made on the CPU too; the running-sum
+chain of a tiny case is the oracle's; and the kernel table covers every
+path.  Exact equality throughout.
 """
 
 import random
@@ -179,3 +180,44 @@ def test_kernel_table_covers_every_path():
         assert "fold_pieces" + tag in cs.PATHS[pre + "legacy_14"]
         assert cs.HOME["fold_pieces" + tag] == pre + "fused_10"
     assert set(cs.ONCE) <= {k for k in cs.KERNELS}
+    # rows 12b and 12c: the naive engine's tree sum and the running-sum
+    # chain, one launch a run each, homed on their paths; no one-step
+    # canonical kernel is left
+    for tag in ("", "_ed"):
+        pre = "ed_" if tag else ""
+        assert cs.KERNELS["tree_sum" + tag][1].endswith("pallas_kernels.py:302")
+        assert cs.KERNELS["running_sum" + tag][1].endswith(
+            "pallas_kernels.py:415")
+        assert cs.HOME["tree_sum" + tag] == pre + "naive"
+        assert cs.HOME["running_sum" + tag] == pre + "running_sum"
+        assert {"fused_add" + tag, "fused_running_add" + tag}.isdisjoint(
+            cs.KERNELS)
+    assert {"tree_sum", "running_sum"} <= set(cs.ONCE)
+
+
+@pytest.mark.parametrize("curve", ["bls12_377", "edwards_bls12"],
+                         ids=["", "ed"])
+def test_phase2_tree_cases_and_chain_on_the_cpu(curve, monkeypatch):
+    """tree_cases builds its planes on the CPU (narrow widths here; the
+    wrapper takes the plain form, so each case equals itself), widths
+    1 and 2 among them and each plane twice; the running-sum chain of a
+    tiny bench case (one running_sum over the step-major walk, BPR stage 1
+    over the same walk) is the oracle's lane 0."""
+    from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
+    from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
+
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    group = C.G1 if curve == "bls12_377" else C.EDWARDS
+    cases = cs.tree_cases(random.Random(4), group, widths=(16,))
+    assert [c[0] for c in cases] == ["tree_sum" + group.ctx.tag] * 10
+    assert [c[1].shape for c in cases] == [(group.rows, 1)] * 10
+    for _, got, want in cases:
+        assert torch.equal(got, want)
+    pw, _, _ = cs.bench_case(3, curve)
+    K.reset_launches()
+    calls = []
+    real = K.running_sum
+    monkeypatch.setattr(K, "running_sum", lambda *a: (
+        calls.append(a[3]), real(*a))[1])
+    assert cs.running_sum_chain(pw, curve) == cs.running_sum_oracle(pw, curve)
+    assert calls == [8]

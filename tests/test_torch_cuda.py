@@ -590,7 +590,7 @@ def edge_lanes(group, a, b):
 
 @GROUPS
 def test_canonical_family_and_masked_add_mixed(dev, group):
-    """The canonical add and running add on random lanes (identity, equal
+    """The tree sum and the running sum on random lanes (identity, equal
     and inverse operands among them), and kernel 6 and the scalar
     multiplication, which replace the one-step masked mixed add and
     double-and-add, on random lanes too: one launch each."""
@@ -610,13 +610,100 @@ def test_canonical_family_and_masked_add_mixed(dev, group):
     K.reset_launches()
     same(B.legacy_buckets(table, vals, starts, lens, group),
          B.legacy_buckets_plain(table, vals, starts, lens, group))
-    same(K.fused_add(a, b, group), K.fused_add_plain(a, b, group))
+    pts = torch.cat([a[:, :512], b[:, :512]], dim=1)
+    same(K.tree_sum(pts, group), K.tree_sum_plain(pts, group))
     same(K.scalar_mult(aff, sw, 2, group), K.scalar_mult_plain(aff, sw, 2, group))
     same(K.fused_running_add(a, g, b, group),
          K.fused_running_add_plain(a, g, b, group))
     assert dict(K.launches) == {
-        k + tag: 1 for k in ("legacy_buckets", "fused_add", "scalar_mult",
-                             "fused_running_add")}
+        k + tag: 1 for k in ("legacy_buckets", "tree_sum", "scalar_mult",
+                             "running_sum")}
+    # one level of the tree has no kernel of its own
+    with pytest.raises(ValueError, match="no kernel"):
+        K.fused_add(a, b, group)
+
+
+def tree_planes(group, x):
+    """Planes of 2 * x's width for the tree sum: x then edge_lanes of it
+    (the first level meets the identity, an equal and an inverse lane);
+    x twice (every first-level add a doubling); x then its negation (the
+    first level all identities)."""
+    neg = C.merge(group.neg(group.split(x)))
+    return [torch.cat([x, edge_lanes(group, x, x.flip(1))], dim=1),
+            torch.cat([x, x], dim=1), torch.cat([x, neg], dim=1)]
+
+
+@GROUPS
+@pytest.mark.parametrize("width", [1, 2, 256, 512, 4096, 1 << 16, 1 << 18])
+def test_tree_sum_on_the_card(dev, group, width):
+    """msm_tree_sum against its plain form (log2 N levels of the canonical
+    add), bit for bit, from one block (up to 256 lanes) to 256 blocks
+    (2^16, the naive call's width) with the last block's finish, and at
+    2^18, where a thread first folds four lanes on its own; each plane
+    twice, so that state left behind by one launch would show in the
+    next."""
+    ctx, tag = group.ctx, group.ctx.tag
+    rng = random.Random(f"tree{tag}{width}")
+    if width < 8:
+        planes = [rand_plane(rng, group.rows, width, ctx.p, dev, ctx.nw)]
+    else:
+        planes = tree_planes(group, rand_plane(rng, group.rows, width // 2,
+                                               ctx.p, dev, ctx.nw))
+    K.reset_launches()
+    for pts in planes:
+        want = K.tree_sum_plain(pts, group)
+        for _ in range(2):
+            same(K.tree_sum(pts, group), want)
+    assert dict(K.launches) == {"tree_sum" + tag: 2 * len(planes)}
+
+
+@GROUPS
+def test_tree_sum_on_two_streams_at_once(dev, group):
+    """Two msm_tree_sum launches at 2^16 (256 blocks and the last block's
+    finish), each on its own stream and both enqueued before either ends,
+    three times: each call counts its blocks in its own scratch, so both
+    equal the plain form."""
+    ctx, tag = group.ctx, group.ctx.tag
+    rng = random.Random(f"tree2{tag}")
+    planes = [rand_plane(rng, group.rows, 1 << 16, ctx.p, dev, ctx.nw)
+              for _ in range(2)]
+    want = [K.tree_sum_plain(pts, group) for pts in planes]
+    streams = [torch.cuda.Stream(device=dev) for _ in planes]
+    torch.cuda.synchronize(dev)
+    K.reset_launches()
+    for _ in range(3):
+        got = []
+        for stream, pts in zip(streams, planes):
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                got.append(K.tree_sum(pts, group))
+        torch.cuda.synchronize(dev)
+        for g, w in zip(got, want):
+            same(g, w)
+    assert dict(K.launches) == {"tree_sum" + tag: 6}
+
+
+@GROUPS
+@pytest.mark.parametrize("steps", [1, 3, 8])
+def test_running_sum_on_the_card(dev, group, steps):
+    """msm_running_sum against its plain form (steps one-step plain
+    forms), bit for bit, twice: m and g with identity lanes, step 0's
+    addends equal to m and its inverse (edge_lanes)."""
+    ctx, tag = group.ctx, group.ctx.tag
+    rng = random.Random(f"running{tag}{steps}")
+    m, g = (rand_plane(rng, group.rows, LANES, ctx.p, dev, ctx.nw)
+            for _ in range(2))
+    zero = C.merge(group.zero(1, dev))[:, 0]
+    m[:, 0], g[:, 1] = zero, zero
+    walk = [edge_lanes(group, m, rand_plane(rng, group.rows, LANES, ctx.p,
+                                            dev, ctx.nw))
+            for _ in range(steps)]
+    walk = torch.cat(walk, dim=1)
+    want = K.running_sum_plain(m, g, walk, steps, group)
+    K.reset_launches()
+    for _ in range(2):
+        same(K.running_sum(m, g, walk, steps, group), want)
+    assert dict(K.launches) == {"running_sum" + tag: 2}
 
 
 def scalar_words_of(ks, dev):
@@ -791,7 +878,7 @@ def test_naive_engine_on_the_card(dev, request, group):
             [crv.ed_from_affine(*a) for a in aff], scalars, EDWARDS))
     assert got == want
     assert K.launches["scalar_mult" + tag] == 1
-    assert K.launches["fused_add" + tag] == 6
+    assert K.launches["tree_sum" + tag] == 1
 
 
 def test_engine_on_the_card_matches_oracle(dev):

@@ -108,23 +108,34 @@ time at 2^16 and 2^14 is reported too):
     sums buckets in one launch (legacy_buckets), also that launch over the
     engine's pieces and over whole buckets, and the fold of the pieces;
   - row 12a, the naive engine's scalar multiplication
-    (batched_scalar_mult), and row 12b, its tree sum (tree_sum, fused_add
-    launches), on the operands of one NaiveMsmEngine call at 2^16;
-  - row 12c, the running-sum chain's eight fused_running_add launches at
-    2^16 (chip_smoke.py's running_sum_chain), each on its operands;
+    (batched_scalar_mult), and row 12b, its tree sum (tree_sum: a
+    fused_add launch a level, or the one launch), on the operands of one
+    NaiveMsmEngine call at 2^16;
+  - row 12c, the running-sum chain at 2^16 (chip_smoke.py's
+    running_sum_chain) on its operands: its eight fused_running_add
+    launches, or its one running_sum launch over the walk;
+  - one canonical add's latency: the checkout's one-add launch on one
+    lane (fused_add, a lone thread's add; or the tree sum of two lanes,
+    one cooperative add), and the running sum of one lane over 1, 2, 8
+    and 16 steps (where the checkout has it), whose slope is a lone
+    thread's two dependent adds a step: a tree of a thread an add is
+    log2 N of them deep;
   - the warm PippengerMsmEngine and NaiveMsmEngine calls at 2^16 and the
     forced legacy call at 2^14, host clock, fenced, median of five (two
     for a checkout that runs the 2^14 legacy call in rounds);
   each kernel time with the profiler's device time a call;
   - with --variants, legacy.cu and canon.cu built with each of
-    BASELINE_VARIANTS' flags (the C-form product; 1, 2 and 3 blocks a SM)
+    BASELINE_VARIANTS' flags (the C-form product; 1, 2 and 3 blocks a SM
+    for the legacy SMVP, the scalar multiplication and the running sum)
     and the rows timed again with each, with each library's ptxas
     registers and spills.
 
 --sass times nothing: for each field and each product form (the C form,
 and -DMSM_MONT_CHAIN) it compiles SASS_KERNELS, which call
 csrc/field.cuh's mont_mul once (one_mont_mul) and mont_mul_pair once
-(one_mont_mul_pair), into sm_90a cubins under build/sass/, disassembles
+(one_mont_mul_pair), and csrc/curve.cuh's canonical add pt_add (one_pt_add)
+and lazy full add pt_add_lazy (one_pt_add_lazy) once, into sm_90a cubins
+under build/sass/, disassembles
 them with cuobjdump -sass and prints one JSON line of each kernel's
 instruction count by opcode (the part before the first dot: IMAD,
 IADD3, ...; the operands' loads and stores are in every count alike):
@@ -173,7 +184,7 @@ BASELINE_VARIANTS = {
 
 #: --sass: one product of each kind, on its own
 SASS_KERNELS = r"""
-#include "field.cuh"
+#include "curve.cuh"
 
 __global__ void one_mont_mul(const u32* __restrict__ a,
                              const u32* __restrict__ b, u32* __restrict__ r) {
@@ -193,7 +204,28 @@ __global__ void one_mont_mul_pair(const u32* __restrict__ a,
   mont_mul_pair(z, x, y, y, x);
   for (int i = 0; i < NW; ++i) r[i * 1024 + threadIdx.x] = z[i];
 }
+
+__global__ void one_pt_add(const int32_t* __restrict__ a,
+                           int32_t* __restrict__ r) {
+  Point x, y;
+  pt_load(x, a, 2048, threadIdx.x);
+  pt_load(y, a, 2048, threadIdx.x + 1024);
+  pt_add(x, x, y);
+  pt_store(r, 1024, threadIdx.x, x);
+}
+
+__global__ void one_pt_add_lazy(const int32_t* __restrict__ a,
+                                int32_t* __restrict__ r) {
+  Point x, y;
+  pt_load(x, a, 2048, threadIdx.x);
+  pt_load(y, a, 2048, threadIdx.x + 1024);
+  pt_add_lazy(x, x, y);
+  pt_store(r, 1024, threadIdx.x, x);
+}
 """
+#: SASS_KERNELS' names, a name before any that it contains
+SASS_NAMES = ("one_mont_mul_pair", "one_mont_mul", "one_pt_add_lazy",
+              "one_pt_add")
 
 
 def sass_opcodes(sass: str) -> dict:
@@ -202,8 +234,7 @@ def sass_opcodes(sass: str) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = ("one_mont_mul_pair" if "pair" in m.group(1)
-                    else "one_mont_mul")
+            name = next(k for k in SASS_NAMES if k in m.group(1))
             current = out.setdefault(name, {"total": 0})
             continue
         m = re.match(
@@ -300,7 +331,9 @@ PTXAS_KERNELS = (("full", "tree_level_kernelILb0ELi2"), ("fold", "fold_pieces"),
                  ("scalar_mult", "scalar_mult_kernel"),
                  ("masked_add_and_double", "masked_add_and_double_kernel"),
                  ("fused_add", "fused_add_kernel"),
-                 ("running_add", "fused_running_add_kernel"))
+                 ("running_add", "fused_running_add_kernel"),
+                 ("running_sum", "running_sum_kernel"),
+                 ("tree_sum", "tree_sum_kernel"))
 
 
 def ptxas_regs(log: str) -> dict:
@@ -668,6 +701,34 @@ def baseline_rows(opts, smi, kernel_ms) -> int:
             with using(K, libs):
                 res[f"{key}_{v}"] = kernel_ms(fn, reps)
 
+    def add_latency(key, group, one):
+        """One canonical add's latency: the one-add launch on one lane (a
+        fused_add, or the tree sum of two lanes: one cooperative add) and,
+        with running_sum, one lane's running sum over 1, 2, 8 and 16 steps
+        (a lone thread's 2 dependent adds a step), profiler device time a
+        call."""
+        # random coordinates below p (their top two words zero): the
+        # add's work does not depend on them
+        nw = group.ctx.nw
+        pts = torch.randint(0, 1 << 31, (group.rows, 16), device="cuda",
+                            dtype=torch.int32,
+                            generator=torch.Generator("cuda").manual_seed(12))
+        pts.view(group.rows // nw, nw, 16)[:, -2:] = 0
+        if one:
+            fn = lambda: K.tree_sum(pts[:, :2].contiguous(), group)  # noqa: E731
+        else:
+            a, b = pts[:, :1].contiguous(), pts[:, 1:2].contiguous()
+            fn = lambda: K.fused_add(a, b, group)  # noqa: E731
+        res[f"add_latency{key}"] = kernel_ms(fn, 5)
+        res[f"add_latency{key}_device_us"] = device_us(fn, 5)
+        if not one:
+            return
+        m, g = pts[:, :1].contiguous(), pts[:, 1:2].contiguous()
+        for steps in (1, 2, 8, 16):
+            walk = pts[:, :steps].contiguous()
+            res[f"running_lane{key}_{steps}_device_us"] = device_us(
+                lambda: K.running_sum(m, g, walk, steps, group), 5)
+
     def warm(key, fn, args, reps):
         fn(*args)
         times = []
@@ -729,15 +790,18 @@ def baseline_rows(opts, smi, kernel_ms) -> int:
             timed(f"row12a{key}", lambda: naive.batched_scalar_mult(*sm_args))
             timed(f"row12b{key}", lambda: naive.tree_sum(*ts_args))
             warm(f"msm{key}_naive", fn, (pw, sw), 5)
-            # row 12c: the running-sum chain's steps, each on its operands
-            calls = captured(cs.running_sum_chain, (pw, curve),
-                             (K, "fused_running_add"))
-            steps = calls["fused_running_add"]
+            # row 12c: the running-sum chain on its operands (the parent's
+            # steps, each a launch, or the one launch over the walk)
+            one = hasattr(K, "running_sum")
+            name = "running_sum" if one else "fused_running_add"
+            steps = captured(cs.running_sum_chain, (pw, curve),
+                             (K, name))[name]
 
             def chain():
                 for a in steps:
-                    K.fused_running_add(*a)
+                    getattr(K, name)(*a)
             timed(f"row12c{key}", chain)
+            add_latency(key, ts_args[1], one)
             del args, calls, sm_args, ts_args, steps
     print(smi)
     print(json.dumps(res))

@@ -24,8 +24,9 @@
 // Every kernel is written against one vocabulary that both curves define:
 // Point, Affine, pt_zero, pt_from_affine, pt_add_affine_lazy,
 // pt_add_mixed_lazy, pt_add_lazy, pt_double_lazy, pt_canon, pt_add,
-// pt_add_mixed, pt_double, pt_neg_affine, pt_load, pt_store and aff_load;
-// the row loaders at the end (aff_load_row, load_signed_aff) serve both.
+// pt_add_mixed, pt_double, pt_add_coop, pt_neg_affine, pt_load, pt_store
+// and aff_load; the row loaders at the end (aff_load_row, load_signed_aff)
+// serve both.
 #pragma once
 #include "field.cuh"
 
@@ -44,6 +45,21 @@ __device__ __forceinline__ void fe_store(int32_t* plane, size_t ncols,
 #pragma unroll
   for (int w = 0; w < NW; ++w) plane[(size_t)(row0 + w) * ncols + j] = (int32_t)a[w];
 }
+
+__device__ __forceinline__ void fe_sel(u32 r[NW], bool c, const u32 a[NW],
+                                       const u32 b[NW]) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i) r[i] = c ? a[i] : b[i];
+}
+
+// pt_add_coop: pt_add run by a group of PT_COOP threads, a thread a product
+// of each stage of the formula, the stages' values passed through the
+// group's PT_COOP_SCRATCH elements of shared memory.  Every value is the
+// field element pt_add computes, and a canonical value has one
+// representation: the same words as pt_add.  A change to pt_add's formula
+// is made in pt_add_coop too.
+#define PT_COOP 8
+#define PT_COOP_SCRATCH 12
 
 // A sorted entry stream holds point index | positive-sign bit 30; the
 // signed table's rows [0, N) hold the points, [N, 2N) their negatives.
@@ -238,6 +254,65 @@ __device__ __forceinline__ void pt_add(Point& r, const Point& p,
   mont_mul_mod(t0, t0, t3);
   mont_mul_mod(Z3, Z3, t4);
   fe_add_mod(r.z, Z3, t0);
+}
+
+// p = p + q, pt_add in three stages (p, q and S in shared memory; g the
+// thread's rank in its group; a group with on false only synchronizes):
+// t0 = x1 x2, t1 = y1 y2, t2 = z1 z2, t3 = (x1 + y1)(x2 + y2),
+// t4 = (y1 + z1)(y2 + z2), t5 = (x1 + z1)(x2 + z2), a thread each; then
+// d0 = t3 - (t0 + t1), d1 = t4 - (t1 + t2), d2 = 3 (t5 - (t0 + t2)),
+// d3 = 3 t0, d4 = t1 + 3 t2, d5 = t1 - 3 t2 in every thread, and x = d1 d2,
+// T2 = d0 d5, y = d2 d3, T1 = d5 d4, T0 = d3 d0, z = d4 d1, a thread each;
+// then x3 = T2 - x, y3 = T1 + y, z3 = z + T0.  Every thread of the block
+// calls it: it synchronizes the block.
+__device__ __forceinline__ void pt_add_coop(Point& p, const Point& q,
+                                            u32 (*S)[NW], int g, bool on) {
+  u32 (*P)[NW] = reinterpret_cast<u32(*)[NW]>(&p);
+  const u32 (*Q)[NW] = reinterpret_cast<const u32(*)[NW]>(&q);
+  u32 a[NW], b[NW], r[NW];
+  if (on && g < 6) {
+    const int i = g < 3 ? g : g == 4 ? 1 : 0, j = g == 3 ? 1 : 2;
+    fe_add_mod(r, P[i], P[j]);
+    fe_sel(a, g < 3, P[i], r);
+    fe_add_mod(r, Q[i], Q[j]);
+    fe_sel(b, g < 3, Q[i], r);
+    mont_mul_mod(r, a, b);
+    fe_copy(S[g], r);
+  }
+  __syncthreads();
+  if (on && g < 6) {
+    u32 d[6][NW];
+    fe_add_mod(r, S[0], S[1]);
+    fe_sub_mod(d[0], S[3], r);
+    fe_add_mod(r, S[1], S[2]);
+    fe_sub_mod(d[1], S[4], r);
+    fe_add_mod(r, S[0], S[2]);
+    fe_sub_mod(r, S[5], r);
+    fe_triple_mod(d[2], r);
+    fe_triple_mod(d[3], S[0]);
+    fe_triple_mod(r, S[2]);
+    fe_add_mod(d[4], S[1], r);
+    fe_sub_mod(d[5], S[1], r);
+    // operand pairs (1, 2), (0, 5), (2, 3), (5, 4), (3, 0), (4, 1)
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      a[w] = g == 0 ? d[1][w] : g == 1 ? d[0][w] : g == 2 ? d[2][w]
+           : g == 3 ? d[5][w] : g == 4 ? d[3][w] : d[4][w];
+      b[w] = g == 0 ? d[2][w] : g == 1 ? d[5][w] : g == 2 ? d[3][w]
+           : g == 3 ? d[4][w] : g == 4 ? d[0][w] : d[1][w];
+    }
+    mont_mul_mod(r, a, b);
+    fe_copy(S[6 + g], r);
+  }
+  __syncthreads();
+  if (on && g < 3) {
+    if (g == 0)
+      fe_sub_mod(r, S[7], S[6]);
+    else
+      fe_add_mod(r, S[6 + 2 * g + 1], S[6 + 2 * g]);
+    fe_copy(P[g], r);
+  }
+  __syncthreads();
 }
 
 // Complete mixed add (RCB Alg. 8): 11 products.  The affine addend
@@ -476,6 +551,47 @@ __device__ __forceinline__ void pt_add(Point& r, const Point& p,
   u32 dd[NW];
   mont_mul_mod(dd, p.z, q.z);
   ed_add_core(r, p, q.x, q.y, q.t, dd);
+}
+
+// p = p + q, pt_add in two stages (p, q and S in shared memory; g the
+// thread's rank in its group; a group with on false only synchronizes):
+// a = x1 x2, b = y1 y2, c = d t1 t2 (both products in one thread),
+// dd = z1 z2, e = (x1 + y1)(x2 + y2), a thread each; then e' = e - a - b,
+// f = dd - c, g = dd + c, h = b + a in every thread, and x3 = e' f,
+// y3 = g h, t3 = e' h, z3 = f g, a thread each.  Every thread of the block
+// calls it: it synchronizes the block.
+__device__ __forceinline__ void pt_add_coop(Point& p, const Point& q,
+                                            u32 (*S)[NW], int g, bool on) {
+  u32 (*P)[NW] = reinterpret_cast<u32(*)[NW]>(&p);
+  const u32 (*Q)[NW] = reinterpret_cast<const u32(*)[NW]>(&q);
+  u32 a[NW], b[NW], r[NW];
+  if (on && g < 5) {
+    const int i = g < 4 ? g : 0;
+    fe_add_mod(r, P[0], P[1]);
+    fe_sel(a, g < 4, P[i], r);
+    fe_add_mod(r, Q[0], Q[1]);
+    fe_sel(b, g < 4, Q[i], r);
+    mont_mul_mod(r, a, b);
+    if (g == 2) mont_mul_mod(r, MSM_D_MONT, r);
+    fe_copy(S[g], r);
+  }
+  __syncthreads();
+  if (on && g < 4) {
+    u32 e[NW], f[NW], gg[NW], h[NW];
+    fe_sub_mod(e, S[4], S[0]);
+    fe_sub_mod(e, e, S[1]);
+    fe_sub_mod(f, S[3], S[2]);
+    fe_add_mod(gg, S[3], S[2]);
+    fe_add_mod(h, S[1], S[0]);
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      a[w] = g == 1 ? gg[w] : g == 3 ? f[w] : e[w];
+      b[w] = g == 0 ? f[w] : g == 3 ? gg[w] : h[w];
+    }
+    mont_mul_mod(r, a, b);
+    fe_copy(P[g], r);
+  }
+  __syncthreads();
 }
 
 // Complete mixed add of an affine (x, y, t) addend, z2 = 1 (the z-term is

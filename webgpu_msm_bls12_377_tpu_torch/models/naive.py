@@ -4,11 +4,12 @@ The baseline engine of the JAX package's models/naive.py: every point is
 multiplied by its scalar with the double-and-add over the scalar's 256
 bits, least significant first (the JAX package's 256 steps of
 masked_add_and_double; here one launch of kernel 7's scalar_mult, one
-thread a lane's whole chain), then the products are folded with a
-log-depth tree of kernel 7's fused_add and leave the Montgomery domain
-through kernel 1, whose point prep also made the Montgomery table.  It
-costs ~256 point operations per point against the cuZK pipeline's ~16,
-and is a correctness and throughput baseline only.
+thread a lane's whole chain), then the products are folded with the JAX
+package's log-depth tree (log2 N levels of its fused_add; here one launch
+of kernel 7's tree_sum, which reads the plane in place) and leave the
+Montgomery domain through kernel 1, whose point prep also made the
+Montgomery table.  It costs ~256 point operations per point against the
+cuZK pipeline's ~16, and is a correctness and throughput baseline only.
 All of it runs in the canonical domain, for either curve (the group picks
 the planes and the kernels' builds).
 """
@@ -23,10 +24,10 @@ from ..ops.convert import WireLayout
 from ..ops.kernels import (
     PLANE,
     SCALAR_BITS,
-    fused_add,
     mont_mul_const,
     point_prep,
     scalar_mult,
+    tree_sum,
 )
 from ..params import CurveId
 from .cuzk import resolve_device, words_to_device
@@ -40,20 +41,6 @@ def batched_scalar_mult(table: torch.Tensor, scalar_words: torch.Tensor,
     (26, N) (x; y), Edwards (27, N) (x; y; t)), scalar_words (8, N) int32
     (the u32 bits).  Returns the (39|36, N) canonical plane."""
     return scalar_mult(table, scalar_words, SCALAR_BITS, group)
-
-
-def tree_sum(points: torch.Tensor, group=G1) -> torch.Tensor:
-    """Fold the lanes of a (39|36, N) plane into lane 0 with log2(N)
-    batched adds (N a power of two)."""
-    width = points.shape[1]
-    if width & (width - 1):
-        raise ValueError(f"tree_sum needs a power-of-two width, got {width}")
-    while width > 1:
-        half = width // 2
-        points = fused_add(points[:, :half].contiguous(),
-                           points[:, half:width].contiguous(), group)
-        width = half
-    return points
 
 
 class NaiveMsmEngine:

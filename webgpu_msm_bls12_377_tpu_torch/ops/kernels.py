@@ -3,9 +3,10 @@ kernels: 1 (the point prep: wire words to the Montgomery table or the
 signed table in one launch; and the constant product of the Montgomery
 exit), 4 (lazy BPR family: stage 1, stage 2 and the window fold, each in
 one launch, and the lane-wise add), 6 (the legacy SMVP: every segment's
-canonical sum in one launch) and 7 (canonical add, the whole
-double-and-add of a scalar multiplication, running-sum step), and
-tree.cu's Montgomery products on their own (field_mul_lanes).
+canonical sum in one launch) and 7 (canonical: the whole double-and-add
+of a scalar multiplication, the whole tree sum and the whole running-sum
+chain, one launch each), and tree.cu's Montgomery products on their own
+(field_mul_lanes).
 
 Every kernel source under csrc/ is compiled by nvcc for sm_90a into a
 shared library with a plain C interface, loaded with ctypes, and a second
@@ -66,7 +67,8 @@ launches: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _INT = ctypes.c_int
-#: C signature (after the leading pointers) of every entry point
+#: C signature of every exported function: the entry points, the stream
+#: last, and msm_tree_sum_scratch, the words of the tree sum's scratch
 _ARGTYPES = {
     "convert": {
         "msm_point_prep": [_P, _P, _I64, _I64, _I64, _I64, _INT, _P, _P],
@@ -95,9 +97,10 @@ _ARGTYPES = {
         "msm_legacy_buckets": [_P, _I64, _P, _P, _P, _P, _I64, _P],
     },
     "canon": {
-        "msm_fused_add": [_P, _P, _P, _I64, _P],
         "msm_scalar_mult": [_P, _P, _INT, _P, _I64, _P],
-        "msm_fused_running_add": [_P, _P, _P, _P, _P, _I64, _P],
+        "msm_running_sum": [_P, _P, _P, _INT, _P, _P, _I64, _P],
+        "msm_tree_sum": [_P, _P, _P, _I64, _P],
+        "msm_tree_sum_scratch": [_I64],
     },
     "fused": {
         "msm_fused_buckets": [_P, _P, _P, _P, _I64, _P],
@@ -614,15 +617,48 @@ def fused_running_add_plain(m, g, b, group=G1):
 
 
 def fused_add(a, b, group=G1):
-    """Canonical complete add of every lane."""
+    """Canonical complete add of every lane: the JAX package's fused_add
+    (one level of its tree sum), for holding the port against it on the
+    CPU.  The card has no kernel for one level: the naive engine's tree
+    sum runs every level in one launch (tree_sum), so CUDA tensors
+    raise."""
     n = check_plane(a, group.rows)
     check_plane(b, group.rows, n)
-    if not on_cuda(a, b):
-        return fused_add_plain(a, b, group)
-    out = torch.empty_like(a)
+    if on_cuda(a, b):
+        raise ValueError("fused_add has no kernel: on the card tree_sum "
+                         "runs every level of the tree sum in one launch")
+    return fused_add_plain(a, b, group)
+
+
+def tree_sum_plain(points, group=G1):
+    """Plain form of tree_sum: log2 N levels of fused_add_plain, the JAX
+    package's models/naive.py:tree_sum."""
+    width = points.shape[1]
+    while width > 1:
+        half = width // 2
+        points = fused_add_plain(points[:, :half], points[:, half:width],
+                                 group)
+        width = half
+    return points
+
+
+def tree_sum(points, group=G1):
+    """The lanes of a canonical (39|36, N) plane folded into one, (39|36,
+    1), in one launch: the JAX package's tree (log2 N levels, lane i +
+    lane i + half at each, i < half), so its words.  N a power of two."""
+    n = check_plane(points, group.rows)
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"tree_sum needs a power-of-two width, got {n}")
+    if not on_cuda(points):
+        return tree_sum_plain(points, group)
+    out = torch.empty((group.rows, 1), dtype=torch.int32,
+                      device=points.device)
     tag = group.ctx.tag
-    launch("canon" + tag, "msm_fused_add", "fused_add" + tag, n,
-           a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+    # the blocks' partials and their counter: the call's own, zeroed
+    words = _lib("canon" + tag).msm_tree_sum_scratch(n)
+    scratch = torch.zeros(words, dtype=torch.int32, device=points.device)
+    launch("canon" + tag, "msm_tree_sum", "tree_sum" + tag, n,
+           points.data_ptr(), scratch.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -665,16 +701,38 @@ def scalar_mult(table, scalars, bits=SCALAR_BITS, group=G1):
     return out
 
 
-def fused_running_add(m, g, b, group=G1):
-    """One canonical running-sum step: (m + b, g + (m + b))."""
+def running_sum_plain(m, g, walk, steps, group=G1):
+    """Plain form of running_sum: `steps` fused_running_add_plain steps,
+    step t over the walk's columns [t N, (t + 1) N)."""
+    n = m.shape[1]
+    for t in range(steps):
+        m, g = fused_running_add_plain(m, g, walk[:, t * n:(t + 1) * n],
+                                       group)
+    return m, g
+
+
+def running_sum(m, g, walk, steps, group=G1):
+    """`steps` canonical running-sum steps in one launch: m, g (39|36, N),
+    walk (39|36, steps * N) step-major (column t N + j: lane j's addend
+    b_t at step t, BPR stage 1's walk order) -> (m, g) after m' = m + b_t,
+    g' = g + m' for t = 0 .. steps - 1, the words of `steps` one-step
+    launches of the TPU's fused_running_add.  One thread a lane."""
     n = check_plane(m, group.rows)
-    for t in (g, b):
-        check_plane(t, group.rows, n)
-    if not on_cuda(m, g, b):
-        return fused_running_add_plain(m, g, b, group)
+    check_plane(g, group.rows, n)
+    if steps < 1:
+        raise ValueError(f"steps must be at least 1, got {steps}")
+    check_plane(walk, group.rows, steps * n)
+    if not on_cuda(m, g, walk):
+        return running_sum_plain(m, g, walk, steps, group)
     m2, g2 = torch.empty_like(m), torch.empty_like(g)
     tag = group.ctx.tag
-    launch("canon" + tag, "msm_fused_running_add", "fused_running_add" + tag, n,
-           m.data_ptr(), g.data_ptr(), b.data_ptr(), m2.data_ptr(),
+    launch("canon" + tag, "msm_running_sum", "running_sum" + tag, n,
+           m.data_ptr(), g.data_ptr(), walk.data_ptr(), steps, m2.data_ptr(),
            g2.data_ptr(), n)
     return m2, g2
+
+
+def fused_running_add(m, g, b, group=G1):
+    """One canonical running-sum step, (m + b, g + (m + b)): running_sum
+    over one step."""
+    return running_sum(m, g, b, 1, group)
