@@ -51,7 +51,14 @@ Phases, each of which fails the run on any error:
      zeroed just before, read just after); every path must launch the
      kernels it names (the point prep, the legacy SMVP, the scalar
      multiplication, the tree sum and the running sum once a run), and
-     together the paths cover every kernel;
+     together the paths cover every kernel.  The bench inputs come from
+     the port's harness/testdata.py (points made on the card).  Then the
+     harness: make_zipf_case (scalars zipf(1.2) from a pool of 2^8) at
+     2^20 (hybrid tree) and 2^17 (stream), both curves, against the
+     known-k oracle, each warm median beside the uniform case's;
+     debug_check at 2^17, both curves, every stage True; and
+     bench_torch.py --n 65536 --runs 2 --prewarm in a subprocess, its last
+     line a checked JSON result;
   4. one more run of each path (2^20 tree, 2^17 stream, 2^16 legacy, 2^16
      naive, the chain, 2^10 and 2^14 default fused, the forced fused run
      at 2^16 and chunk 15, 2^18 pure tree; Edwards 2^20 tree, 2^17
@@ -98,6 +105,22 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+
+try:
+    # the bench inputs: the port's harness/testdata.py
+    from webgpu_msm_bls12_377_tpu_torch.harness.testdata import (  # noqa: F401
+        MTWords,
+        batch_inverse,
+        batch_scalars,
+        bench_words,
+        make_zipf_case,
+        msm_oracle,
+        randrange_words,
+        to_wire,
+        words_to_ints,
+    )
+except ImportError:  # no torch, or no package: main() says which
+    pass
 
 #: H100 SXM published peaks: HBM bytes/s, and 32-bit
 #: multiply-adds/s taken as half the 67 TFLOP/s float32 rate (the card
@@ -763,98 +786,14 @@ def fused_plain_graphed(gathered, starts, lens, group=None):
     return C.merge(acc)
 
 
-class MTWords:
-    """The 32-bit outputs of a random.Random from its current state on,
-    drawn in bulk by numpy's MT19937 (the same generator, so the same
-    words): peek(n) shows the next n, consume(n) moves past them."""
-
-    def __init__(self, rng: random.Random):
-        import numpy as np
-
-        state = rng.getstate()[1]
-        self.gen = np.random.MT19937()
-        self.gen.state = {"bit_generator": "MT19937", "state": {
-            "key": np.array(state[:624], dtype=np.uint32), "pos": state[624]}}
-        self.buf = np.empty(0, dtype=np.uint32)
-
-    def peek(self, n: int):
-        import numpy as np
-
-        if self.buf.size < n:
-            more = self.gen.random_raw(max(n - self.buf.size, 1 << 20))
-            self.buf = np.concatenate([self.buf, more.astype(np.uint32)])
-        return self.buf[:n]
-
-    def consume(self, n: int) -> None:
-        self.buf = self.buf[n:]
+def bench_case(power: int, curve: str = "bls12_377"):
+    """The bench case's point, scalar and k words, made on DEV
+    (harness/testdata.py:bench_words)."""
+    return bench_words(power, curve, DEV)
 
 
-def randrange_words(words: MTWords, lo: int, hi: int, count: int):
-    """count draws of random.Random.randrange(lo, hi), in order, as an
-    (8, count) uint32 array (value = sum of word i << 32 i).  CPython's
-    randrange is lo + _randbelow(hi - lo): getrandbits(k), k the bit length
-    of hi - lo, built from ceil(k / 32) outputs, the lowest word first and
-    the top one shifted right to its k bits, drawn again while the value is
-    at least hi - lo.  Here every candidate is one block of outputs; the
-    first count blocks below hi - lo are the draws."""
-    import numpy as np
-
-    n = hi - lo
-    k = n.bit_length()
-    nwd = -(-k // 32)
-    bound = [(n >> (32 * i)) & 0xFFFFFFFF for i in range(nwd)]
-    out = []
-    need = count
-    while need:
-        blocks = words.peek(nwd * (2 * need + 1024)).reshape(-1, nwd).copy()
-        blocks[:, -1] >>= 32 * nwd - k
-        below = np.zeros(len(blocks), dtype=bool)
-        equal = np.ones(len(blocks), dtype=bool)
-        for i in reversed(range(nwd)):
-            below |= equal & (blocks[:, i] < bound[i])
-            equal &= blocks[:, i] == bound[i]
-        idx = np.flatnonzero(below)[:need]
-        words.consume(nwd * (int(idx[-1]) + 1 if idx.size == need else len(blocks)))
-        out.append(blocks[idx])
-        need -= idx.size
-    vals = np.zeros((count, 8), dtype=np.uint64)
-    vals[:, :nwd] = np.concatenate(out)
-    carry = np.full(count, lo, dtype=np.uint64)
-    for i in range(8):
-        s = vals[:, i] + carry
-        vals[:, i], carry = s & 0xFFFFFFFF, s >> 32
-    if carry.any():
-        raise ValueError("randrange_words: values reach 2^256")
-    return np.ascontiguousarray(vals.astype(np.uint32).T)
-
-
-def batch_inverse(z, ctx):
-    """Lane-wise inverses of a (nw, n) plane of nonzero canonical
-    Montgomery values, n a power of two, in Montgomery form: Montgomery's
-    trick as a product tree, up by pairs and down again (2 (n - 1) plain
-    lane-wise products on z's device) around one inversion on the host."""
-    import torch
-
-    from webgpu_msm_bls12_377_tpu_torch.ops import field as F
-
-    if z.shape[1] & (z.shape[1] - 1):
-        raise ValueError("batch_inverse: n must be a power of two")
-    if bool(F.is_zero(z).any()):
-        raise ValueError("batch_inverse: a zero lane")
-    levels = [z]
-    while levels[-1].shape[1] > 1:
-        t = levels[-1]
-        levels.append(F.mont_mul_canon(t[:, 0::2].contiguous(),
-                                       t[:, 1::2].contiguous(), ctx))
-    # root = Z R for the product Z of the lanes: Z^-1 R = R^2 / root
-    root = F.plane_to_ints(levels[-1])[0]
-    inv = ctx.col(ctx.params.r2 * pow(root, -1, ctx.p) % ctx.p, z.device)
-    for t in reversed(levels[:-1]):
-        nxt = torch.empty_like(t)
-        nxt[:, 0::2] = F.mont_mul_canon(inv, t[:, 1::2].contiguous(), ctx)
-        nxt[:, 1::2] = F.mont_mul_canon(inv, t[:, 0::2].contiguous(), ctx)
-        inv = nxt
-    return inv
+#: bytes of one point in the reference's wire format, by wire path
+WIRE = {"wire_tree": 96, "ed_wire_tree": 64}
 
 
 class graphed:
@@ -905,79 +844,6 @@ class graphed:
         graph.replay()
         return (tuple(o.clone() for o in out) if isinstance(out, tuple)
                 else out.clone())
-
-
-def bench_case(power: int, curve: str = "bls12_377"):
-    """The port's copy of the bench case seed scheme
-    (harness/testdata.py:make_bench_case): ks and scalars from
-    random.Random(f"bench-{power}-{curve}") (drawn in bulk by
-    randrange_words), ks below the curve's subgroup order, points k_i * G
-    computed on the card with kernel 7's scalar multiplication (one launch
-    of the curve's build over the broadcast generator, 253 bits) and made
-    affine there by batch_inverse.  Returns the point
-    words (2, 12|8, n), the scalar words (8, n) and the ks' words (8, n)
-    (msm_oracle's input)."""
-    import numpy as np
-    import torch
-
-    from webgpu_msm_bls12_377_tpu_torch import params as PP
-    from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
-    from webgpu_msm_bls12_377_tpu_torch.ops import field as F
-    from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
-
-    group = C.group_ops(PP.CurveId(curve))
-    ctx = group.ctx
-    nw, mp = ctx.nw, ctx.params
-    if group is C.G1:
-        order, gx, gy = (PP.SCALAR_FIELD, PP.BLS12_377_G1_GENERATOR_X,
-                         PP.BLS12_377_G1_GENERATOR_Y)
-        gen_affine = (gx, gy)
-    else:
-        order, gx, gy = (PP.EDWARDS_SUBGROUP_CHARACTERISTIC,
-                         PP.EDWARDS_GENERATOR_X, PP.EDWARDS_GENERATOR_Y)
-        gen_affine = (gx, gy, gx * gy % mp.p)
-    n = 1 << power
-    words = MTWords(random.Random(f"bench-{power}-{curve}"))
-    ks = randrange_words(words, 1, order, n)
-    scalars = randrange_words(words, 0, 1 << 253, n)
-    gen = F.ints_to_plane([mp.to_mont(v) for v in gen_affine], nw=nw).to(DEV)
-    # the generator's Montgomery table column in every lane
-    table = gen.T.reshape(-1, 1).expand(-1, n).contiguous()
-    res = K.scalar_mult(table, torch.from_numpy(ks.view(np.int32)).to(DEV),
-                        253, group)
-    # x, y and the last coordinate z (Edwards: (x, y, t, z))
-    proj = group.canon(group.split(res))
-    zinv = batch_inverse(proj[-1], ctx)
-    aff = K.mont_mul_const(C.merge(tuple(F.mont_mul_canon(c, zinv, ctx)
-                                         for c in proj[:2])), 1, ctx)
-    # wire coordinates: 12 words (G1) or 8 (Edwards), the top word of the
-    # plane's 13 or 9 zero below p
-    cw = 12 if group is C.G1 else 8
-    point_words = aff.cpu().numpy().view(np.uint32).reshape(2, nw, n)[:, :cw]
-    return np.ascontiguousarray(point_words), scalars, ks
-
-
-#: bytes of one point in the reference's wire format, by wire path
-WIRE = {"wire_tree": 96, "ed_wire_tree": 64}
-
-
-def to_wire(pw, sw):
-    """Bench words -> the reference's wire bytes: x||y little-endian
-    coordinates a point (48 or 32 bytes each), 32-byte scalars."""
-    import numpy as np
-
-    return (np.ascontiguousarray(pw.transpose(2, 0, 1)).tobytes(),
-            np.ascontiguousarray(sw.T).tobytes())
-
-
-def batch_scalars(power: int, num_sets: int, curve: str = "bls12_377"):
-    """The port's copy of the batch case seed scheme
-    (harness/testdata.py:make_batch_case): num_sets scalar sets over the
-    bench case's points, drawn in order from
-    random.Random(f"bench-{power}-{curve}-batch")."""
-    words = MTWords(random.Random(f"bench-{power}-{curve}-batch"))
-    return [randrange_words(words, 0, 1 << 253, 1 << power)
-            for _ in range(num_sets)]
 
 
 def fenced(fn, *args):
@@ -1137,31 +1003,6 @@ def running_sum_oracle(pw, curve="bls12_377", steps=8):
     for t in range(steps):
         g = add(g, mult(point(-t), steps - t))
     x, y = to_aff(g)
-    return {"x": x, "y": y}
-
-
-def words_to_ints(words):
-    """(8, n) uint32 words -> n Python ints."""
-    return sum(words[i].astype(object) << (32 * i)
-               for i in range(words.shape[0])).tolist()
-
-
-def msm_oracle(sw, ks, curve):
-    """The bench case's MSM with Python integers: its points are k_i * G,
-    so the sum of s_i * P_i is (sum of s_i k_i mod r) * G, r the order of
-    G: n multiply-adds and one scalar multiplication."""
-    from webgpu_msm_bls12_377_tpu_torch import params as PP
-    from webgpu_msm_bls12_377_tpu_torch.reference import curve as ocurve
-
-    if curve == "bls12_377":
-        order, mult, gen, to_aff = (PP.SCALAR_FIELD, ocurve.g1_scalar_mult,
-                                    ocurve.G1_GENERATOR, ocurve.g1_to_affine)
-    else:
-        order, mult, gen, to_aff = (PP.EDWARDS_SUBGROUP_CHARACTERISTIC,
-                                    ocurve.ed_scalar_mult, ocurve.ED_GENERATOR,
-                                    ocurve.ed_to_affine)
-    total = sum(a * b for a, b in zip(words_to_ints(sw), words_to_ints(ks)))
-    x, y = to_aff(mult(gen, total % order))
     return {"x": x, "y": y}
 
 
@@ -1395,6 +1236,77 @@ def edwards_paths(goldens, counts, medians):
         f"per set beside {medians['ed_tree']:.4f} s for one warm "
         "compute_msm_edwards")
     return inputs, sets
+
+
+#: the zipf cases of phase 3: (power, path); a pool of 2^ZIPF_POOL_BITS
+#: scalars, alpha 1.2
+ZIPF = ((20, "tree"), (17, "stream"))
+ZIPF_POOL_BITS = 8
+#: phase 3's run of the bench CLI
+BENCH_ARGS = ("--n", "65536", "--runs", "2", "--prewarm")
+DEBUG_STAGES = ("stage1_mont_convert", "stage2_transpose", "stage3_buckets")
+
+
+def harness_runs(inputs, ed_inputs, medians):
+    """Phase 3 for the harness: the zipf cases (make_zipf_case, pool
+    2^ZIPF_POOL_BITS) at 2^20 (hybrid tree) and 2^17 (stream), both
+    curves, through compute_msm against the known-k oracle (cold and 3
+    warm), each warm median beside the uniform case's of the same n;
+    debug_check at 2^17, both curves, every stage True; bench_torch.py
+    in a subprocess, its last line a checked JSON result."""
+    from webgpu_msm_bls12_377_tpu_torch import compute_msm, compute_msm_edwards
+    from webgpu_msm_bls12_377_tpu_torch.models.cuzk import CuzkMsmEngine
+    from webgpu_msm_bls12_377_tpu_torch.ops.buckets import build_bucket_plan
+    from webgpu_msm_bls12_377_tpu_torch.ops.decompose import (
+        choose_chunk_size,
+        decompose_scalars_signed,
+        num_windows_for,
+    )
+    from webgpu_msm_bls12_377_tpu_torch.params import CurveId
+    import torch
+
+    for curve, fn, pre in (("bls12_377", compute_msm, ""),
+                           (ED, compute_msm_edwards, "ed_")):
+        for power, path in ZIPF:
+            t0 = time.perf_counter()
+            case = make_zipf_case(curve, power, ZIPF_POOL_BITS, device=DEV)
+            chunk = choose_chunk_size(1 << power)
+            plan = build_bucket_plan(decompose_scalars_signed(
+                torch.from_numpy(case.scalar_words.view("int32")).to(DEV),
+                chunk, num_windows_for(chunk)), chunk)
+            log(f"  {curve} 2^{power} zipf case made in "
+                f"{time.perf_counter() - t0:.1f} s; longest bucket "
+                f"{int(plan.lens.max())} entries, "
+                f"{int((plan.lens > 0).sum())} nonempty buckets")
+            _, med = drive(
+                f"{curve} 2^{power} zipf (pool 2^{ZIPF_POOL_BITS}) "
+                f"compute_msm ({path})", pre + path, fn,
+                (case.point_words, case.scalar_words),
+                dict(zip("xy", case.expected)))
+            uniform = medians[pre + path]
+            log(f"  {curve} 2^{power} warm median zipf / uniform: {med:.4f} "
+                f"/ {uniform:.4f} s = {med / uniform:.2f}x")
+    for curve, (pw, sw) in (("bls12_377", inputs[17]), (ED, ed_inputs[17])):
+        t0 = time.perf_counter()
+        checks = CuzkMsmEngine(CurveId(curve)).debug_check(pw, sw)
+        if checks != dict.fromkeys(DEBUG_STAGES, True):
+            raise SystemExit(f"{curve} 2^17 debug_check: {checks}")
+        log(f"  {curve} 2^17 debug_check: {checks} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py"),
+                          *BENCH_ARGS], capture_output=True, text=True,
+                         cwd=ROOT, timeout=600)
+    for line in out.stdout.splitlines():
+        log(f"  bench_torch.py: {line}")
+    if out.returncode:
+        raise SystemExit(f"bench_torch.py {' '.join(BENCH_ARGS)} exited "
+                         f"{out.returncode}: {out.stderr[-3000:]}")
+    detail = json.loads(out.stdout.strip().splitlines()[-1])["detail"]
+    if not detail["checked"] or detail["device"] != "cuda":
+        raise SystemExit(f"bench_torch.py: an unchecked result: {detail}")
+    log(f"  bench_torch.py {' '.join(BENCH_ARGS)}: ran in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def timed_paths(inputs, ed_inputs):
@@ -1912,6 +1824,9 @@ def main(argv: list[str]) -> int:
     log(f"phase 3 at {elapsed():.1f} s: every path against the pinned goldens")
     counts, inputs, sets, medians = main_paths(goldens)
     ed_inputs, _ = edwards_paths(goldens, counts, medians)
+    log(f"phase 3 at {elapsed():.1f} s: the harness (zipf cases, "
+        "debug_check, bench_torch.py)")
+    harness_runs(inputs, ed_inputs, medians)
 
     log(f"phase 4 at {elapsed():.1f} s: per-kernel time at each path's "
         "shapes (2^20 tree, 2^17 stream, 2^16 legacy, naive and chain, 2^10 "

@@ -201,9 +201,11 @@ def test_port_refuses_nothing_for_edwards():
 
 
 def test_port_sources_name_no_jax():
-    """No import of jax or the JAX package in the port or chip_smoke.py."""
+    """No import of jax or the JAX package in the port, chip_smoke.py or
+    bench_torch.py."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|webgpu_msm_bls12_377_tpu)\b")
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                       ROOT / "bench_torch.py"]
     bad = [f"{f}:{i}" for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
            if pat.match(line)]

@@ -39,7 +39,10 @@ compute_msm(points, scalars) -> {"x": int, "y": int} runs, on one device:
 compute_msm_batch(points, [scalars, ...]) runs step 1 once and steps 2-5
 per scalar set without the host waiting for the device between sets (tree,
 stream and fused paths), then reads every set's window sums back in one
-copy.
+copy.  prewarm(n) builds and loads the kernels and makes
+one throwaway run of n's path; debug_check(points, scalars) holds the
+point prep, the whole plan and sampled bucket sums of the stream kernel
+against host models at the full n.
 PyTorch runs eagerly, so the JAX package's plan/main program split, its
 size classes and their host readbacks, and its compile caches have no
 counterpart here; the pure tree's readback of its level count stays.
@@ -48,6 +51,8 @@ counterpart here; the pure tree's readback of its level count stays.
 from __future__ import annotations
 
 import functools
+import random
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Sequence
 
@@ -58,8 +63,8 @@ from ..ops import curve as C
 from ..ops import field as F
 from ..ops import kernels
 from ..ops.bpr import bpr_order_on, reduce_buckets_prearranged
-from ..ops.buckets import build_bucket_plan, legacy_buckets
-from ..ops.convert import WireLayout, wire_words
+from ..ops.buckets import IDX_MASK, SIGN_BIT, build_bucket_plan, legacy_buckets
+from ..ops.convert import WireLayout, ints_to_words, wire_words
 from ..ops.decompose import (
     SCALAR_BITS,
     choose_chunk_size,
@@ -154,7 +159,10 @@ def words_to_device(words: np.ndarray, device: torch.device) -> torch.Tensor:
     merged: the points of point-major words, the word planes of word-major
     ones), filled by STAGE_WORKERS host threads; each chunk's copy is enqueued
     as soon as it is filled (a small array: one fill and one copy), and
-    the host does not wait for the stream."""
+    the host does not wait for the stream.  A tensor (int32 words staged
+    earlier) is moved to device, and is not copied where it lies there."""
+    if isinstance(words, torch.Tensor):
+        return words.to(device)
     host = words.view(np.int32)
     if device.type != "cuda":
         return torch.from_numpy(host.copy()).to(device)
@@ -518,3 +526,173 @@ class CuzkMsmEngine:
             return []
         host = torch.stack(coords).cpu()
         return [self._finalize(c, chunk_size) for c in host]
+
+    # -- warm-up and stage checks -------------------------------------------
+
+    def prewarm(self, n: int, chunk_size: int | None = None,
+                background: bool = False):
+        """Make the first call of size n cheap: one throwaway msm_device
+        run of the path _select_smvp picks for n, whose first launch on a
+        CUDA device builds (where not built yet) and loads every kernel
+        library; it also makes the CUDA context and the allocator's blocks.
+        Its inputs are valid: the generator in every lane, scalars from
+        np.random.RandomState(7) below 2^253.  On the CPU nothing is built
+        and the run takes the plain forms.  background=True runs this in a
+        daemon thread and returns the Thread; a call made meanwhile waits
+        for the libraries' lock and is correct either way."""
+        if background:
+            t = threading.Thread(target=self.prewarm, args=(n, chunk_size),
+                                 daemon=True)
+            t.start()
+            return t
+        chunk = chunk_size or self._chunk_for(n)
+        g = (ocurve.G1_GENERATOR if self.curve == CurveId.BLS12_377
+             else ocurve.ED_GENERATOR)
+        k = self.coord_bytes // 4
+        pw = np.ascontiguousarray(np.broadcast_to(
+            np.stack([ints_to_words([g.x], k), ints_to_words([g.y], k)]),
+            (2, k, n)))
+        sw = np.random.RandomState(7).randint(
+            0, 1 << 32, size=(8, n), dtype=np.uint64).astype(np.uint32)
+        sw[7] &= 0x1FFFFFFF
+        out = self.msm_device(self._prepare_points(pw),
+                              self._prepare_scalars(sw), chunk)
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+        return None
+
+    def debug_check(self, point_words, scalar_words,
+                    chunk_size: int | None = None, sample: int = 64,
+                    rng_seed: int = 1234) -> dict[str, bool]:
+        """Stage-by-stage check of one MSM's inputs at their full size,
+        each stage against an independent model on the host (the
+        reference's debug readbacks, submission.ts:464-798):
+
+        - stage1_mont_convert: `sample` points of kernel 1's Montgomery
+          table (point_prep, PLANE) against x R, y R (Edwards also x y R)
+          mod p, R = 2^(32 nw), with Python integers;
+        - stage2_transpose: the whole plan, exactly: the signed digits
+          against a numpy model that reads each window's bits from the
+          scalars' bytes and carries by hand, each bucket's start and
+          length against the model's counts, and every entry of the sorted
+          stream (point index | positive sign << SIGN_BIT) against the
+          bucket its position lies in: each point once a window, in the
+          bucket and with the sign of its digit;
+        - stage3_buckets: the stream kernel (accumulate_buckets_streamed,
+          kernel 5) over the whole plan; `sample` nonempty buckets, the
+          longest among them, against their sums with Python integers,
+          compared as group elements.
+
+        Raises AssertionError at the first mismatch; returns each stage's
+        name -> True.  point_words and scalar_words take compute_msm's
+        forms."""
+        points = self._prepare_points(point_words)
+        scalars = self._prepare_scalars(scalar_words)
+        n = points[1].n
+        self._validate(n, scalars)
+        chunk = chunk_size or self._chunk_for(n)
+        num_windows = num_windows_for(chunk)
+        h = 1 << (chunk - 1)
+        group, ctx = self.group, self.group.ctx
+        p, nw = ctx.p, ctx.nw
+        rng = random.Random(rng_seed)
+        # word-major host words: (2, k, n) and (8, n)
+        host_pw, host_sw = points[0], scalars[0]
+        if points[1].point_major:
+            host_pw = host_pw.reshape(n, 2, -1).transpose(1, 2, 0)
+        if scalars[1].point_major:
+            host_sw = host_sw.T
+
+        def coord(c: int, j: int) -> int:
+            return sum(int(w) << (32 * i) for i, w in enumerate(host_pw[c, :, j]))
+
+        results: dict[str, bool] = {}
+        dev_words = words_to_device(points[0], self.device)
+        table = point_prep(dev_words, points[1], group, PLANE)
+        idxs = [rng.randrange(n) for _ in range(min(sample, n))]
+        cols = table[:, idxs].cpu()
+        for i, j in enumerate(idxs):
+            x, y = coord(0, j), coord(1, j)
+            want = [x, y] if group is C.G1 else [x, y, x * y]
+            got = [F.plane_to_ints(cols[c * nw:(c + 1) * nw, i:i + 1])[0]
+                   for c in range(len(want))]
+            assert got == [v * ctx.params.r % p for v in want], (
+                f"stage1 mismatch at point {j}")
+        results["stage1_mont_convert"] = True
+
+        digits = decompose_scalars_signed(self._scalars_to_device(scalars),
+                                          chunk, num_windows)
+        plan = build_bucket_plan(digits, chunk)
+        sbytes = np.zeros((n, 36), dtype=np.int64)
+        sbytes[:, :32] = np.ascontiguousarray(
+            host_sw.T.astype("<u4")).view(np.uint8)
+        want = np.empty((num_windows, n), dtype=np.int64)
+        carry = np.zeros(n, dtype=np.int64)
+        for w in range(num_windows):
+            bit = w * chunk
+            b = bit // 8
+            v = (sbytes[:, b] | sbytes[:, b + 1] << 8 | sbytes[:, b + 2] << 16
+                 | sbytes[:, b + 3] << 24) >> (bit % 8)
+            v = (v & ((1 << chunk) - 1)) + carry
+            carry = (v >= h).astype(np.int64)
+            want[w] = v - (carry << chunk) + h
+        assert not carry.any(), "stage2: the top window's carry escaped"
+        assert np.array_equal(digits.cpu().numpy(), want), (
+            "stage2 digits mismatch")
+        signed = want - h
+        keys = np.where(signed == 0, h, np.abs(signed) % h)
+        rows = np.arange(num_windows)[:, None]
+        counts = np.bincount((keys + (h + 1) * rows).ravel(),
+                             minlength=num_windows * (h + 1)).reshape(
+                                 num_windows, h + 1)
+        lens = counts[:, :h].ravel()
+        starts = ((np.cumsum(counts, axis=1) - counts)[:, :h]
+                  + n * rows).ravel()
+        assert np.array_equal(plan.starts.cpu().numpy(), starts), (
+            "stage2 starts mismatch")
+        assert np.array_equal(plan.lens.cpu().numpy(), lens), (
+            "stage2 lens mismatch")
+        sv = plan.sorted_vals.cpu().numpy().astype(np.int64)
+        idx = (sv & IDX_MASK).reshape(num_windows, n)
+        sign = (sv >> SIGN_BIT).reshape(num_windows, n)
+        assert idx.max() < n and not (sign >> 1).any(), (
+            "stage2 entries out of range")
+        assert (np.bincount((idx + n * rows).ravel(),
+                            minlength=num_windows * n) == 1).all(), (
+            "stage2: a point is not once in every window")
+        bucket_at = np.repeat(np.tile(np.arange(h + 1), num_windows),
+                              counts.ravel()).reshape(num_windows, n)
+        assert (keys[rows, idx] == bucket_at).all(), (
+            "stage2 membership mismatch")
+        assert (sign == (signed[rows, idx] > 0)).all(), "stage2 sign mismatch"
+        results["stage2_transpose"] = True
+
+        layout = build_stream_layout(plan.starts, plan.lens, num_windows)
+        blocks = accumulate_buckets_streamed(
+            point_prep(dev_words, points[1], group, SIGNED), plan.sorted_vals,
+            layout, group)
+        buckets = permute_buckets(blocks, layout, group=group)
+        nonempty = np.flatnonzero(lens)
+        picks = {int(nonempty[np.argmax(lens[nonempty])])}
+        while len(picks) < min(sample, nonempty.size):
+            picks.add(int(nonempty[rng.randrange(nonempty.size)]))
+        picks = sorted(picks)
+        cols = buckets[:, picks].cpu()
+        if group is C.G1:
+            ogroup, from_affine, point = (omsm.G1, ocurve.g1_from_affine,
+                                          ocurve.ProjectivePoint)
+        else:
+            ogroup, from_affine, point = (omsm.EDWARDS, ocurve.ed_from_affine,
+                                          ocurve.ExtendedPoint)
+        rinv = ctx.params.rinv
+        for i, b in enumerate(picks):
+            acc = ogroup.zero
+            for e in sv[starts[b]:starts[b] + lens[b]].tolist():
+                pt = from_affine(coord(0, e & IDX_MASK), coord(1, e & IDX_MASK))
+                acc = ogroup.add(acc, pt if e >> SIGN_BIT else ogroup.neg(pt))
+            got = point(*(v * rinv % p for v in (
+                F.plane_to_ints(cols[c * nw:(c + 1) * nw, i:i + 1])[0]
+                for c in range(group.rows // nw))))
+            assert ogroup.eq(acc, got), f"stage3 bucket {b} mismatch"
+        results["stage3_buckets"] = True
+        return results
