@@ -13,9 +13,10 @@ Phases, each of which fails the run on any error:
      on random inputs of a few thousand lanes (the point prep from wire
      words in both layouts to both its forms, 0, 1, p - 1 and p among the
      coordinates; identity, equal and inverse
-     operands among the canonical family's, the tree sum from one block
-     to 256 and at 2^18, each launch twice; BPR stage 2 and the fold at
-     T = 1 to 1,024 lanes a window, 1, 3 and 17 windows, bpt 1, 2 and 64),
+     operands among the canonical family's, the tree sum at one and two
+     blocks and at 2^18, each launch twice; BPR stage 2 and the fold at
+     T = 1, 8 and 1,024 lanes a window, 1 and 17 windows, bpt 1, 2 and
+     64; the scalar multiplication at bits 0, 1, 7 and 256),
      and on a small real plan for
      the tree, finish, stream and fused kernels (the fused path's two
      passes: kernel 8 over pieces of at most PIECE rows, and the fold in
@@ -58,7 +59,19 @@ Phases, each of which fails the run on any error:
      known-k oracle, each warm median beside the uniform case's;
      debug_check at 2^17, both curves, every stage True; and
      bench_torch.py --n 65536 --runs 2 --prewarm in a subprocess, its last
-     line a checked JSON result;
+     line a checked JSON result.  Then the harness's second part
+     (harness2_runs): autotune (window sizes 13, 15 and 16, then the
+     stream path against the hybrid tree at K = 1, 2 and 3) at 2^20, both
+     curves, and at 2^16 G1, on a tuning table in a temporary directory
+     (every other phase reads an empty one, never the repo's), every
+     candidate's time and the winner against the static policy logged,
+     and an engine with the default autotune=True over that table
+     resolving the winners and giving the golden; the sweep
+     (run_power at 2^16 and 2^20, one warm run each, verified, its
+     Markdown table); the microbench at 2^19 lanes and its product study
+     (tree.cu's msm_word_rate in the carry-chain and the -DMSM_MONT_C
+     build, both fields, each first held against its plain form), both
+     curves;
   4. one more run of each path (2^20 tree, 2^17 stream, 2^16 legacy, 2^16
      naive, the chain, 2^10 and 2^14 default fused, the forced fused run
      at 2^16 and chunk 15, 2^18 pure tree; Edwards 2^20 tree, 2^17
@@ -67,12 +80,11 @@ Phases, each of which fails the run on any error:
      CUDA events and repeated with its plain form on the same inputs,
      which must agree bit for bit: per-kernel time, plain time and the
      bound (least time for the same work on an H100 SXM); the stream
-     kernel five more times; before them, the card's 32-bit word-product
-     rate in the carry-chain Montgomery product on its own (tree.cu
-     msm_word_rate, both fields), and every row's bound again at that
-     rate (int_bound_ms).  The plain forms of the lane-wise kernels (1, the
-     tree sum and the running sum) are
-     replayed from CUDA graphs, one captured per shape, and kernel 8's
+     kernel five more times; every row's bound again at the card's 32-bit
+     word-product rate in the carry-chain Montgomery product on its own
+     (phase 3's product study, both fields: int_bound_ms).  The plain
+     forms of the lane-wise kernels (1, the tree sum and the running sum)
+     are replayed from CUDA graphs, one captured per shape, and kernel 8's
      round from one graph a launch (fused_plain_graphed); phase 2 holds
      the replays against the plain forms run eagerly;
   5. one more 2^20, 2^20 from wire bytes, 2^17, 2^16, 2^14, Edwards 2^20
@@ -88,6 +100,7 @@ Phases, each of which fails the run on any error:
      take the most device time.
 Then three lines: the per-kernel JSON record, the card's name and power
 limit as nvidia-smi prints them, and last {"ok": true, "device": {...}}.
+Each phase logs its start and the last log line its seconds.
 Exits nonzero, printing no result, when no CUDA device is present or the
 package is missing.
 """
@@ -101,6 +114,7 @@ import random
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -283,15 +297,30 @@ LANE_CHECKS = ("field_mul_lanes", "field_mul_lanes_ed", "bpr_add",
                "bpr_add_ed")
 #: phase 2's shapes of BPR stage 2 and the fold: lanes a window (T),
 #: windows, buckets a lane (bpt)
-BPR_T, BPR_WINDOWS, BPR_BPT = (1, 8, 128, 512, 1024), (1, 3, 17), (1, 2, 64)
-#: phase 4's word-product rate kernel (tree.cu msm_word_rate): threads of
-#: a block (RATE_THREADS there), blocks a SM (many waves, so the last
-#: one's tail is small) and Montgomery products a thread
-RATE_THREADS, RATE_BLOCKS_PER_SM, RATE_ITERS = 256, 64, 32
+BPR_T, BPR_WINDOWS, BPR_BPT = (1, 8, 1024), (1, 17), (1, 2, 64)
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+#: (phase, seconds since the start) at each phase's start
+PHASE_STARTS: list[tuple[str, float]] = []
+
+
+def phase(name: str, what: str) -> None:
+    """Log a phase's start; phase_seconds adds up each phase's time."""
+    PHASE_STARTS.append((name, elapsed()))
+    log(f"{name} at {elapsed():.1f} s: {what}")
+
+
+def phase_seconds() -> dict[str, float]:
+    """Seconds spent in each phase so far (a phase entered again adds)."""
+    ends = [t for _, t in PHASE_STARTS[1:]] + [elapsed()]
+    secs: dict[str, float] = {}
+    for (name, t), end in zip(PHASE_STARTS, ends):
+        secs[name] = round(secs.get(name, 0.0) + end - t, 1)
+    return secs
 
 
 def elapsed() -> float:
@@ -617,11 +646,11 @@ def canonical_kernel_cases(rng, group, points, plan, windows, n=4096):
     return cases
 
 
-def tree_cases(rng, group, widths=(512, 1 << 16, 1 << 18)):
+def tree_cases(rng, group, widths=(512, 1 << 18)):
     """Phase 2 for the tree sum of one curve: widths 1 and 2, then
-    `widths` (512: two blocks and the last block's finish; 2^16: 256
-    blocks, the naive call's width; 2^18: a thread first folds four lanes
-    on its own), whose planes are random canonical
+    `widths` (512: two blocks and the last block's finish; 2^18: a thread
+    first folds four lanes on its own; phase 4 holds the naive call's
+    2^16, 256 blocks), whose planes are random canonical
     lanes x, then x's edge lanes (the first level meets the identity, an
     equal and an inverse lane), x twice (every first-level add a
     doubling) or x's negation (the first level all identities); each
@@ -652,7 +681,7 @@ def legacy_cases(rng, group, points, plan, pp):
     table of the small real plan's points, on its whole buckets (empty
     and longer than a piece among them) and on its pieces (pp: at most
     PIECE entries), and on hand-made segments of a random entry stream with
-    random signs (empty, length 1, 65, 300, overlapping)."""
+    random signs (empty, length 1, 65, 97, overlapping)."""
     import torch
 
     from webgpu_msm_bls12_377_tpu_torch.ops import buckets as B
@@ -669,7 +698,7 @@ def legacy_cases(rng, group, points, plan, pp):
     count = 3000
     vals = torch.tensor([rng.randrange(npts) | (rng.randrange(2) << 30)
                          for _ in range(count)], dtype=torch.int32, device=DEV)
-    rlens = [0, 1, 2, 65, 0, 33, 1, 300] + [rng.randrange(9) for _ in range(992)]
+    rlens = [0, 1, 2, 65, 0, 33, 1, 97] + [rng.randrange(9) for _ in range(992)]
     rstarts = [rng.randrange(count - ln + 1) for ln in rlens]
     rstarts, rlens = (torch.tensor(v, dtype=torch.int32, device=DEV)
                       for v in (rstarts, rlens))
@@ -681,7 +710,8 @@ def legacy_cases(rng, group, points, plan, pp):
 def scalar_mult_cases(rng, group, n=2048):
     """Phase 2 for kernel 7's scalar multiplication of one curve: random
     canonical affine lanes, scalars 0, 1, r - 1, 2^253 - 1, 2^256 - 1 and
-    a lone top bit among random 256-bit ones, at bits 0, 1, 253 and 256."""
+    a lone top bit among random 256-bit ones, at bits 0, 1, 7 and 256
+    (phase 4 holds the naive path's 253 bits)."""
     import numpy as np
     import torch
 
@@ -698,7 +728,7 @@ def scalar_mult_cases(rng, group, n=2048):
     sw = torch.from_numpy(words.view(np.int32)).to(DEV)
     return [("scalar_mult" + group.ctx.tag, K.scalar_mult(table, sw, bits, group),
              K.scalar_mult_plain(table, sw, bits, group))
-            for bits in (0, 1, 253, 256)]
+            for bits in (0, 1, 7, 256)]
 
 
 def check_kernels_random() -> None:
@@ -1309,6 +1339,146 @@ def harness_runs(inputs, ed_inputs, medians):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+#: the harness's second step: autotune's (curve, power) classes, the
+#: static policy each is held against ((chunk, path, K) by power), the
+#: sweep's powers (G1, one warm run each), and the microbench's lanes and
+#: timed calls an operation
+TUNE = (("bls12_377", 20), (ED, 20), ("bls12_377", 16))
+STATIC = {20: (16, "tree", 2), 16: (15, "stream", 2)}
+SWEEP_POWERS = (16, 20)
+MICRO_LANES, MICRO_ITERS = 1 << 19, 5
+
+
+@contextlib.contextmanager
+def tuning_table(directory):
+    """Inside the block the engines' tuning table is the one in
+    `directory` (MSM_AUTOTUNE_DIR); after it, the script's empty one."""
+    saved = os.environ["MSM_AUTOTUNE_DIR"]
+    os.environ["MSM_AUTOTUNE_DIR"] = directory
+    try:
+        yield
+    finally:
+        os.environ["MSM_AUTOTUNE_DIR"] = saved
+
+
+def harness2_runs(goldens, inputs, ed_inputs, tuned_dir, variant_build):
+    """Phase 3, the harness's second part:
+    - autotune (harness/autotune.py) on a table in tuned_dir:
+      autotune_chunk (13, 15, 16) and then autotune_smvp (stream, K = 1,
+      2, 3, at the tuned chunk) for each class of TUNE, on phase 3's
+      cases (measure_fn: the inputs staged once, a cold run held against
+      the golden, 2 warm runs, the best kept); every candidate's time and
+      the winners against the static policy logged; then an engine with
+      the default autotune=True over that table must resolve the winners
+      (_chunk_for, _select_smvp, _tree_k) and give the golden;
+    - the sweep (harness/sweep.py run_power) at SWEEP_POWERS with the
+      script's empty table: every row verified, the Markdown table logged;
+    - the microbench (harness/microbench.py): run() at MICRO_LANES lanes
+      and product_study() (the carry chain and the -DMSM_MONT_C build of
+      tree.cu, built in the background since phase 1: variant_build),
+      both curves.
+    Returns the carry chain's word-product rate by library tag (phase 4's
+    integer bound)."""
+    from types import SimpleNamespace
+
+    from webgpu_msm_bls12_377_tpu_torch.harness import (
+        autotune,
+        microbench,
+        sweep,
+    )
+    from webgpu_msm_bls12_377_tpu_torch.models.cuzk import CuzkMsmEngine
+    from webgpu_msm_bls12_377_tpu_torch.params import CurveId
+
+    with tuning_table(tuned_dir):
+        for curve, power in TUNE:
+            cid, n = CurveId(curve), 1 << power
+            pw, sw = (ed_inputs if curve == ED else inputs)[power]
+            x_hex, y_hex = goldens[f"{curve}:{power}:bench-{power}"][:2]
+            want = {"x": int(x_hex, 16), "y": int(y_hex, 16)}
+            case = SimpleNamespace(point_words=pw, scalar_words=sw,
+                                   expected=(want["x"], want["y"]))
+
+            def measure(engine_cls, curve_, n_, chunk, runs):
+                return autotune._timed_runs(
+                    engine_cls(curve_, chunk_size=chunk, autotune=False),
+                    case, chunk, runs, f"{curve} 2^{power} chunk {chunk}")
+
+            def measure_smvp(curve_, n_, chunk, smvp, k, runs):
+                return autotune._timed_runs(
+                    CuzkMsmEngine(curve_, chunk_size=chunk, smvp_mode=smvp,
+                                  tree_finish=k, autotune=False),
+                    case, chunk, runs, f"{curve} 2^{power} {smvp} K={k}")
+
+            t0 = time.perf_counter()
+            chunk = autotune.autotune_chunk(
+                cid, n, candidates=autotune.DEFAULT_CANDIDATES,
+                measure_fn=measure)
+            mode, k = autotune.autotune_smvp(
+                cid, n, candidates=autotune.SMVP_CANDIDATES,
+                measure_fn=measure_smvp)
+            entry = autotune.lookup_entry(cid, n)
+            log(f"  autotune {curve} 2^{power} in "
+                f"{time.perf_counter() - t0:.1f} s: best warm s by chunk "
+                f"{entry['warm_s']}, by path at chunk {chunk} "
+                f"{entry['smvp_warm_s']}")
+            static = STATIC[power]
+            won = (chunk, mode, k or 2)
+            log(f"  autotune {curve} 2^{power}: winner chunk {chunk}, "
+                f"{mode}, K {k} against the static policy chunk {static[0]}"
+                f", {static[1]}, K {static[2]}: "
+                + ("the static policy wins" if won == static else
+                   "the static policy loses"))
+            eng = CuzkMsmEngine(cid)
+            got = (eng._chunk_for(n), eng._select_smvp(chunk, n),
+                   eng._tree_k(n))
+            if got != won:
+                raise SystemExit(f"autotune {curve} 2^{power}: the engine "
+                                 f"resolves {got} from the table, not {won}")
+            result, secs = fenced(eng.compute_msm, pw, sw)
+            if result != want:
+                raise SystemExit(f"autotune {curve} 2^{power}: the tuned "
+                                 "engine's result differs from the golden")
+            log(f"  tuned engine {curve} 2^{power} ({got}): the golden, in "
+                f"{secs:.4f} s")
+    eng = CuzkMsmEngine()
+    rows = []
+    for power in SWEEP_POWERS:
+        row = sweep.run_power(eng, CurveId.BLS12_377, power, 1)
+        log(f"  sweep: {json.dumps(row)}")
+        if row["verified"] is not True:
+            raise SystemExit(f"sweep 2^{power}: not verified")
+        rows.append(row)
+    for line in sweep.markdown_table(rows).splitlines():
+        log(f"  {line}")
+    for curve in ("bls12_377", ED):
+        out = microbench.run(CurveId(curve), MICRO_LANES, MICRO_ITERS)
+        for name, row in out.items():
+            if isinstance(row, dict):
+                log(f"  microbench {curve} {name:25s} {row['ms']:10.3f} ms "
+                    f"{row['M_ops_per_s']:10.2f} M/s  ({row['entry']})")
+    t0 = time.perf_counter()
+    variant_build.result()
+    log(f"  the -DMSM_MONT_C build of tree.cu: waited "
+        f"{time.perf_counter() - t0:.1f} s for it")
+    rates = {}
+    for curve in ("bls12_377", ED):
+        study = microbench.product_study(CurveId(curve))
+        for form, row in study["forms"].items():
+            log(f"  product study {curve} ({study['num_words']} words), "
+                f"{form}: {row['word_products_per_s']:.4e} word products/s, "
+                f"{row['ns_per_product']:.4f} ns a Montgomery product "
+                f"({study['blocks']} blocks of {study['threads']} threads, "
+                f"{study['iters']} products each; {row['ms']:.3f} ms, "
+                f"{[round(t, 3) for t in row['times_ms']]}); the "
+                f"float32-rate yardstick {PEAK_MULS:.4e} /s")
+        chain, c_form = (study["forms"][f]["word_products_per_s"]
+                         for f in ("chain", "c_form"))
+        log(f"  product study {curve}: the C form at {c_form / chain:.3f}x "
+            "the carry chain's rate")
+        rates["" if curve == "bls12_377" else "_ed"] = chain
+    return rates
+
+
 def timed_paths(inputs, ed_inputs):
     """Phase 4: each kernel launch of one run of every path timed,
     repeated with its plain form, compared, and its work counted.
@@ -1594,45 +1764,6 @@ def timed_paths(inputs, ed_inputs):
     return stats
 
 
-def word_rates():
-    """Phase 4: the card's rate of 32-bit word products in the carry-chain
-    Montgomery product (tree.cu msm_word_rate: each thread runs RATE_ITERS
-    dependent products of 2 NW^2 word products each, a mad.lo and a mad.hi
-    a word product, RATE_BLOCKS_PER_SM blocks a SM), for each field's
-    build: word products / kernel time, median of five launches after a
-    warm one.  Returns {tag: word products per second}."""
-    import torch
-
-    from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
-    from webgpu_msm_bls12_377_tpu_torch.ops.field import ED_CTX, G1_CTX
-
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    blocks = sms * RATE_BLOCKS_PER_SM
-    out = torch.empty(blocks * RATE_THREADS, dtype=torch.int32, device=DEV)
-    rates = {}
-    for ctx in (G1_CTX, ED_CTX):
-        def run():
-            K.launch("tree" + ctx.tag, "msm_word_rate", "word_rate" + ctx.tag,
-                     blocks, out.data_ptr(), blocks, RATE_ITERS)
-        run()
-        times = []
-        for _ in range(5):
-            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            e0.record()
-            run()
-            e1.record()
-            torch.cuda.synchronize()
-            times.append(e0.elapsed_time(e1))
-        ms = statistics.median(times)
-        products = blocks * RATE_THREADS * RATE_ITERS * 2 * ctx.nw ** 2
-        rates[ctx.tag] = products / (ms / 1e3)
-        log(f"  word-product rate, {ctx.nw}-word products ({blocks} blocks of "
-            f"{RATE_THREADS} threads, {RATE_ITERS} products each): "
-            f"{rates[ctx.tag]:.4e} /s ({ms:.3f} ms, {[round(t, 3) for t in times]}"
-            f"); the float32-rate yardstick: {PEAK_MULS:.4e} /s")
-    return rates
-
-
 @contextlib.contextmanager
 def patched(patches):
     """Replace module attributes for the duration of the block."""
@@ -1796,45 +1927,71 @@ def main(argv: list[str]) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
-        from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
+        from webgpu_msm_bls12_377_tpu_torch.ops import kernels  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port package is missing: {e}", file=sys.stderr)
         return 1
     with open(os.path.join(ROOT, "test-data", "goldens.json")) as f:
         goldens = json.load(f)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # the engines' tuning table (harness/autotune.py): an empty one for
+        # the whole script, never the repo's; the autotune step writes a
+        # second one, which nothing else reads
+        for d in ("empty", "tuned"):
+            os.mkdir(os.path.join(tmp, d))
+        os.environ["MSM_AUTOTUNE_DIR"] = os.path.join(tmp, "empty")
+        return phases(goldens, profile, os.path.join(tmp, "tuned"))
+
+
+def phases(goldens, profile: bool, tuned_dir: str) -> int:
+    """Phases 1-5 and the three last lines; exits nonzero at a failure."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from webgpu_msm_bls12_377_tpu_torch.harness import microbench
+    from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    phase("phase 1", "the kernels' build")
     t0 = time.perf_counter()
     out_dir, build_s = K.build_all()
     log(f"phase 1: kernels built in {build_s:.1f} s "
         f"({time.perf_counter() - t0:.1f} s with checks) into {out_dir}")
+    # the product study's C-form build of tree.cu (both fields), compiled
+    # while phases 2 and 3 run
+    pool = ThreadPoolExecutor(1)
+    variant_build = pool.submit(microbench._form_libs, "c_form")
+    pool.shutdown(wait=False)
     for name, source, _ in K.LIBRARIES:
         for line in (out_dir / f"{name}.log").read_text().splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 log(f"  {source}.cu ({name}): {line.strip()}")
 
-    log(f"phase 2 at {elapsed():.1f} s: kernels against their plain forms "
-        "(bit-exact)")
+    phase("phase 2", "kernels against their plain forms (bit-exact)")
     check_kernels_random()
 
-    log(f"phase 3 at {elapsed():.1f} s: every path against the pinned goldens")
+    phase("phase 3", "every path against the pinned goldens")
     counts, inputs, sets, medians = main_paths(goldens)
     ed_inputs, _ = edwards_paths(goldens, counts, medians)
-    log(f"phase 3 at {elapsed():.1f} s: the harness (zipf cases, "
-        "debug_check, bench_torch.py)")
+    phase("phase 3 harness", "the harness (zipf cases, debug_check, "
+          "bench_torch.py)")
     harness_runs(inputs, ed_inputs, medians)
+    phase("phase 3 harness 2", "the harness, part 2 (autotune, the sweep, "
+          "the microbench and its product study)")
+    rates = harness2_runs(goldens, inputs, ed_inputs, tuned_dir,
+                          variant_build)
 
-    log(f"phase 4 at {elapsed():.1f} s: per-kernel time at each path's "
-        "shapes (2^20 tree, 2^17 stream, 2^16 legacy, naive and chain, 2^10 "
-        "and 2^14 default fused, 2^16 forced fused (chunk "
-        f"{FORCED_CHUNK}), 2^18 pure tree; Edwards "
-        "2^20 tree, 2^17 stream, 2^16 legacy, naive and chain, 2^10 and "
-        "2^14 fused)")
-    rates = word_rates()
+    phase("phase 4", "per-kernel time at each path's "
+          "shapes (2^20 tree, 2^17 stream, 2^16 legacy, naive and chain, "
+          "2^10 and 2^14 default fused, 2^16 forced fused (chunk "
+          f"{FORCED_CHUNK}), 2^18 pure tree; Edwards "
+          "2^20 tree, 2^17 stream, 2^16 legacy, naive and chain, 2^10 and "
+          "2^14 fused)")
     stats = timed_paths(inputs, ed_inputs)
     rows = []
     for path, per_kernel in stats.items():
@@ -1873,8 +2030,8 @@ def main(argv: list[str]) -> int:
             *((f"Edwards 2^{p}", run_ed_msm, ed_inputs[p]) for p in (20, 14)),
             ("Edwards 2^20 from wire bytes", run_ed_msm,
              to_wire(*ed_inputs[20]))]:
-        log(f"phase 5 at {elapsed():.1f} s: stage breakdown of one warm "
-            f"{label} MSM (each stage fenced)")
+        phase("phase 5", f"stage breakdown of one warm {label} MSM (each "
+              "stage fenced)")
         secs, total = stage_breakdown(pw, sw, run)
         for name, s in sorted(secs.items(), key=lambda kv: -kv[1]):
             log(f"  {name:28s} {s * 1e3:9.2f} ms  {100 * s / total:5.1f} %")
@@ -1923,7 +2080,8 @@ def main(argv: list[str]) -> int:
                 f"{100 * (1 - busy / wall):.1f} %")
             for key, ms, count in top:
                 log(f"  {ms:9.3f} ms  x{count:<4d} {key[:90]}")
-    log(f"all phases passed in {elapsed():.1f} s")
+    log(f"all phases passed in {elapsed():.1f} s; seconds by phase: "
+        f"{phase_seconds()}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -168,6 +168,7 @@ sys.path.insert(0, {str(ROOT)!r})
 import webgpu_msm_bls12_377_tpu_torch as port
 for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(m.name)
+from webgpu_msm_bls12_377_tpu_torch.harness import autotune, microbench, sweep
 from webgpu_msm_bls12_377_tpu_torch.models.cuzk import CuzkMsmEngine
 from webgpu_msm_bls12_377_tpu_torch.reference import curve as crv
 pts = [crv.g1_scalar_mult(crv.G1_GENERATOR, k) for k in range(1, 9)]
@@ -201,11 +202,15 @@ def test_port_refuses_nothing_for_edwards():
 
 
 def test_port_sources_name_no_jax():
-    """No import of jax or the JAX package in the port, chip_smoke.py or
-    bench_torch.py."""
+    """No import of jax or the JAX package in the port (its harness
+    modules among them), chip_smoke.py, bench_torch.py or
+    tools/row_times.py."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|webgpu_msm_bls12_377_tpu)\b")
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                       ROOT / "bench_torch.py"]
+                                       ROOT / "bench_torch.py",
+                                       ROOT / "tools" / "row_times.py"]
+    assert {PKG / "harness" / f"{m}.py"
+            for m in ("autotune", "microbench", "sweep")} <= set(files)
     bad = [f"{f}:{i}" for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
            if pat.match(line)]

@@ -48,7 +48,8 @@ On the bench cases of DIR's chip_smoke.py (bench_case), both curves:
 With --variants (a checkout whose tree.cu and stream.cu take the macros
 below), tree.cu and stream.cu are also built with each of VARIANTS'
 flags (the C-form product; the register budget of 2, 3 and 4 blocks a SM)
-into build/variants/<hash of the sources>/<variant>/, and rows 2, 3, 9
+(ops/kernels.py:build_variants, which --root's checkout must have) into
+build/variants/<hash of the sources>/<sources>/<variant>/, and rows 2, 3, 9
 and the folds are timed again with each variant's libraries in place of
 the default build's; each library's ptxas registers and spills of the
 full level, the fold and the stream kernel are reported as
@@ -148,7 +149,6 @@ import argparse
 import contextlib
 import inspect
 import json
-import os
 import re
 import statistics
 import subprocess
@@ -275,51 +275,6 @@ def sass_counts(K) -> dict:
                               check=True).stdout
         res.setdefault(form, {})[field] = sass_opcodes(sass)
     return res
-
-
-def build_variants(K, variants=VARIANTS, sources=VARIANT_SOURCES):
-    """Build every variant's libraries of `sources` that are not built
-    yet, all nvcc processes started together.  Returns {variant:
-    directory}."""
-    root = K.BUILD_ROOT.parent / "variants" / K._build_dir().name
-    procs, dirs = [], {}
-    for v, flags in variants.items():
-        d = dirs[v] = root / "_".join(sources) / v
-        d.mkdir(parents=True, exist_ok=True)
-        for name, source, cflags in K.LIBRARIES:
-            lib = d / f"libmsm_{name}.so"
-            if source not in sources or lib.exists():
-                continue
-            tmp = d / f"libmsm_{name}.so.tmp{os.getpid()}"
-            cmd = [K._nvcc(), *K.NVCC_FLAGS, *cflags, *flags, "-o", str(tmp),
-                   str(K.CSRC / f"{source}.cu")]
-            procs.append((d, name, lib, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-    for d, name, lib, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"variant build of {name} in {d} failed:\n{log}")
-        (d / f"{name}.log").write_text(log)
-        os.replace(tmp, lib)
-    return dirs
-
-
-def load_variant(K, d, sources=VARIANT_SOURCES):
-    """The variant libraries of directory d: {library name: CDLL}."""
-    return {name: K.load_library(d, name) for name, source, _ in K.LIBRARIES
-            if source in sources}
-
-
-@contextlib.contextmanager
-def using(K, libs):
-    """Launch through the given libraries in place of the loaded ones."""
-    saved = {name: K._lib(name) for name in libs}
-    K._libs.update(libs)
-    try:
-        yield
-    finally:
-        K._libs.update(saved)
 
 
 #: ptxas_regs' kernels: (key, a part of the mangled name)
@@ -493,9 +448,10 @@ def main() -> int:
     variants = {}
     if opts.variants:
         t0 = time.perf_counter()
-        dirs = build_variants(K)
+        dirs = K.build_variants(VARIANT_SOURCES, VARIANTS)
         res["variant_build_s"] = time.perf_counter() - t0
-        variants = {v: load_variant(K, d) for v, d in dirs.items()}
+        variants = {v: K.load_variant(d, VARIANT_SOURCES)
+                    for v, d in dirs.items()}
         for v, d in dirs.items():
             for f in sorted(d.glob("*.log")):
                 res[f"regs_{v}_{f.stem}"] = ptxas_regs(f.read_text())
@@ -509,7 +465,7 @@ def main() -> int:
         variant's libraries as `key`_<variant>."""
         res[key] = kernel_ms(fn, reps)
         for v, libs in variants.items():
-            with using(K, libs):
+            with K.using(libs):
                 res[f"{key}_{v}"] = kernel_ms(fn, reps)
 
     def fold_times(power, chunk, curve, group, key, heavy=False):
@@ -680,9 +636,9 @@ def baseline_rows(opts, smi, kernel_ms) -> int:
     variants = {}
     if opts.variants:
         t0 = time.perf_counter()
-        dirs = build_variants(K, BASELINE_VARIANTS, sources)
+        dirs = K.build_variants(sources, BASELINE_VARIANTS)
         res["variant_build_s"] = time.perf_counter() - t0
-        variants = {v: load_variant(K, d, sources) for v, d in dirs.items()}
+        variants = {v: K.load_variant(d, sources) for v, d in dirs.items()}
         for v, d in dirs.items():
             for f in sorted(d.glob("*.log")):
                 res[f"regs_{v}_{f.stem}"] = ptxas_regs(f.read_text())
@@ -698,7 +654,7 @@ def baseline_rows(opts, smi, kernel_ms) -> int:
         res[key] = kernel_ms(fn, reps)
         res[f"{key}_device_us"] = device_us(fn, calls)
         for v, libs in variants.items():
-            with using(K, libs):
+            with K.using(libs):
                 res[f"{key}_{v}"] = kernel_ms(fn, reps)
 
     def add_latency(key, group, one):
@@ -826,9 +782,9 @@ def bpr_rows(opts, smi, kernel_ms) -> int:
     variants = {}
     if opts.variants:
         t0 = time.perf_counter()
-        dirs = build_variants(K, BPR_VARIANTS, ("bpr",))
+        dirs = K.build_variants(("bpr",), BPR_VARIANTS)
         res["variant_build_s"] = time.perf_counter() - t0
-        variants = {v: load_variant(K, d, ("bpr",)) for v, d in dirs.items()}
+        variants = {v: K.load_variant(d, ("bpr",)) for v, d in dirs.items()}
         for v, d in dirs.items():
             for f in sorted(d.glob("*.log")):
                 res[f"regs_{v}_{f.stem}"] = ptxas_regs(f.read_text())
@@ -840,7 +796,7 @@ def bpr_rows(opts, smi, kernel_ms) -> int:
         res[key] = kernel_ms(fn, 5)
         res[f"{key}_device_us"] = device_us(fn)
         for v, libs in variants.items():
-            with using(K, libs):
+            with K.using(libs):
                 res[f"{key}_{v}"] = kernel_ms(fn, 5)
 
     for curve, group, tag in (("bls12_377", C.G1, ""),
@@ -941,8 +897,9 @@ def prep_rows(opts, smi, kernel_ms) -> int:
     new = hasattr(K, "point_prep")
     variants = {}
     if opts.variants and new:
-        dirs = build_variants(K, PREP_VARIANTS, ("convert",))
-        variants = {v: load_variant(K, d, ("convert",)) for v, d in dirs.items()}
+        dirs = K.build_variants(("convert",), PREP_VARIANTS)
+        variants = {v: K.load_variant(d, ("convert",))
+                    for v, d in dirs.items()}
         for v, d in dirs.items():
             res[f"regs_{v}"] = {f.stem: prep_regs(f.read_text())
                                 for f in sorted(d.glob("*.log"))}
@@ -1031,7 +988,7 @@ def prep_rows(opts, smi, kernel_ms) -> int:
                         res[name] = kernel_ms(prep, 5)
                         res[f"{name}_device_us"] = device_us(prep)
                         for v, libs in variants.items():
-                            with using(K, libs):
+                            with K.using(libs):
                                 res[f"{name}_{v}"] = kernel_ms(prep, 5)
             else:
                 dw = cuzk.words_to_device(pw, dev)

@@ -40,7 +40,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..models.cuzk import resolve_device
+from ..models.cuzk import resolve_device, words_to_device
 from ..ops import curve as C
 from ..ops import field as F
 from ..ops import kernels as K
@@ -330,6 +330,16 @@ def make_bench_case(curve, power: int, seed: str | None = None, device=None,
         oracle_checked = bool(entry[2]) if len(entry) > 2 else False
     return BenchCase(curve, pw, sw, expected, entry is not None,
                      oracle_checked)
+
+
+def staged_inputs(engine, point_words, scalar_words):
+    """An engine's prepared points and scalars (msm_device's inputs) with
+    their words staged on its device once, so that msm_device copies
+    nothing: the JAX harness's inputs put on the device before a timed
+    run.  The words take compute_msm's array and wire forms."""
+    return tuple((words_to_device(words, engine.device), layout)
+                 for words, layout in (engine._prepare_points(point_words),
+                                       engine._prepare_scalars(scalar_words)))
 
 
 def zipf_scalars(curve, n: int, pool_bits: int = 8, alpha: float = 1.2,

@@ -13,7 +13,9 @@ compute_msm(points, scalars) -> {"x": int, "y": int} runs, on one device:
      rows);
   2. plan: signed window digits -> stable per-window sort -> bucket
      segments (plain PyTorch);
-  3. SMVP, by _select_smvp (the JAX engine's policy on a TPU):
+  3. SMVP, by _select_smvp (the JAX engine's policy on a TPU; with
+     autotune on, the default, a tuned window size, path and K for this
+     device, curve and n come first: harness/autotune.py):
      - "tree" (n >= 2^18, chunk >= 9): the phantom-extended plan, tree
        levels 1..K (kernel 2), then the packed finish (kernel 3), K =
        tree_finish; with smvp_mode="tree" and no tree_finish, the pure
@@ -206,15 +208,20 @@ class CuzkMsmEngine:
         tree_finish: int | None = None,  # K, the hybrid finish level
         smvp_mode: str = "auto",
         force_recompile: bool = False,
+        autotune: bool = True,
         device=None,
     ):
         """smvp_mode "auto" follows the JAX engine's policy (_select_smvp)
         and answers at every n; "tree", "stream", "fused" and "legacy"
         force that path at any n and chunk size.  tree_finish is K of the
         hybrid tree; None means 2 under "auto" and the pure tree under an
-        explicit "tree".  force_recompile compiles every kernel library
-        again from csrc/ (kernels.rebuild) on a CUDA device; an engine on
-        the CPU launches no kernel and compiles nothing."""
+        explicit "tree".  autotune consults the persisted tuning table
+        (harness/autotune.py) for this device, curve and n, as the JAX
+        engine does: its window size, its "auto" path and its K; with no
+        entry the static policy stands.  force_recompile compiles every
+        kernel library again from csrc/ (kernels.rebuild) on a CUDA
+        device; an engine on the CPU launches no kernel and compiles
+        nothing."""
         if num_bpr_threads < 1 or num_bpr_threads & (num_bpr_threads - 1):
             raise ValueError(
                 f"num_bpr_threads must be a power of two, got {num_bpr_threads}"
@@ -230,20 +237,34 @@ class CuzkMsmEngine:
         self.num_bpr_threads = num_bpr_threads
         self.tree_finish = tree_finish
         self.smvp_mode = smvp_mode
+        self.autotune = autotune
         self.device = resolve_device(device)
         if force_recompile and self.device.type == "cuda":
             kernels.rebuild()
 
+    def _tuned(self, n: int) -> dict:
+        """The tuning table's entry for this device, curve and n ({} with
+        autotune off or none tuned)."""
+        if not self.autotune:
+            return {}
+        from ..harness.autotune import lookup_entry
+
+        return lookup_entry(self.curve, n, device=self.device)
+
     def _select_smvp(self, chunk_size: int, n: int) -> str:
         """Resolve smvp_mode to the path for this size.  "auto" is the JAX
-        engine's policy on a TPU with an empty autotune table: where a
-        window's buckets fill whole 256-lane slabs (stream_supported:
-        chunk_size >= 9), the hybrid tree from n = 2^18 and the stream path
-        below; else the fused path where _fused_ok; else legacy.  An
-        explicit mode runs at any n and chunk size: no kernel here has a
-        lane constraint."""
+        engine's policy on a TPU: a tuned "tree" or "stream" for this n
+        where stream_supported(chunk_size) (a stale entry cannot pick a
+        path for other window shapes); else, where a window's buckets fill
+        whole 256-lane slabs (stream_supported: chunk_size >= 9), the
+        hybrid tree from n = 2^18 and the stream path below; else the
+        fused path where _fused_ok; else legacy.  An explicit mode runs at
+        any n and chunk size: no kernel here has a lane constraint."""
         if self.smvp_mode != "auto":
             return self.smvp_mode
+        tuned = self._tuned(n).get("smvp")
+        if tuned in ("tree", "stream") and stream_supported(chunk_size):
+            return tuned
         if stream_supported(chunk_size):
             return "tree" if n >= TREE_MIN_N else "stream"
         return "fused" if self._fused_ok(chunk_size, n) else "legacy"
@@ -256,17 +277,24 @@ class CuzkMsmEngine:
             num_buckets, num_windows * n
         )
 
-    def _tree_k(self, batch: bool = False) -> int | None:
+    def _tree_k(self, n: int | None = None, batch: bool = False) -> int | None:
         """The hybrid finish level K, or None for the pure tree: an
-        explicit tree_finish wins; "auto" takes 2; an explicit "tree"
-        without tree_finish is the pure tree, except in a batch, which
-        takes the hybrid (the pure tree reads its level count back)."""
+        explicit tree_finish wins; "auto" takes the tuned K for n, else 2;
+        an explicit "tree" without tree_finish is the pure tree, except in
+        a batch, which takes the hybrid's 2 (the pure tree reads its level
+        count back)."""
         if self.tree_finish is not None:
             return self.tree_finish
-        return 2 if self.smvp_mode == "auto" or batch else None
+        if self.smvp_mode != "auto":
+            return 2 if batch else None
+        tuned = self._tuned(n).get("tree_finish") if n is not None else None
+        return int(tuned) if tuned else 2
 
     def _chunk_for(self, n: int) -> int:
-        return self.chunk_size_override or choose_chunk_size(n)
+        """The window size: an explicit chunk_size, then the tuned one for
+        n, then the static policy (choose_chunk_size)."""
+        return (self.chunk_size_override or self._tuned(n).get("chunk")
+                or choose_chunk_size(n))
 
     # -- input normalization (reference wire formats) -----------------------
     # Prepared inputs are (host uint32 words, their WireLayout): a wire
@@ -311,9 +339,10 @@ class CuzkMsmEngine:
         """The device pipeline over prepared points and scalars (host words
         and their layouts): returns the (39|36, num_windows) canonical
         window sums in plain (non-Montgomery) form, on the device."""
-        path = self._select_smvp(chunk_size, points[1].n)
+        n = points[1].n
+        path = self._select_smvp(chunk_size, n)
         prepared = self._point_prep(path, points)
-        return self._msm_set(self._smvp_fn(path), prepared,
+        return self._msm_set(self._smvp_fn(path, n), prepared,
                              self._scalars_to_device(scalars), chunk_size)
 
     def _point_prep(self, path: str, points) -> torch.Tensor:
@@ -334,9 +363,10 @@ class CuzkMsmEngine:
         sw = words_to_device(words, self.device)
         return sw.T.contiguous() if layout.point_major else sw
 
-    def _smvp_fn(self, path: str, batch: bool = False):
+    def _smvp_fn(self, path: str, n: int, batch: bool = False):
         if path == "tree":
-            return functools.partial(self._smvp_tree, tree_k=self._tree_k(batch))
+            return functools.partial(self._smvp_tree,
+                                     tree_k=self._tree_k(n, batch))
         return {"stream": self._smvp_stream, "fused": self._smvp_fused,
                 "legacy": self._smvp_legacy}[path]
 
@@ -508,7 +538,8 @@ class CuzkMsmEngine:
 
     def _batch_prep(self, path: str, points):
         """The batch's shared work: (the path's SMVP, the prepared points)."""
-        return self._smvp_fn(path, batch=True), self._point_prep(path, points)
+        return (self._smvp_fn(path, points[1].n, batch=True),
+                self._point_prep(path, points))
 
     def _batch_sets(self, shared, scalars_list, chunk_size: int):
         """Per-set work, enqueued back to back: nothing here makes the host

@@ -324,3 +324,82 @@ def to_mont(a: torch.Tensor, ctx: FieldCtx = G1_CTX) -> torch.Tensor:
 def from_mont(a: torch.Tensor, ctx: FieldCtx = G1_CTX) -> torch.Tensor:
     """x R -> x mod p, canonical."""
     return mont_mul_canon(a, ctx.col(1, a.device), ctx)
+
+
+# ---------------------------------------------------------------------------
+# Vanilla Barrett (the JAX package's barrett_mul; the microbench's only)
+# ---------------------------------------------------------------------------
+
+
+def _norm16(t: torch.Tensor) -> torch.Tensor:
+    """int64 digit columns -> 16-bit digits of their value mod 2^(16 rows)
+    (a negative column borrows from the next, as _carry)."""
+    out, c = [], None
+    for i in range(t.shape[0]):
+        s = t[i] if c is None else t[i] + c
+        out.append(s & M16)
+        c = s >> 16
+    return torch.stack(out)
+
+
+def _mul16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Schoolbook product of 16-bit digit columns (la, n) x (lb, n|1) ->
+    (la + lb, n) 16-bit digits."""
+    t = torch.zeros((a.shape[0] + b.shape[0], max(a.shape[1], b.shape[1])),
+                    dtype=torch.int64, device=a.device)
+    for i in range(a.shape[0]):
+        t[i:i + b.shape[0]] += a[i][None] * b
+    return _norm16(t)
+
+
+def _shr16(d: torch.Tensor, bits: int) -> torch.Tensor:
+    """floor(value / 2^bits) of 16-bit digit columns."""
+    q, r = divmod(bits, 16)
+    d = d[q:]
+    if not r:
+        return d
+    hi = torch.cat([d[1:], torch.zeros_like(d[:1])])
+    return (d >> r) | ((hi << (16 - r)) & M16)
+
+
+@functools.lru_cache(maxsize=None)
+def _barrett_consts(p: int, device) -> tuple[int, torch.Tensor, torch.Tensor]:
+    """x = bit length of p (the smallest x with 2^x > p), and the 16-bit
+    digit columns of mu = floor(4^x / p) and of p; cached and read-only."""
+    x = p.bit_length()
+    mu = 4 ** x // p
+
+    def digits(v: int) -> torch.Tensor:
+        nd = (v.bit_length() + 15) // 16
+        return torch.tensor([(v >> (16 * i)) & M16 for i in range(nd)],
+                            dtype=torch.int64, device=device).reshape(nd, 1)
+    return x, digits(mu), digits(p)
+
+
+def barrett_mul(a: torch.Tensor, b: torch.Tensor,
+                ctx: FieldCtx = G1_CTX) -> torch.Tensor:
+    """a*b mod p, canonical, for canonical a, b (nw, N) planes, by vanilla
+    Barrett, the JAX package's barrett_mul (its stage-1 parity path and
+    the microbench's Barrett row): with x the bit length of p and mu =
+    floor(4^x / p), q = floor(floor(ab / 2^x) mu / 2^x), r = ab - q p <
+    3p, then at most two subtracts of p.  Values agree with the JAX
+    function mod p; the words differ (32-bit words here, its limbs
+    there)."""
+    x, mu, pd = _barrett_consts(ctx.p, a.device)
+    nd = ctx.nd
+    outs = []
+    n = _lanes(a, b)
+    for lo in range(0, n, CHUNK):
+        hi = min(n, lo + CHUNK)
+        ad, bd = (_digits(_u64(v[:, lo:hi] if v.shape[-1] > 1 else v))
+                  for v in (a, b))
+        xy = _mul16(ad, bd)
+        q = _shr16(_mul16(_shr16(xy, x), mu), x)
+        qp = _mul16(q, pd)
+        # r = ab - q p < 3p < 2^(16 nd): its low nd digits, borrows as -1
+        r = _norm16(xy[:nd] - qp[:nd])
+        w = r[0::2] | (r[1::2] << 16)
+        kp = ctx.kp(1, a.device)
+        outs.append(_cond_sub(_cond_sub(w, kp), kp))
+    return _i32(torch.cat(outs, dim=1))
+

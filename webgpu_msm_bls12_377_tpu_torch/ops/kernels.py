@@ -6,7 +6,7 @@ one launch, and the lane-wise add), 6 (the legacy SMVP: every segment's
 canonical sum in one launch) and 7 (canonical: the whole double-and-add
 of a scalar multiplication, the whole tree sum and the whole running-sum
 chain, one launch each), and tree.cu's Montgomery products on their own
-(field_mul_lanes).
+(field_mul_lanes) and its rate kernel (word_rate).
 
 Every kernel source under csrc/ is compiled by nvcc for sm_90a into a
 shared library with a plain C interface, loaded with ctypes, and a second
@@ -15,8 +15,10 @@ time with -DMSM_CURVE_ED, for the Edwards field and curve
 at first use, one nvcc per library, all started together, into
 <repo>/build/kernels/<hash of the sources>/ (listed in .gitignore), so a
 fresh checkout builds everything the first time a kernel launches and a
-changed source never reuses a stale library.  Importing this module
-builds and loads nothing.
+changed source never reuses a stale library.  build_variants builds a
+source again with extra nvcc flags (the C-form product, register budgets)
+into <repo>/build/variants/, and `using` launches through such a build.
+Importing this module builds and loads nothing.
 
 Every wrapper takes the plain PyTorch form of its kernel when its tensors
 lie on the CPU, launches the kernel on PyTorch's current stream when they
@@ -30,6 +32,7 @@ with "_ed" appended.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -192,6 +195,64 @@ def rebuild() -> tuple[Path, float]:
             shutil.rmtree(fresh, ignore_errors=True)
         _libs.clear()
     return out_dir, secs
+
+
+def build_variants(sources: tuple[str, ...],
+                   variants: dict[str, tuple[str, ...]]) -> dict[str, Path]:
+    """Build the libraries of `sources` (both fields of each) again with
+    each variant's extra nvcc flags (-DMSM_MONT_C: the C-form product; a
+    source's register-budget macros), those not built yet, every nvcc
+    started together, into
+    <repo>/build/variants/<hash of the sources>/<sources>/<variant>/.
+    Returns {variant: directory}; load_variant loads a directory."""
+    root = BUILD_ROOT.parent / "variants" / _build_dir().name
+    procs, dirs = [], {}
+    for v, flags in variants.items():
+        d = dirs[v] = root / "_".join(sources) / v
+        d.mkdir(parents=True, exist_ok=True)
+        for name, source, cflags in LIBRARIES:
+            lib = d / f"libmsm_{name}.so"
+            if source not in sources or lib.exists():
+                continue
+            tmp = d / f"libmsm_{name}.so.tmp{os.getpid()}"
+            cmd = [_nvcc(), *NVCC_FLAGS, *cflags, *flags, "-o", str(tmp),
+                   str(CSRC / f"{source}.cu")]
+            procs.append((d, name, lib, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    errors = []
+    for d, name, lib, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            errors.append(f"{name} in {d}:\n{log}")
+            continue
+        (d / f"{name}.log").write_text(log)
+        os.replace(tmp, lib)
+    if errors:
+        raise RuntimeError("variant build failed:\n" + "\n".join(errors))
+    return dirs
+
+
+def load_variant(out_dir: Path, sources: tuple[str, ...]
+                 ) -> dict[str, ctypes.CDLL]:
+    """The libraries of `sources` built in out_dir by build_variants:
+    {library name: CDLL}."""
+    return {name: load_library(out_dir, name) for name, source, _ in LIBRARIES
+            if source in sources}
+
+
+@contextlib.contextmanager
+def using(libs: dict[str, ctypes.CDLL]):
+    """Inside the block, launches of the named libraries go through the
+    given ones (a variant build) in place of the default build's."""
+    saved = {name: _lib(name) for name in libs}
+    with _lock:
+        _libs.update(libs)
+    try:
+        yield
+    finally:
+        with _lock:
+            _libs.update(saved)
 
 
 def load_library(out_dir: Path, name: str) -> ctypes.CDLL:
@@ -397,6 +458,50 @@ def field_mul_lanes(a, b, c, d, ctx: FieldCtx = G1_CTX):
            "field_mul_lanes" + ctx.tag, n, a.data_ptr(), b.data_ptr(),
            c.data_ptr(), d.data_ptr(), prod.data_ptr(), pair.data_ptr(), n)
     return prod, pair
+
+
+#: threads of a block of tree.cu's rate kernel (its RATE_THREADS)
+RATE_THREADS = 256
+
+
+def word_rate_plain(lanes: int, iters: int, ctx: FieldCtx = G1_CTX,
+                    device=None) -> torch.Tensor:
+    """Plain form of word_rate's output for lanes 0 .. lanes - 1: lane s
+    starts from words x_k = s 2654435761 + 40503 k + 1 and y_k = x_k ^
+    0x9e3779b9 (mod 2^32), runs x = REDC(x y) mod R `iters` times, and
+    gives the xor of x's words."""
+    seed = torch.arange(lanes, dtype=torch.int64, device=device)
+    k = torch.arange(ctx.nw, dtype=torch.int64, device=device)[:, None]
+    x = (seed[None] * 2654435761 + k * 40503 + 1) & F.M32
+    y = F._i32(x ^ 0x9E3779B9)
+    x = F._i32(x)
+    for _ in range(iters):
+        x = F.mont_mul(x, y, ctx)
+    s = x[0]
+    for i in range(1, ctx.nw):
+        s = s ^ x[i]
+    return s
+
+
+def word_rate(out: torch.Tensor, iters: int,
+              ctx: FieldCtx = G1_CTX) -> torch.Tensor:
+    """tree.cu's rate kernel (msm_word_rate): out.numel() / RATE_THREADS
+    blocks of RATE_THREADS threads, each running `iters` dependent
+    Montgomery products, 2 nw^2 word products each, in the source's
+    product form (the carry chain, or the C form in a -DMSM_MONT_C
+    variant build: launch inside `using`); writes each thread's xor of its
+    words to out (word_rate_plain) and returns it."""
+    if out.dim() != 1 or out.numel() % RATE_THREADS:
+        raise ValueError(f"out must hold whole blocks of {RATE_THREADS} "
+                         f"lanes, got {tuple(out.shape)}")
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    if not on_cuda(out):
+        return out.copy_(word_rate_plain(out.numel(), iters, ctx, out.device))
+    blocks = out.numel() // RATE_THREADS
+    launch("tree" + ctx.tag, "msm_word_rate", "word_rate" + ctx.tag, blocks,
+           out.data_ptr(), blocks, iters)
+    return out
 
 
 # ---------------------------------------------------------------------------
