@@ -24,6 +24,9 @@ Prints '#' comment lines, then last one JSON object: {"metric", "value"
 "detail"}.  A wrong result, or --device cuda without a CUDA device, exits
 nonzero and prints no JSON line; nothing falls back to the CPU.
 --device cpu runs the kernels' plain forms (for tests, at small n).
+--sharded runs parallel/mesh.py's ShardedMsmEngine over make_mesh() (every
+local CUDA device; with --device cpu two CPU shards) and reports
+n_devices = D, the shard count.
 bench.py stays the JAX package's bench.
 """
 
@@ -85,6 +88,9 @@ def parse_args(argv):
                     help="where the cases' words are kept (.npz)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain forms, for tests)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="the sharded engine (parallel/mesh.py) over every "
+                         "local CUDA device (--device cpu: two CPU shards)")
     return ap.parse_args(argv)
 
 
@@ -165,9 +171,28 @@ def main(argv=None) -> int:
         if smi:
             print(f"# card: {smi}", flush=True)
         _, build_s = K.build_all()
-    engine = CuzkMsmEngine(curve, chunk_size=chunk, smvp_mode=args.smvp_mode,
-                           tree_finish=args.tree_finish, device=dev)
-    path = engine._select_smvp(chunk, n)
+    if args.sharded:
+        if args.batch:
+            print("bench_torch: --batch with --sharded: use "
+                  "engine.compute_msm_batch", file=sys.stderr)
+            return 1
+        from webgpu_msm_bls12_377_tpu_torch.parallel.mesh import (
+            ShardedMsmEngine,
+            make_mesh,
+        )
+
+        mesh = make_mesh(["cpu"] * 2 if dev.type == "cpu" else None)
+        engine = ShardedMsmEngine(curve, mesh=mesh,
+                                  chunk_size=chunk, smvp_mode=args.smvp_mode,
+                                  tree_finish=args.tree_finish)
+        n_devices = engine.mesh.size
+        path = engine._shard_path(chunk, -(-n // n_devices))
+    else:
+        engine = CuzkMsmEngine(curve, chunk_size=chunk,
+                               smvp_mode=args.smvp_mode,
+                               tree_finish=args.tree_finish, device=dev)
+        n_devices = 1
+        path = engine._select_smvp(chunk, n)
 
     warm_thread = None
     if args.prewarm:
@@ -258,8 +283,8 @@ def main(argv=None) -> int:
         "n": n, "chunk_size": chunk, "mean_warm_s": mean_warm,
         "cold_s": cold_s, "host_finalize_s": host_finalize_s,
         "input_transfer_s": input_transfer_s, "runs": args.runs,
-        "device": dev.type, "n_devices": 1, "checked": not args.no_check,
-        "build_s": build_s, "path": path,
+        "device": dev.type, "n_devices": n_devices,
+        "checked": not args.no_check, "build_s": build_s, "path": path,
     }
     if prewarm_extra_s is not None:
         detail["prewarm_extra_s"] = prewarm_extra_s

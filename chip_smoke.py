@@ -71,11 +71,26 @@ Phases, each of which fails the run on any error:
      Markdown table); the microbench at 2^19 lanes and its product study
      (tree.cu's msm_word_rate in the carry-chain and the -DMSM_MONT_C
      build, both fields, each first held against its plain form), both
-     curves;
+     curves.  Then the multi-device step (multi_device_runs): the sharded
+     engine (parallel/mesh.py) on D shards of cuda:0, at 2^20 with D = 2
+     and 4 (chunk 16, 16 windows: the window-sharded tail, hybrid-tree
+     shards), at 2^18 with D = 2 (chunk 15, 17 windows: the tree
+     fallback, stream shards), at 2^17 with D = 3 (the fallback) and at
+     Edwards 2^20 with D = 2; a sharded batch and a device-pool batch
+     ([cuda:0, cuda:0]) of 4 sets at 2^17 against compute_msm per set;
+     multihost.init of a one-rank NCCL group, make_engine at 2^16 and
+     destroy_process_group; each with its launches (the point prep once a
+     shard or pool member; BPR once a shard and set; bpr_add D log2(D)
+     times a set where the windows are sharded, ceil(log2 D) in the
+     fallback, never on one device), its warm median beside the
+     single-device call's, and its tail's fenced share; with two or more
+     cards also the mesh over them, the two-card tests and run_scaling at
+     2^20, else "scaling: one device, not measured";
   4. one more run of each path (2^20 tree, 2^17 stream, 2^16 legacy, 2^16
      naive, the chain, 2^10 and 2^14 default fused, the forced fused run
      at 2^16 and chunk 15, 2^18 pure tree; Edwards 2^20 tree, 2^17
-     stream, 2^16 legacy, naive and chain, 2^10 and 2^14 fused) in which
+     stream, 2^16 legacy, naive and chain, 2^10 and 2^14 fused; the
+     sharded tail's joins at 2^20, D = 2 and 4, Edwards D = 2) in which
      every kernel launch is timed with
      CUDA events and repeated with its plain form on the same inputs,
      which must agree bit for bit: per-kernel time, plain time and the
@@ -218,6 +233,10 @@ KERNELS = {
     # one launch
     "fold_pieces": ("webgpu_msm_bls12_377_tpu_torch/csrc/tree.cu",
                     "webgpu_msm_bls12_377_tpu/ops/smvp_tree.py:416"),
+    # the sharded tail's join, lane-wise (parallel/mesh.py:326 of the JAX
+    # package calls the TPU kernel there)
+    "bpr_add": ("webgpu_msm_bls12_377_tpu_torch/csrc/bpr.cu",
+                "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:435"),
 }
 BPR = ("bpr_stage1", "bpr_stage2", "bpr_fold")
 # the Edwards build (-DMSM_CURVE_ED) of every source; its point prep also
@@ -283,6 +302,22 @@ PATHS["wire_tree"], PATHS["ed_wire_tree"] = PATHS["tree"], PATHS["ed_tree"]
 PATHS["ed_fused"] = PATHS["ed_fused_10"]
 PATHS["ed_legacy_14"] = ("legacy_buckets_ed", "fold_pieces_ed", *PREP_ED,
                          "bpr_stage2_ed", "bpr_fold_ed")
+# the multi-device phase: the sharded engine (parallel/mesh.py) on D shards
+# of one card, each shard on its path and the tail joining them with
+# bpr_add (window-sharded at 2^20: chunk 16, 16 windows; the tree fallback
+# at 2^18 (chunk 15, 17 windows) and at D = 3); the device pool; the
+# sharded engine of a one-rank NCCL group
+PATHS["sharded_2"] = (*PATHS["tree"], "bpr_add")
+PATHS["sharded_4"] = PATHS["sharded_2"]
+PATHS["sharded_fallback"] = (*PATHS["stream"], "bpr_add")
+PATHS["sharded_3"] = PATHS["sharded_batch"] = PATHS["sharded_fallback"]
+PATHS["ed_sharded_2"] = (*PATHS["ed_tree"], "bpr_add_ed")
+PATHS["pool_batch"] = PATHS["nccl"] = PATHS["stream"]
+PATHS["sharded_cards"] = PATHS["sharded_2"]
+#: phase 4's kernels on the sharded paths: the join alone (every other
+#: kernel has its row from a single-device path)
+TIMED = {"sharded_2": ("bpr_add",), "sharded_4": ("bpr_add",),
+         "ed_sharded_2": ("bpr_add_ed",)}
 #: the kernels a run launches once: the point prep (a batch's included),
 #: the whole legacy SMVP, the whole scalar multiplication, the whole tree
 #: sum and the whole running-sum chain
@@ -290,11 +325,8 @@ ONCE = ("point_prep", "legacy_buckets", "scalar_mult", "tree_sum",
         "running_sum")
 HOME = {k: path for path in reversed(PATHS) for k in PATHS[path]}
 #: phase 2's entry points that no path launches: tree.cu's Montgomery
-#: products on their own (the carry-chain schedule at extreme operands),
-#: and bpr.cu's lane-wise lazy add (the join of sharded partial window
-#: sums)
-LANE_CHECKS = ("field_mul_lanes", "field_mul_lanes_ed", "bpr_add",
-               "bpr_add_ed")
+#: products on their own (the carry-chain schedule at extreme operands)
+LANE_CHECKS = ("field_mul_lanes", "field_mul_lanes_ed")
 #: phase 2's shapes of BPR stage 2 and the fold: lanes a window (T),
 #: windows, buckets a lane (bpt)
 BPR_T, BPR_WINDOWS, BPR_BPT = (1, 8, 1024), (1, 17), (1, 2, 64)
@@ -1036,11 +1068,15 @@ def running_sum_oracle(pw, curve="bls12_377", steps=8):
     return {"x": x, "y": y}
 
 
-def drive(label, path, fn, args, want, warm_runs=3):
+def drive(label, path, fn, args, want, warm_runs=3, shards=1, preps=None,
+          joins=0):
     """Phase 3 for one case: counts zeroed just before the cold run and
     read just after; the result against `want` (the pinned golden, or the
-    oracle's result); warm_runs warm runs.  Returns the launches of the
-    cold run and the warm median in seconds."""
+    oracle's result); warm_runs warm runs.  A run makes `shards` BPR
+    reductions a scalar set, `preps` point preps (default shards) and
+    `joins` launches of the sharded tail's bpr_add (0 on one device).
+    Returns the launches of the cold run and the warm median in
+    seconds."""
     from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
 
     K.reset_launches()
@@ -1065,23 +1101,26 @@ def drive(label, path, fn, args, want, warm_runs=3):
     if missing:
         raise SystemExit(f"{label}: kernels not launched: {missing}")
     # the point prep, the legacy SMVP and the scalar multiplication are
-    # one launch a run
+    # one launch a run (the point prep one a shard or pool member)
     for name in {k + tag for k in ONCE for tag in ("", "_ed")} & set(
             PATHS[path]):
-        if launches[name] != 1:
+        once = (preps or shards) if name.startswith("point_prep") else 1
+        if launches[name] != once:
             raise SystemExit(f"{label}: {name} launched {launches[name]} "
-                             "times, not once")
+                             f"times, not {once}")
     # a BPR reduction is stage 1 (where bpt > 1), stage 2 and the fold, one
-    # launch each, once a scalar set (the chain runs stage 1 alone, no
-    # reduction)
+    # launch each, once a shard and scalar set (the chain runs stage 1
+    # alone, no reduction); bpr_add only in the sharded tail
     sets = len(want) if isinstance(want, list) else 1
     for tag in ("", "_ed") if "running_sum" not in path else ():
         s1, s2, fold = (launches.get(k + tag, 0) for k in BPR)
-        if (s2 != fold or s1 > s2 or launches.get("bpr_add" + tag) or (
-                s2 and s2 != sets)):
+        adds = launches.get("bpr_add" + tag, 0)
+        if (s2 != fold or s1 > s2 or adds != (joins if s2 else 0) or (
+                s2 and s2 != sets * shards)):
             raise SystemExit(f"{label}: BPR launched stage 1 {s1}, stage 2 "
-                             f"{s2} and the fold {fold} times for {sets} "
-                             "scalar sets")
+                             f"{s2}, the fold {fold} and the join {adds} "
+                             f"times for {sets} scalar sets on {shards} "
+                             "shards")
     return launches, med
 
 
@@ -1479,6 +1518,179 @@ def harness2_runs(goldens, inputs, ed_inputs, tuned_dir, variant_build):
     return rates
 
 
+#: the multi-device phase's batches: sets at 2^17
+SHARDED_BATCH_SETS = 4
+
+
+def sharded_msm(d, curve="bls12_377"):
+    """compute_msm of a ShardedMsmEngine over d shards on the first card
+    (the same engine every call)."""
+    from webgpu_msm_bls12_377_tpu_torch.parallel.mesh import (
+        ShardedMsmEngine,
+        make_mesh,
+    )
+    from webgpu_msm_bls12_377_tpu_torch.params import CurveId
+
+    eng = ShardedMsmEngine(CurveId(curve), mesh=make_mesh([f"{DEV}:0"] * d))
+
+    def run(pw, sw):
+        return eng.compute_msm(pw, sw)
+    run.engine = eng
+    return run
+
+
+def tail_share(run, pw, sw):
+    """One warm sharded call with its tail fenced: (seconds of the call,
+    seconds of the tail: the halving rounds or the window-sum tree, BPR,
+    the exit and the gather)."""
+    import torch
+
+    from webgpu_msm_bls12_377_tpu_torch.parallel.mesh import ShardedMsmEngine
+
+    spent = []
+
+    def fenced_tail(real):
+        def tail(self, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(self, *args)
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t0)
+            return out
+        return tail
+
+    with patched([(ShardedMsmEngine, name,
+                   fenced_tail(getattr(ShardedMsmEngine, name)))
+                  for name in ("_tail_windows", "_tail_tree")]):
+        _, total = fenced(run, pw, sw)
+    return total, sum(spent)
+
+
+def multi_device_runs(goldens, inputs, ed_inputs, sets, counts, medians):
+    """The multi-device phase on one card: the sharded engine on D shards
+    of cuda:0 (D = 2 and 4 at 2^20 G1: the window-sharded tail, hybrid-tree
+    shards; D = 2 at 2^18: the tree fallback, 17 windows, stream shards;
+    D = 3 at 2^17: the fallback; D = 2 at 2^20 Edwards), a sharded batch
+    and a device-pool batch of 4 sets at 2^17, and make_engine over a
+    one-rank NCCL group at 2^16, each against its golden or compute_msm
+    per set, with its launches, its warm median beside the single-device
+    call's and its tail's share; the mesh over the real cards and the
+    scaling rows where there are two or more."""
+    import torch
+    import torch.distributed as dist
+
+    from webgpu_msm_bls12_377_tpu_torch import compute_msm, compute_msm_edwards
+    from webgpu_msm_bls12_377_tpu_torch.harness import sweep
+    from webgpu_msm_bls12_377_tpu_torch.models import CuzkMsmEngine
+    from webgpu_msm_bls12_377_tpu_torch.ops.decompose import num_windows_for
+    from webgpu_msm_bls12_377_tpu_torch.parallel import mesh, multihost
+    from webgpu_msm_bls12_377_tpu_torch.params import CurveId
+
+    def golden(key, curve="bls12_377"):
+        x_hex, y_hex = goldens[f"{curve}:{key}"][:2]
+        return {"x": int(x_hex, 16), "y": int(y_hex, 16)}
+
+    singles = {}
+
+    def run(path, label, fn, args, want, single, **kw):
+        """drive, then the warm median of the same inputs through the
+        single-device call `single` (two warm runs, once a case)."""
+        counts[path], medians[path] = drive(label, path, fn, args, want,
+                                            warm_runs=2, **kw)
+        key = (single, id(args[0]))
+        if key not in singles:
+            single(*args)
+            singles[key] = statistics.median(fenced(single, *args)[1]
+                                             for _ in range(2))
+        log(f"  {label}: warm median {medians[path]:.4f} s beside "
+            f"{singles[key]:.4f} s for the single-device call")
+
+    def exits(path, want, curve=""):
+        got = counts[path]["mont_mul_const" + curve]
+        if got != want:
+            raise SystemExit(f"{path}: the exit ran {got} times, not {want}")
+
+    cases = (
+        ("sharded_2", 2, "bls12_377", 20, True),
+        ("sharded_4", 4, "bls12_377", 20, True),
+        ("sharded_fallback", 2, "bls12_377", 18, False),
+        ("sharded_3", 3, "bls12_377", 17, False),
+        ("ed_sharded_2", 2, ED, 20, True),
+    )
+    for path, d, curve, power, windowed in cases:
+        pw, sw = (inputs if curve == "bls12_377" else ed_inputs)[power]
+        fn = sharded_msm(d, curve)
+        eng = fn.engine
+        chunk = eng._chunk_for(1 << power)
+        nw = num_windows_for(chunk)
+        if mesh.window_sharded(d, nw) != windowed:
+            raise SystemExit(f"{path}: chunk {chunk}, D = {d}: not the "
+                             "expected branch of the tail")
+        joins = d * (d.bit_length() - 1) if windowed else (d - 1).bit_length()
+        tag = "" if curve == "bls12_377" else "_ed"
+        run(path, f"2^{power} {'Edwards ' if tag else ''}ShardedMsmEngine, "
+            f"D = {d} on one card ({eng._shard_path(chunk, -(-(1 << power) // d))}"
+            f" shards, {'window-sharded' if windowed else 'tree fallback'})",
+            fn, (pw, sw), golden(f"{power}:bench-{power}", curve),
+            compute_msm if curve == "bls12_377" else compute_msm_edwards,
+            shards=d, joins=joins)
+        exits(path, d if windowed else 1, tag)
+        total, tail = tail_share(fn, pw, sw)
+        log(f"  {path}: one warm call {total * 1e3:.2f} ms, the tail "
+            f"{tail * 1e3:.2f} ms ({100 * tail / total:.1f} %)")
+    # the batches at 2^17: the sharded engine's (D = 2: the fallback, a
+    # join a set) and the device pool's (two members on one card)
+    pw = inputs[17][0]
+    batch = sets[17][:SHARDED_BATCH_SETS]
+    per_set = [compute_msm(pw, sw) for sw in batch]
+    eng = sharded_msm(2).engine
+    one = CuzkMsmEngine()
+    run("sharded_batch", f"2^17 ShardedMsmEngine.compute_msm_batch "
+        f"({len(batch)} sets, D = 2)", eng.compute_msm_batch, (pw, batch),
+        per_set, one.compute_msm_batch, shards=2, joins=len(batch))
+    exits("sharded_batch", len(batch))
+    run("pool_batch", f"2^17 compute_msm_batch over the device pool "
+        f"[{DEV}:0, {DEV}:0] ({len(batch)} sets)",
+        lambda p, b: one.compute_msm_batch(p, b, devices=[f"{DEV}:0"] * 2),
+        (pw, batch), per_set, one.compute_msm_batch, preps=2)
+    exits("pool_batch", len(batch))
+    # the torch.distributed entry: a one-rank NCCL group
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        multihost.init(init_method=f"file://{os.path.join(tmp, 'rdv')}",
+                       world_size=1, rank=0, local_devices=[f"{DEV}:0"])
+        try:
+            if dist.get_backend() != "nccl":
+                raise SystemExit(f"multihost.init took {dist.get_backend()}")
+            eng = multihost.make_engine(CurveId.BLS12_377)
+            run("nccl", "2^16 multihost.make_engine over a one-rank NCCL "
+                "group", eng.compute_msm, inputs[16], golden("16:bench-16"),
+                compute_msm)
+        finally:
+            dist.destroy_process_group()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("  scaling: one device, not measured")
+        return
+    all_cards = mesh.ShardedMsmEngine(mesh=mesh.make_mesh())
+    run("sharded_cards", f"2^20 ShardedMsmEngine over {cards} cards",
+        all_cards.compute_msm, inputs[20], golden("20:bench-20"), compute_msm,
+        shards=cards, joins=(cards * (cards.bit_length() - 1)
+                             if mesh.window_sharded(cards, 16)
+                             else (cards - 1).bit_length()))
+    test = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-q", "-m", "cuda",
+         os.path.join(ROOT, "tests", "test_torch_sharded.py")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    log(test.stdout[-2000:])
+    if test.returncode:
+        raise SystemExit("the two-card tests failed")
+    for row in sweep.run_scaling(CurveId.BLS12_377, 20, 2,
+                                 [d for d in (1, 2, 4, 8) if d <= cards]):
+        log(f"  scaling {json.dumps(row)}")
+        if not row["verified"]:
+            raise SystemExit("scaling: a result differs from the golden")
+
+
 def timed_paths(inputs, ed_inputs):
     """Phase 4: each kernel launch of one run of every path timed,
     repeated with its plain form, compared, and its work counted.
@@ -1754,9 +1966,19 @@ def timed_paths(inputs, ed_inputs):
             ("ed_running_sum", running_sum_chain, (ed_inputs[16][0], ED)),
             ("ed_fused_10", run_ed_msm, ed_inputs[10]),
             ("ed_fused", run_ed_msm, ed_inputs[14]))
-    for path, fn, args in runs:
+    # the sharded tail's join: every bpr_add launch of one call, the other
+    # kernels untimed (their rows come from the paths above)
+    join = lanes(K.bpr_add, K.add_plain, "bpr_add", 2,
+                 lambda n, w, *a: n * w["add_full"],
+                 lambda n, w, *a: 3 * n * w["pt"])
+    sharded = (("sharded_2", sharded_msm(2), inputs[20]),
+               ("sharded_4", sharded_msm(4), inputs[20]),
+               ("ed_sharded_2", sharded_msm(2, ED), ed_inputs[20]))
+    for path, fn, args, only in (
+            [(p, f, a, patches) for p, f, a in runs]
+            + [(p, f, a, [(K, "bpr_add", join)]) for p, f, a in sharded]):
         current = stats[path] = {}
-        with patched(patches):
+        with patched(only):
             fn(*args)
         # a path's graphs (and the memory they hold) end with it
         for plain in replays:
@@ -1985,17 +2207,22 @@ def phases(goldens, profile: bool, tuned_dir: str) -> int:
           "the microbench and its product study)")
     rates = harness2_runs(goldens, inputs, ed_inputs, tuned_dir,
                           variant_build)
+    phase("phase 3 multi-device", "the sharded engine on D shards of one "
+          "card, the sharded and the device-pool batch, a one-rank NCCL "
+          "group")
+    multi_device_runs(goldens, inputs, ed_inputs, sets, counts, medians)
 
     phase("phase 4", "per-kernel time at each path's "
           "shapes (2^20 tree, 2^17 stream, 2^16 legacy, naive and chain, "
           "2^10 and 2^14 default fused, 2^16 forced fused (chunk "
           f"{FORCED_CHUNK}), 2^18 pure tree; Edwards "
           "2^20 tree, 2^17 stream, 2^16 legacy, naive and chain, 2^10 and "
-          "2^14 fused)")
+          "2^14 fused; the sharded tail's join at 2^20, D = 2 and 4, and "
+          "Edwards D = 2)")
     stats = timed_paths(inputs, ed_inputs)
     rows = []
     for path, per_kernel in stats.items():
-        for name in PATHS[path]:
+        for name in TIMED.get(path, PATHS[path]):
             s = per_kernel[name]
             if s["err"]:
                 raise SystemExit(f"{name}: kernel and plain differ ({path})")

@@ -151,7 +151,8 @@ def test_kernel_table_covers_every_path():
     """Every kernel has a source and a home path; the fused paths fold in
     one launch of the fold, not kernel 2's levels; phase 2's lane checks
     are no path's kernels; the legacy SMVP and the scalar multiplication
-    are homed on the legacy and naive paths."""
+    are homed on the legacy and naive paths, the join on the sharded
+    run."""
     named = {k for names in cs.PATHS.values() for k in names}
     assert named == set(cs.KERNELS) == set(cs.HOME)
     for path in ("fused_10", "fused", "fused_forced", "ed_fused_10",
@@ -193,6 +194,13 @@ def test_kernel_table_covers_every_path():
         assert {"fused_add" + tag, "fused_running_add" + tag}.isdisjoint(
             cs.KERNELS)
     assert {"tree_sum", "running_sum"} <= set(cs.ONCE)
+    # the sharded tail's join: row 8's lane-wise kernel, homed on the
+    # multi-device phase's 2^20 D = 2 run, and phase 4 times it there
+    for tag, pre in (("", ""), ("_ed", "ed_")):
+        assert cs.KERNELS["bpr_add" + tag][1].endswith("pallas_kernels.py:435")
+        assert cs.HOME["bpr_add" + tag] == pre + "sharded_2"
+        assert cs.TIMED[pre + "sharded_2"] == ("bpr_add" + tag,)
+    assert set(cs.TIMED) <= set(cs.PATHS)
 
 
 @pytest.mark.parametrize("curve", ["bls12_377", "edwards_bls12"],

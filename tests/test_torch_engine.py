@@ -158,7 +158,8 @@ def test_empty_launch_is_neither_made_nor_counted():
 
 
 def test_port_imports_no_jax_in_a_fresh_process():
-    """Import every module of the port (and run a tiny MSM) in a process
+    """Import every module of the port, the parallel package's by name too,
+    and run a tiny MSM on one device and on two CPU shards, in a process
     where jax and the JAX package cannot be imported."""
     code = f"""
 import sys, pkgutil, importlib, random
@@ -169,6 +170,7 @@ import webgpu_msm_bls12_377_tpu_torch as port
 for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(m.name)
 from webgpu_msm_bls12_377_tpu_torch.harness import autotune, microbench, sweep
+from webgpu_msm_bls12_377_tpu_torch.parallel import dryrun, mesh, multihost
 from webgpu_msm_bls12_377_tpu_torch.models.cuzk import CuzkMsmEngine
 from webgpu_msm_bls12_377_tpu_torch.reference import curve as crv
 pts = [crv.g1_scalar_mult(crv.G1_GENERATOR, k) for k in range(1, 9)]
@@ -177,6 +179,10 @@ eng = CuzkMsmEngine(chunk_size=4, num_bpr_threads=4, smvp_mode="tree",
                     tree_finish=2, device="cpu")
 got = eng.compute_msm(aff, list(range(1, 9)))
 want = crv.g1_to_affine(crv.g1_scalar_mult(crv.G1_GENERATOR, 204))
+assert (got["x"], got["y"]) == want, got
+eng = mesh.ShardedMsmEngine(mesh=mesh.make_mesh(["cpu"] * 2), chunk_size=4,
+                            num_bpr_threads=4, smvp_mode="tree", tree_finish=2)
+got = eng.compute_msm(aff, list(range(1, 9)))
 assert (got["x"], got["y"]) == want, got
 assert not any(k == "jax" or k.startswith("jax.") or
                k.startswith("webgpu_msm_bls12_377_tpu.")
@@ -192,18 +198,17 @@ print("ok")
 
 
 def test_port_refuses_nothing_for_edwards():
-    """The port's one NotImplementedError is the device pool's (ROADMAP,
-    "Multi-device"): every single-device call answers on both curves."""
+    """The port raises NotImplementedError nowhere: every call, the device
+    pool and the sharded engine included, answers on both curves."""
     raises = [f.name for f in PKG.rglob("*.py")
               for line in f.read_text().splitlines()
               if "NotImplementedError" in line]
-    assert raises == ["cuzk.py"]
-    assert "Multi-device" in (PKG / "models" / "cuzk.py").read_text()
+    assert raises == []
 
 
 def test_port_sources_name_no_jax():
-    """No import of jax or the JAX package in the port (its harness
-    modules among them), chip_smoke.py, bench_torch.py or
+    """No import of jax or the JAX package in the port (its harness and
+    parallel modules among them), chip_smoke.py, bench_torch.py or
     tools/row_times.py."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|webgpu_msm_bls12_377_tpu)\b")
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
@@ -211,6 +216,8 @@ def test_port_sources_name_no_jax():
                                        ROOT / "tools" / "row_times.py"]
     assert {PKG / "harness" / f"{m}.py"
             for m in ("autotune", "microbench", "sweep")} <= set(files)
+    assert {PKG / "parallel" / f"{m}.py"
+            for m in ("mesh", "multihost", "dryrun")} <= set(files)
     bad = [f"{f}:{i}" for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
            if pat.match(line)]

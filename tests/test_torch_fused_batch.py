@@ -559,7 +559,8 @@ def test_batch_on_other_paths_loops_compute_msm(case, sets, monkeypatch):
 
 def test_batch_arguments(case, sets):
     eng = engine(smvp_mode="stream")
-    with pytest.raises(NotImplementedError, match="Multi-device"):
+    # a pool's members must exist: no CUDA device here
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         eng.compute_msm_batch(case["aff"], sets, devices=["cuda:0", "cuda:1"])
     with pytest.raises(ValueError, match="runs on cpu"):
         eng.compute_msm_batch(case["aff"], sets, devices=["cuda:0"])

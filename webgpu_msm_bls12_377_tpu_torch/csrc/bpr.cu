@@ -11,9 +11,9 @@
 //                        g' = g + (k << b) m, one lane a thread
 //   msm_bpr_fold    <- fused_add_lazy, every level of the window fold
 //                        (log2 T launches and as many gathers)
-//   msm_bpr_add     <- fused_add_lazy            a' = a + b, lane-wise
-//                        (no path launches it: the join of sharded
-//                        partials will)
+//   msm_bpr_add     <- fused_add_lazy            a' = a + b, lane-wise:
+//                        the sharded engine's join of bucket partials
+//                        and window sums (parallel/mesh.py)
 // Every operand is a (39, L) lazy projective plane (coords < 4p); outputs
 // stay below 4p, so chains of these steps need no reduction in between.
 // Built for G1 and, with -DMSM_CURVE_ED, for Edwards (curve.cuh's

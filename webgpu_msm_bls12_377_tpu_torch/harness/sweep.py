@@ -9,12 +9,17 @@ readback and the host Horner (_finalize); the result held against the
 expected point.  Distinct-point inputs from harness/testdata.py
 make_bench_case by default (held against the pinned goldens), or
 --same-point: the generator in every lane, 253-bit scalars from
-np.random.RandomState(42).  The multi-device scaling mode (--devices,
-run_scaling) waits for the port's multi-device slice (ROADMAP.md).
+np.random.RandomState(42).  The scaling mode (--devices 1 2 4,
+run_scaling) runs the sharded engine (parallel/mesh.py) over the first d
+local devices at the first power and reports points/s a device and the
+efficiency against the first row (a "not enough devices" row where there
+are fewer than d); with --device cpu it makes d CPU shards.
 
 Run: python -m webgpu_msm_bls12_377_tpu_torch.harness.sweep --powers 16 20
      python -m webgpu_msm_bls12_377_tpu_torch.harness.sweep --powers 6 8 \\
          --runs 1 --device cpu                       # plain forms
+     python -m webgpu_msm_bls12_377_tpu_torch.harness.sweep --powers 20 \\
+         --devices 1 2 4                             # scaling
 """
 
 from __future__ import annotations
@@ -106,7 +111,58 @@ def run_power(engine, curve, power, num_runs, same_point=False):
     }
 
 
+def run_scaling(curve, power, num_runs, device_counts, same_point=False,
+                device=None, **engine_kw):
+    """The sharded engine at each device count d, over the first d local
+    CUDA devices (device "cpu": d CPU shards); efficiency = points/s a
+    device against the first row that ran (the JAX package's per-chip
+    retention).  engine_kw go to ShardedMsmEngine."""
+    import torch
+
+    from ..parallel.mesh import ShardedMsmEngine, make_mesh
+
+    cpu = device is not None and torch.device(device).type == "cpu"
+    local = 0 if cpu else (torch.cuda.device_count()
+                           if torch.cuda.is_available() else 0)
+    rows = []
+    base_per_chip = None
+    for d in device_counts:
+        if not cpu and local < d:
+            rows.append({"devices": d, "skipped": "not enough devices"})
+            continue
+        devices = ["cpu"] * d if cpu else [f"cuda:{i}" for i in range(d)]
+        engine = ShardedMsmEngine(curve, mesh=make_mesh(devices), **engine_kw)
+        row = run_power(engine, curve, power, num_runs, same_point=same_point)
+        row["devices"] = d
+        row["path"] = engine._shard_path(row["chunk"], -(-row["n"] // d))
+        per_chip = row["points_per_s"] / d
+        row["points_per_s_per_chip"] = round(per_chip, 1)
+        if base_per_chip is None:
+            base_per_chip = per_chip
+            row["efficiency"] = 1.0
+        else:
+            row["efficiency"] = round(per_chip / base_per_chip, 3)
+        rows.append(row)
+    return rows
+
+
 def markdown_table(rows) -> str:
+    if rows and "devices" in rows[0]:
+        lines = [
+            "| devices | power | mean warm (s) | points/s | points/s/chip |"
+            " efficiency | verified |",
+            "|---|---|---|---|---|---|---|",
+        ]
+        for r in rows:
+            if "skipped" in r:
+                lines.append(f"| {r['devices']} | — skipped: {r['skipped']} |")
+                continue
+            lines.append(
+                f"| {r['devices']} | 2^{r['power']} | {r['mean_warm_s']} | "
+                f"{r['points_per_s']} | {r['points_per_s_per_chip']} | "
+                f"{r['efficiency']} | {r['verified']} |"
+            )
+        return "\n".join(lines)
     lines = [
         "| power | n | cold (s) | mean warm (s) | points/s | verified |",
         "|---|---|---|---|---|---|",
@@ -139,9 +195,23 @@ def main(argv: list[str] | None = None):
     ap.add_argument("--chunk-size", type=int, default=None,
                     help="window size (default: the tuned one, else the "
                          "size policy)")
+    ap.add_argument("--devices", type=int, nargs="+", default=None,
+                    help="scaling mode: the sharded engine at these device "
+                         "counts (the first power), with its efficiency")
     args = ap.parse_args(argv)
 
     curve = CurveId(args.curve)
+    if args.devices:
+        rows = run_scaling(
+            curve, args.powers[0], args.runs, args.devices,
+            same_point=args.same_point, device=args.device,
+            chunk_size=args.chunk_size, smvp_mode=args.smvp_mode,
+            tree_finish=args.tree_finish,
+        )
+        for row in rows:
+            print(json.dumps(row), flush=True)
+        print(markdown_table(rows))
+        return
     engine = CuzkMsmEngine(
         curve, chunk_size=args.chunk_size, smvp_mode=args.smvp_mode,
         tree_finish=args.tree_finish, device=args.device,

@@ -3,7 +3,8 @@ SMVP paths, and batch mode over a fixed point set, for BLS12-377 G1 and
 Twisted Edwards BLS12 (the curve's group and field picked once per
 engine).
 
-compute_msm(points, scalars) -> {"x": int, "y": int} runs, on one device:
+compute_msm(points, scalars) -> {"x": int, "y": int} runs, on one device
+(parallel/mesh.py:ShardedMsmEngine runs it over shards of the points):
   0. the copy: wire words to the card as they come (a wire buffer's
      point-major words, a word array's word-major ones), staged through
      pinned memory in chunks whose copies start as each is filled;
@@ -41,8 +42,9 @@ compute_msm(points, scalars) -> {"x": int, "y": int} runs, on one device:
 compute_msm_batch(points, [scalars, ...]) runs step 1 once and steps 2-5
 per scalar set without the host waiting for the device between sets (tree,
 stream and fused paths), then reads every set's window sums back in one
-copy.  prewarm(n) builds and loads the kernels and makes
-one throwaway run of n's path; debug_check(points, scalars) holds the
+copy; with a pool of devices, set i runs whole on devices[i % D].
+prewarm(n) builds and loads the kernels and makes one throwaway run of
+n's path; debug_check(points, scalars) holds the
 point prep, the whole plan and sampled bucket sums of the stream kernel
 against host models at the full n.
 PyTorch runs eagerly, so the JAX package's plan/main program split, its
@@ -156,13 +158,16 @@ def staging_chunks(rows: int, row_bytes: int) -> list[tuple[int, int]]:
 
 def words_to_device(words: np.ndarray, device: torch.device) -> torch.Tensor:
     """uint32 host word array -> int32 tensor of the same bits and shape on
-    device.  To a CUDA device the words go through a pinned buffer in
+    device (an array whose last axis is contiguous: a view of a shard's
+    columns, too).  To a CUDA device the words go through a pinned buffer in
     chunks of whole rows of the array's 2-D view (all axes but the last
     merged: the points of point-major words, the word planes of word-major
     ones), filled by STAGE_WORKERS host threads; each chunk's copy is enqueued
-    as soon as it is filled (a small array: one fill and one copy), and
-    the host does not wait for the stream.  A tensor (int32 words staged
-    earlier) is moved to device, and is not copied where it lies there."""
+    as soon as it is filled (a small array: one fill and one copy), on the
+    current stream of `device` (PyTorch's copies enter the destination's
+    device), and the host does not wait for the stream.  A tensor (int32
+    words staged earlier) is moved to device, and is not copied where it
+    lies there."""
     if isinstance(words, torch.Tensor):
         return words.to(device)
     host = words.view(np.int32)
@@ -345,22 +350,24 @@ class CuzkMsmEngine:
         return self._msm_set(self._smvp_fn(path, n), prepared,
                              self._scalars_to_device(scalars), chunk_size)
 
-    def _point_prep(self, path: str, points) -> torch.Tensor:
-        """Everything that depends on the points alone: the copy, then the
-        point prep's one launch into the form the path's SMVP reads (the
-        fused path's wide rows from the Montgomery table)."""
+    def _point_prep(self, path: str, points, device=None) -> torch.Tensor:
+        """Everything that depends on the points alone: the copy to device
+        (default the engine's), then the point prep's one launch into the
+        form the path's SMVP reads (the fused path's wide rows from the
+        Montgomery table)."""
         words, layout = points
-        dev_words = words_to_device(words, self.device)
+        dev_words = words_to_device(words, device or self.device)
         if path in ("tree", "stream", "legacy"):
             return point_prep(dev_words, layout, self.group, SIGNED)
         table = point_prep(dev_words, layout, self.group, PLANE)
         return make_wide_rows(table, self.group) if path == "fused" else table
 
-    def _scalars_to_device(self, scalars) -> torch.Tensor:
-        """Prepared scalars -> their (8, N) words on the device (point-major
-        wire words transposed there, after the copy)."""
+    def _scalars_to_device(self, scalars, device=None) -> torch.Tensor:
+        """Prepared scalars -> their (8, N) words on device (default the
+        engine's; point-major wire words transposed there, after the
+        copy)."""
         words, layout = scalars
-        sw = words_to_device(words, self.device)
+        sw = words_to_device(words, device or self.device)
         return sw.T.contiguous() if layout.point_major else sw
 
     def _smvp_fn(self, path: str, n: int, batch: bool = False):
@@ -369,6 +376,16 @@ class CuzkMsmEngine:
                                      tree_k=self._tree_k(n, batch))
         return {"stream": self._smvp_stream, "fused": self._smvp_fused,
                 "legacy": self._smvp_legacy}[path]
+
+    def _buckets_fn(self, path: str, n: int, batch: bool = False):
+        """The path's SMVP up to its buckets (tree, stream and legacy):
+        fn(table, plan, chunk_size, num_windows, order) -> the canonical
+        buckets gathered in order, or window-major with order=None."""
+        if path == "tree":
+            return functools.partial(self._buckets_tree,
+                                     tree_k=self._tree_k(n, batch))
+        return {"stream": self._buckets_stream,
+                "legacy": self._buckets_legacy}[path]
 
     def _msm_set(self, smvp, points, sw: torch.Tensor, chunk_size: int):
         """Everything that depends on the scalars: plan, SMVP, BPR and the
@@ -379,20 +396,27 @@ class CuzkMsmEngine:
         return mont_mul_const(smvp(points, plan, chunk_size, num_windows), 1,
                               self.group.ctx)
 
-    def _bpr_order(self, num_windows: int, chunk_size: int) -> torch.Tensor:
+    def _bpr_order(self, num_windows: int, chunk_size: int,
+                   device=None) -> torch.Tensor:
         return bpr_order_on(num_windows, chunk_size, self.num_bpr_threads,
-                            self.device)
+                            device or self.device)
 
-    def _reduce_blocks(self, blocks, layout, chunk_size, num_windows):
-        """Block-ordered buckets -> window sums: the permute with the BPR
-        walk order composed in, then the gather-free BPR."""
-        order = self._bpr_order(num_windows, chunk_size)
-        buckets = permute_buckets(blocks, layout, order=order, group=self.group)
+    def _bpr(self, buckets, chunk_size, num_windows):
+        """BPR over buckets gathered in bpr_order: the window sums."""
         return reduce_buckets_prearranged(
             buckets, num_windows, chunk_size, self.num_bpr_threads, self.group
         )
 
     def _smvp_tree(self, signed_table, plan, chunk_size, num_windows, tree_k):
+        order = self._bpr_order(num_windows, chunk_size, signed_table.device)
+        return self._bpr(self._buckets_tree(signed_table, plan, chunk_size,
+                                            num_windows, order, tree_k),
+                         chunk_size, num_windows)
+
+    def _buckets_tree(self, signed_table, plan, chunk_size, num_windows,
+                      order, tree_k):
+        """The hybrid tree (K = tree_k) or the pure tree (None), its
+        buckets permuted into order (the BPR walk composed in)."""
         kn = plan.sorted_vals.shape[0]
         if tree_k is not None:
             tplan = build_hybrid_plan(
@@ -401,36 +425,39 @@ class CuzkMsmEngine:
             blocks = tree_smvp_hybrid(
                 signed_table, plan.sorted_vals, tplan, tree_k, self.group
             )
-            return self._reduce_blocks(
-                blocks, tplan.layout, chunk_size, num_windows
-            )
+            return permute_buckets(blocks, tplan.layout, order=order,
+                                   group=self.group)
         tplan = build_tree_plan(plan.starts, plan.lens, kn, num_windows)
         # the pure tree's one host readback: the longest bucket picks the
         # level count
         levels = num_levels(int(tplan.max_len))
         final, s_fin = tree_smvp(signed_table, plan.sorted_vals, tplan, levels,
                                  self.group)
-        buckets = permute_tree(
+        return permute_tree(
             final,
             real_bucket_view(s_fin, num_windows),
             real_bucket_view(tplan.lens, num_windows),
-            order=self._bpr_order(num_windows, chunk_size),
+            order=order,
             group=self.group,
-        )
-        return reduce_buckets_prearranged(
-            buckets, num_windows, chunk_size, self.num_bpr_threads, self.group
         )
 
     def _smvp_stream(self, signed_table, plan, chunk_size, num_windows):
+        order = self._bpr_order(num_windows, chunk_size, signed_table.device)
+        return self._bpr(self._buckets_stream(signed_table, plan, chunk_size,
+                                              num_windows, order),
+                         chunk_size, num_windows)
+
+    def _buckets_stream(self, signed_table, plan, chunk_size, num_windows,
+                        order):
         layout = build_stream_layout(plan.starts, plan.lens, num_windows)
         blocks = accumulate_buckets_streamed(
             signed_table, plan.sorted_vals, layout, self.group
         )
-        return self._reduce_blocks(blocks, layout, chunk_size, num_windows)
+        return permute_buckets(blocks, layout, order=order, group=self.group)
 
     def _smvp_fused(self, rows, plan, chunk_size, num_windows):
         n, group = rows.shape[0], self.group
-        order = self._bpr_order(num_windows, chunk_size)
+        order = self._bpr_order(num_windows, chunk_size, rows.device)
         if windowed_supported(plan.starts.shape[0], num_windows, n):
             buckets = accumulate_buckets_windowed(
                 rows, plan.sorted_vals, plan.starts, plan.lens, num_windows,
@@ -441,12 +468,17 @@ class CuzkMsmEngine:
                 pregather_signed(rows, plan.sorted_vals, group), plan.starts,
                 plan.lens, group, max_len=n, order=order
             )
-        return reduce_buckets_prearranged(
-            buckets, num_windows, chunk_size, self.num_bpr_threads, group
-        )
+        return self._bpr(buckets, chunk_size, num_windows)
 
     def _smvp_legacy(self, signed_table, plan, chunk_size, num_windows):
-        """Kernel 6 in one launch, then one BPR over all windows.  Where a
+        order = self._bpr_order(num_windows, chunk_size, signed_table.device)
+        return self._bpr(self._buckets_legacy(signed_table, plan, chunk_size,
+                                              num_windows, order),
+                         chunk_size, num_windows)
+
+    def _buckets_legacy(self, signed_table, plan, chunk_size, num_windows,
+                        order):
+        """Kernel 6 in one launch, its buckets gathered into order.  Where a
         window's mean bucket (n / h entries) is longer than PIECE, as at
         chunk 4, the launch sums pieces of at most PIECE entries, one
         thread each, and a second launch folds each bucket's pieces
@@ -465,11 +497,7 @@ class CuzkMsmEngine:
         else:
             buckets = legacy_buckets(signed_table, plan.sorted_vals,
                                      plan.starts, plan.lens, group)
-        order = self._bpr_order(num_windows, chunk_size)
-        return reduce_buckets_prearranged(
-            buckets[:, order], num_windows, chunk_size, self.num_bpr_threads,
-            group
-        )
+        return buckets if order is None else buckets[:, order]
 
     def _finalize(self, coords: torch.Tensor, chunk_size: int) -> dict[str, int]:
         nw = self.group.ctx.nw
@@ -510,19 +538,21 @@ class CuzkMsmEngine:
         plan, SMVP, BPR and Montgomery exit, enqueued without the host
         waiting for the device, and every set's window sums come back in
         one copy before the host Horner.  The legacy path (a baseline)
-        runs compute_msm per set.  devices may name
-        the engine's own device; a pool of more than one is not ported
-        (ROADMAP, "Multi-device")."""
-        if devices is not None and len(devices) > 1:
-            raise NotImplementedError(
-                "set-parallel batches over a device pool are not ported: "
-                "see ROADMAP, \"Multi-device\""
-            )
-        if devices and _device_key(devices[0]) != _device_key(self.device):
+        runs compute_msm per set.
+
+        devices: a device pool for set-parallel execution (the JAX
+        package's _msm_batch_stream_pool): with more than one member, and
+        where the path is tree or stream, set i runs whole on
+        devices[i % D] on the stream path, the point prep once per member
+        and one readback per member; members may repeat a device.  One
+        member must be the engine's own device."""
+        if devices and len(devices) == 1 and _device_key(
+                devices[0]) != _device_key(self.device):
             raise ValueError(
                 f"the engine runs on {self.device}, not on {devices[0]}: "
                 "give the device to the constructor"
             )
+        pool = [resolve_device(d) for d in devices or ()]
         points = self._prepare_points(points)
         n = points[1].n
         chunk_size = self._chunk_for(n)
@@ -532,9 +562,32 @@ class CuzkMsmEngine:
         sws = [self._prepare_scalars(sc) for sc in scalars_batch]
         for sw in sws:
             self._validate(n, sw)
+        if len(pool) > 1 and path in ("tree", "stream"):
+            return self._batch_pool(points, sws, chunk_size, pool)
         shared = self._batch_prep(path, points)
         coords = self._batch_sets(shared, sws, chunk_size)
         return self._batch_finish(coords, chunk_size)
+
+    def _batch_pool(self, points, sws, chunk_size: int, pool: list):
+        """Set-parallel batch over a device pool: every member's point prep
+        (its signed table), then each set's scalar copy, plan, stream SMVP,
+        BPR and exit on member i % D, all enqueued before any wait; one
+        readback per member of its sets' window sums, then the host
+        Horner."""
+        tables = [self._point_prep("stream", points, dev) for dev in pool]
+        coords = [
+            self._msm_set(self._smvp_stream, tables[i % len(pool)],
+                          self._scalars_to_device(sc, pool[i % len(pool)]),
+                          chunk_size)
+            for i, sc in enumerate(sws)
+        ]
+        host = {}
+        for k in range(min(len(pool), len(coords))):
+            mine = range(k, len(coords), len(pool))
+            host.update(zip(mine, torch.stack([coords[i] for i in mine])
+                            .cpu()))
+        return [self._finalize(host[i], chunk_size)
+                for i in range(len(coords))]
 
     def _batch_prep(self, path: str, points):
         """The batch's shared work: (the path's SMVP, the prepared points)."""

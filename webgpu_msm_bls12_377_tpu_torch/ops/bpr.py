@@ -52,13 +52,21 @@ def bpr_order(num_windows: int, chunk_size: int, num_threads: int) -> np.ndarray
     return np.stack([idx0] + [base - st for st in range(1, bpt)])
 
 
-@functools.lru_cache(maxsize=8)
 def bpr_order_on(
     num_windows: int, chunk_size: int, num_threads: int, device
 ) -> torch.Tensor:
     """bpr_order flattened to a (bpt*lanes,) int64 tensor on device.
-    Cached and read-only: the walk is static, and a copy from host memory
-    makes the host wait for the device's stream."""
+    Cached per device and read-only: the walk is static, and a copy from
+    host memory makes the host wait for the device's stream.  A CUDA
+    device without an index is keyed as the current one."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _bpr_order_cached(num_windows, chunk_size, num_threads, dev)
+
+
+@functools.lru_cache(maxsize=16)
+def _bpr_order_cached(num_windows, chunk_size, num_threads, device):
     order = bpr_order(num_windows, chunk_size, num_threads)
     return torch.as_tensor(order.reshape(-1), device=device).to(torch.int64)
 

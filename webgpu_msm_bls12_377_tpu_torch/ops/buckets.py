@@ -152,7 +152,8 @@ def legacy_buckets(table: torch.Tensor, sorted_vals: torch.Tensor,
     tag = group.ctx.tag
     launch("legacy" + tag, "msm_legacy_buckets", "legacy_buckets" + tag, ns,
            table.data_ptr(), n_points, sorted_vals.data_ptr(),
-           starts.data_ptr(), lens.data_ptr(), out.data_ptr(), ns)
+           starts.data_ptr(), lens.data_ptr(), out.data_ptr(), ns,
+           device=out.device)
     return out
 
 

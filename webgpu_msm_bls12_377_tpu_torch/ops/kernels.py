@@ -21,8 +21,9 @@ into <repo>/build/variants/, and `using` launches through such a build.
 Importing this module builds and loads nothing.
 
 Every wrapper takes the plain PyTorch form of its kernel when its tensors
-lie on the CPU, launches the kernel on PyTorch's current stream when they
-lie on a CUDA device, and raises otherwise; it adds one to
+lie on the CPU, launches the kernel on their CUDA device, with that device
+entered and on its current stream, when they lie on one, and raises
+otherwise; it adds one to
 ``launches[name]`` for every kernel launch, so a run can show which
 kernels it went through.  Wrappers take the group (ops/curve.py: G1, the
 default, or EDWARDS) or the field; an Edwards launch counts under the name
@@ -278,16 +279,25 @@ def _lib(source: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(library: str, fn: str, name: str, threads: int, *args) -> None:
-    """Call entry point fn of a kernel library with the current stream
-    appended; raise on a nonzero launch status; count the launch.  With
-    no threads to run the entry point launches nothing, so it is neither
-    called nor counted."""
+def launch(library: str, fn: str, name: str, threads: int, *args,
+           device: torch.device | None = None) -> None:
+    """Call entry point fn of a kernel library on `device`, the operands'
+    CUDA device, with that device's current stream appended; raise on a
+    nonzero launch status; count the launch.  The call runs with the
+    device entered: the libraries link nvcc's static CUDA runtime, which
+    follows the thread's current context, so a launch on operands of
+    cuda:1 while cuda:0 is current would otherwise run on the wrong
+    device.  With no threads to run the entry point launches nothing, so
+    it is neither called nor counted."""
     if threads == 0:
         return
+    if device is None or torch.device(device).type != "cuda":
+        raise ValueError(f"{fn}: a launch needs its operands' CUDA device, "
+                         f"got {device}")
     lib = _lib(library)
-    stream = torch.cuda.current_stream().cuda_stream
-    code = getattr(lib, fn)(*args, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(lib, fn)(*args, stream)
     if code != 0:
         msg = lib.msm_error_string(code).decode()
         raise RuntimeError(f"{fn} failed to launch: {msg} ({code})")
@@ -400,7 +410,7 @@ def point_prep(words: torch.Tensor, layout: WireLayout, group=G1,
     r2 = _words(ctx.params.r2, ctx.nw)
     launch("convert" + ctx.tag, "msm_point_prep", "point_prep" + ctx.tag, n,
            words.data_ptr(), res.data_ptr(), n, *layout.strides(), out,
-           r2.ctypes.data)
+           r2.ctypes.data, device=res.device)
     return res
 
 
@@ -434,7 +444,7 @@ def mont_mul_const(a: torch.Tensor, y: int,
     launch(
         "convert" + ctx.tag, "msm_mont_mul_const", "mont_mul_const" + ctx.tag,
         a.numel() // nw, a.data_ptr(), out.data_ptr(), y_words.ctypes.data,
-        a.shape[0] // nw, n,
+        a.shape[0] // nw, n, device=out.device,
     )
     return out
 
@@ -456,7 +466,8 @@ def field_mul_lanes(a, b, c, d, ctx: FieldCtx = G1_CTX):
     prod, pair = torch.empty_like(a), torch.empty_like(a)
     launch("tree" + ctx.tag, "msm_field_mul_lanes",
            "field_mul_lanes" + ctx.tag, n, a.data_ptr(), b.data_ptr(),
-           c.data_ptr(), d.data_ptr(), prod.data_ptr(), pair.data_ptr(), n)
+           c.data_ptr(), d.data_ptr(), prod.data_ptr(), pair.data_ptr(), n,
+           device=prod.device)
     return prod, pair
 
 
@@ -500,7 +511,7 @@ def word_rate(out: torch.Tensor, iters: int,
         return out.copy_(word_rate_plain(out.numel(), iters, ctx, out.device))
     blocks = out.numel() // RATE_THREADS
     launch("tree" + ctx.tag, "msm_word_rate", "word_rate" + ctx.tag, blocks,
-           out.data_ptr(), blocks, iters)
+           out.data_ptr(), blocks, iters, device=out.device)
     return out
 
 
@@ -583,7 +594,8 @@ def bpr_stage1(buckets, bpt, split, group=G1):
     g = torch.empty_like(m)
     tag = group.ctx.tag
     launch("bpr" + tag, "msm_bpr_stage1", "bpr_stage1" + tag, lanes * split,
-           buckets.data_ptr(), m.data_ptr(), g.data_ptr(), lanes, bpt, split)
+           buckets.data_ptr(), m.data_ptr(), g.data_ptr(), lanes, bpt, split,
+           device=m.device)
     return m, g
 
 
@@ -625,7 +637,7 @@ def bpr_stage2(m, g, t_count, bpt, group=G1):
     tag = group.ctx.tag
     launch("bpr" + tag, "msm_bpr_stage2", "bpr_stage2" + tag, lanes,
            m.data_ptr(), g.data_ptr(), out.data_ptr(), lanes, t_count,
-           bpt.bit_length() - 1)
+           bpt.bit_length() - 1, device=out.device)
     return out
 
 
@@ -665,13 +677,15 @@ def bpr_fold(g, num_windows, t_count, group=G1):
                       device=g.device)
     tag = group.ctx.tag
     launch("bpr" + tag, "msm_bpr_fold", "bpr_fold" + tag, num_windows,
-           g.data_ptr(), out.data_ptr(), num_windows, t_count)
+           g.data_ptr(), out.data_ptr(), num_windows, t_count,
+           device=out.device)
     return out
 
 
 def bpr_add(a, b, group=G1):
-    """Lazy full add of every lane (no path launches it: the lane-wise join
-    that sharded partial window sums will take)."""
+    """Lazy full add of every lane, (39|36, L) planes below 4p (G1) or 2p
+    (Edwards) in, the same bound out: the sharded engine's join of bucket
+    partials and of window sums (parallel/mesh.py)."""
     n = check_plane(a, group.rows)
     check_plane(b, group.rows, n)
     if not on_cuda(a, b):
@@ -679,7 +693,7 @@ def bpr_add(a, b, group=G1):
     out = torch.empty_like(a)
     tag = group.ctx.tag
     launch("bpr" + tag, "msm_bpr_add", "bpr_add" + tag, n,
-           a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+           a.data_ptr(), b.data_ptr(), out.data_ptr(), n, device=out.device)
     return out
 
 
@@ -763,7 +777,8 @@ def tree_sum(points, group=G1):
     words = _lib("canon" + tag).msm_tree_sum_scratch(n)
     scratch = torch.zeros(words, dtype=torch.int32, device=points.device)
     launch("canon" + tag, "msm_tree_sum", "tree_sum" + tag, n,
-           points.data_ptr(), scratch.data_ptr(), out.data_ptr(), n)
+           points.data_ptr(), scratch.data_ptr(), out.data_ptr(), n,
+           device=out.device)
     return out
 
 
@@ -802,7 +817,8 @@ def scalar_mult(table, scalars, bits=SCALAR_BITS, group=G1):
     out = torch.empty((group.rows, n), dtype=torch.int32, device=table.device)
     tag = group.ctx.tag
     launch("canon" + tag, "msm_scalar_mult", "scalar_mult" + tag, n,
-           table.data_ptr(), scalars.data_ptr(), bits, out.data_ptr(), n)
+           table.data_ptr(), scalars.data_ptr(), bits, out.data_ptr(), n,
+           device=out.device)
     return out
 
 
@@ -833,7 +849,7 @@ def running_sum(m, g, walk, steps, group=G1):
     tag = group.ctx.tag
     launch("canon" + tag, "msm_running_sum", "running_sum" + tag, n,
            m.data_ptr(), g.data_ptr(), walk.data_ptr(), steps, m2.data_ptr(),
-           g2.data_ptr(), n)
+           g2.data_ptr(), n, device=m2.device)
     return m2, g2
 
 

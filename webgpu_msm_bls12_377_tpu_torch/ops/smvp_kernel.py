@@ -215,7 +215,7 @@ def fused_segments(
     tag = group.ctx.tag
     launch("fused" + tag, "msm_fused_buckets", "fused_buckets" + tag, ns,
            gathered.data_ptr(), starts.data_ptr(), lens.data_ptr(),
-           out.data_ptr(), ns)
+           out.data_ptr(), ns, device=out.device)
     return out
 
 
@@ -270,7 +270,7 @@ def fold_pieces(sums: torch.Tensor, counts: torch.Tensor,
     tag = group.ctx.tag
     launch("tree" + tag, "msm_fold_pieces", "fold_pieces" + tag, nb,
            sums.data_ptr(), cols, counts32.data_ptr(), offsets32.data_ptr(),
-           scratch.data_ptr(), out.data_ptr(), nb)
+           scratch.data_ptr(), out.data_ptr(), nb, device=out.device)
     return out, torch.arange(nb, device=sums.device)
 
 

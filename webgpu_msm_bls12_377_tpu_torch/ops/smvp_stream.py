@@ -116,7 +116,7 @@ def accumulate_buckets_streamed(
     launch("stream" + tag, "msm_stream_buckets", "stream_buckets" + tag, nb,
            signed_table.data_ptr(), n_points,
            sorted_vals.data_ptr(), starts.data_ptr(), lens.data_ptr(),
-           out.data_ptr(), nb)
+           out.data_ptr(), nb, device=out.device)
     return out
 
 
@@ -176,7 +176,7 @@ def packed_finish(rows: torch.Tensor, layout: StreamLayout,
     tag = group.ctx.tag
     launch("packed" + tag, "msm_packed_finish", "packed_finish" + tag, nb,
            rows.data_ptr(), starts.data_ptr(), lens.data_ptr(),
-           out.data_ptr(), nb)
+           out.data_ptr(), nb, device=out.device)
     return out
 
 

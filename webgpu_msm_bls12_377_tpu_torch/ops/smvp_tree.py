@@ -242,11 +242,12 @@ def run_tree_level(
     if mode == "aff":
         launch("tree" + tag, "msm_tree_level_aff", "tree_level_aff" + tag,
                t_out, arr_in.data_ptr(), n_points, sorted_vals.data_ptr(),
-               level_map.data_ptr(), out.data_ptr(), t_out, out_mode)
+               level_map.data_ptr(), out.data_ptr(), t_out, out_mode,
+               device=out.device)
     else:
         launch("tree" + tag, "msm_tree_level_full", "tree_level_full" + tag,
                t_out, arr_in.data_ptr(), arr_in.shape[1], level_map.data_ptr(),
-               out.data_ptr(), t_out, out_mode)
+               out.data_ptr(), t_out, out_mode, device=out.device)
     return out
 
 
