@@ -59,7 +59,15 @@ Phases, each of which fails the run on any error:
      known-k oracle, each warm median beside the uniform case's;
      debug_check at 2^17, both curves, every stage True; and
      bench_torch.py --n 65536 --runs 2 --prewarm in a subprocess, its last
-     line a checked JSON result.  Then the harness's second part
+     line a checked JSON result.  Then the native C++ oracle
+     (native_runs; host code, built with g++ into the build root): the
+     2^20 bench cases' wire bytes against their pinned goldens;
+     make_test_case at 2^16 (points from kernel 7 on the card) through
+     compute_msm and compute_msm_edwards against the oracle's sum of the
+     same points; the Edwards 2^10 and 2^14 default runs, which no golden
+     pins, against the oracle's sum of their points; both curves, each
+     oracle time beside the host's CPU count; g++ missing fails the run.
+     Then the harness's second part
      (harness2_runs): autotune (window sizes 13, 15 and 16, then the
      stream path against the hybrid tree at K = 1, 2 and 3) at 2^20, both
      curves, and at 2^16 G1, on a tuning table in a temporary directory
@@ -1378,6 +1386,74 @@ def harness_runs(inputs, ed_inputs, medians):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+#: the native oracle's step: the bench cases held against their pinned
+#: goldens, make_test_case's size, the Edwards default runs below the
+#: goldens
+NATIVE_GOLDEN_POWER = 20
+NATIVE_TEST_POWER = 16
+NATIVE_ED_POWERS = (10, 14)
+
+
+def native_runs(goldens, inputs, ed_inputs):
+    """Phase 3 for the native C++ oracle (native/: host code, g++, a
+    thread a window): its build, with its directory and seconds; the
+    2^20 bench cases' wire bytes against their pinned goldens; make_test_case
+    at 2^16 (points from kernel 7 on the card) through compute_msm /
+    compute_msm_edwards against the oracle's sum of those points; the
+    Edwards 2^10 and 2^14 default runs, which no golden pins, again
+    against the oracle's sum of their points.  Both curves; every oracle
+    time beside the host's CPU count.  g++ missing, a failed build or any
+    disagreement fails the run."""
+    from webgpu_msm_bls12_377_tpu_torch import (
+        compute_msm,
+        compute_msm_edwards,
+        native,
+    )
+    from webgpu_msm_bls12_377_tpu_torch.harness.testdata import make_test_case
+
+    cpus = os.cpu_count()
+    t0 = time.perf_counter()
+    try:
+        lib = native.build()
+    except native.Unavailable as e:
+        raise SystemExit(f"native oracle: {e}")
+    log(f"  native oracle: {lib} ready in {time.perf_counter() - t0:.1f} s "
+        f"(built here unless it was there)")
+
+    def oracle(label, fn, args, want=None):
+        """The oracle's sum, held against `want` where one is given."""
+        t0 = time.perf_counter()
+        got = dict(zip("xy", fn(*args)))
+        secs = time.perf_counter() - t0
+        if want is not None and got != want:
+            raise SystemExit(f"native oracle: {label}: {got} differs from "
+                             f"{want}")
+        log(f"  native oracle {label}: {secs:.3f} s on {cpus} host CPUs")
+        return got
+
+    power = NATIVE_GOLDEN_POWER
+    for curve, fn, ints, engine, words in (
+            ("bls12_377", native.msm_g1, native.msm_g1_ints, compute_msm,
+             inputs),
+            (ED, native.msm_edwards, native.msm_edwards_ints,
+             compute_msm_edwards, ed_inputs)):
+        x_hex, y_hex = goldens[f"{curve}:{power}:bench-{power}"][:2]
+        oracle(f"{curve} 2^{power} bench case = its golden", fn,
+               to_wire(*words[power]), {"x": int(x_hex, 16), "y": int(y_hex, 16)})
+        t0 = time.perf_counter()
+        case = make_test_case(curve, NATIVE_TEST_POWER, device=DEV)
+        log(f"  {curve} 2^{NATIVE_TEST_POWER} make_test_case on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        got, secs = fenced(engine, case.points, case.scalars)
+        oracle(f"{curve} 2^{NATIVE_TEST_POWER} make_test_case = "
+               f"{engine.__name__} ({secs:.3f} s cold, from ints)", ints,
+               (case.points, case.scalars), got)
+    for power in NATIVE_ED_POWERS:
+        got, _ = run_ed_msm(*ed_inputs[power])
+        oracle(f"{ED} 2^{power} bench case = compute_msm_edwards",
+               native.msm_edwards, to_wire(*ed_inputs[power]), got)
+
+
 #: the harness's second step: autotune's (curve, power) classes, the
 #: static policy each is held against ((chunk, path, K) by power), the
 #: sweep's powers (G1, one warm run each), and the microbench's lanes and
@@ -2203,6 +2279,10 @@ def phases(goldens, profile: bool, tuned_dir: str) -> int:
     phase("phase 3 harness", "the harness (zipf cases, debug_check, "
           "bench_torch.py)")
     harness_runs(inputs, ed_inputs, medians)
+    phase("phase 3 native", "the native C++ oracle (the 2^20 goldens, "
+          "make_test_case at 2^16 through both engines, the Edwards 2^10 "
+          "and 2^14 runs)")
+    native_runs(goldens, inputs, ed_inputs)
     phase("phase 3 harness 2", "the harness, part 2 (autotune, the sweep, "
           "the microbench and its product study)")
     rates = harness2_runs(goldens, inputs, ed_inputs, tuned_dir,

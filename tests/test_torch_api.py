@@ -125,9 +125,12 @@ def test_rebuild_replaces_each_library_in_place(tmp_path, monkeypatch):
     into a fresh directory and renames each over its old build: the build
     directory never goes away, every library is new, nothing of the
     fresh directory stays, and the loaded libraries are forgotten.  A
-    stand-in compiler writes the source's name to the output."""
+    stand-in compiler answers --version (the build key's toolkit id) and
+    writes the source's name to the output."""
     nvcc = tmp_path / "nvcc"
-    nvcc.write_text("#!/bin/sh\nout=\nsrc=\nwhile [ $# -gt 0 ]; do\n"
+    nvcc.write_text("#!/bin/sh\n"
+                    "if [ \"$1\" = --version ]; then echo stand-in; exit 0; fi\n"
+                    "out=\nsrc=\nwhile [ $# -gt 0 ]; do\n"
                     "  if [ \"$1\" = -o ]; then out=$2; shift; else src=$1; fi\n"
                     "  shift\ndone\necho \"$src\" > \"$out\"\n")
     nvcc.chmod(0o755)

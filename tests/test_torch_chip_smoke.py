@@ -4,11 +4,14 @@ the product-tree inversion equals pow(z, -1, p); a tiny bench case equals
 the seed scheme computed with Python integers and the bigint oracle; the
 MSM oracle of the bench cases equals the naive bigint MSM; phase 2's
 product, fold and tree-sum cases are made on the CPU too; the running-sum
-chain of a tiny case is the oracle's; and the kernel table covers every
-path.  Exact equality throughout.
+chain of a tiny case is the oracle's; the kernel table covers every
+path; and the native oracle's step runs on tiny cases (host points, the
+engines' plain forms) and fails on a golden it misses.  Exact equality
+throughout.
 """
 
 import random
+import shutil
 
 import numpy as np
 import pytest
@@ -229,3 +232,49 @@ def test_phase2_tree_cases_and_chain_on_the_cpu(curve, monkeypatch):
         calls.append(a[3]), real(*a))[1])
     assert cs.running_sum_chain(pw, curve) == cs.running_sum_oracle(pw, curve)
     assert calls == [8]
+
+
+def host_points_from_ks(curve, k_words, device=None):
+    """testdata.points_from_ks with Python integers (kernel 7's plain form
+    is slow on the CPU)."""
+    if curve == PP.CurveId.BLS12_377:
+        mult, gen, to_aff, cw = (crv.g1_scalar_mult, crv.G1_GENERATOR,
+                                 crv.g1_to_affine, 12)
+    else:
+        mult, gen, to_aff, cw = (crv.ed_scalar_mult, crv.ED_GENERATOR,
+                                 crv.ed_to_affine, 8)
+    aff = [to_aff(mult(gen, k)) for k in words_to_ints(k_words)]
+    return np.array([[[(pt[c] >> (32 * i)) & 0xFFFFFFFF for pt in aff]
+                      for i in range(cw)] for c in (0, 1)], dtype=np.uint32)
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="g++ not available")
+def test_native_step_on_the_cpu(monkeypatch, tmp_path):
+    """native_runs with 2^4 standing for 2^20's goldens, 2^3 for
+    make_test_case's 2^16 and 2^3, 2^4 for the Edwards 2^10 and 2^14
+    runs, every engine on the CPU: the oracle agrees throughout; a golden
+    it misses fails the step."""
+    from webgpu_msm_bls12_377_tpu_torch.harness import testdata as TD
+    from webgpu_msm_bls12_377_tpu_torch.models import cuzk
+
+    monkeypatch.setattr(TD, "points_from_ks", host_points_from_ks)
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    monkeypatch.setattr(cuzk, "resolve_device", lambda device: torch.device(
+        device or "cpu"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setenv("MSM_AUTOTUNE_DIR", str(tmp_path))
+    monkeypatch.setattr(cs, "NATIVE_GOLDEN_POWER", 4)
+    monkeypatch.setattr(cs, "NATIVE_TEST_POWER", 3)
+    monkeypatch.setattr(cs, "NATIVE_ED_POWERS", (3, 4))
+    inputs, ed_inputs, goldens = {}, {}, {}
+    for curve, words in (("bls12_377", inputs), (cs.ED, ed_inputs)):
+        for power in (3, 4):
+            pw, sw, kw = cs.bench_case(power, curve)
+            words[power] = pw, sw
+            want = cs.msm_oracle(sw, kw, curve)
+            goldens[f"{curve}:{power}:bench-{power}"] = [
+                hex(want["x"]), hex(want["y"]), True]
+    cs.native_runs(goldens, inputs, ed_inputs)
+    goldens[f"{cs.ED}:4:bench-4"][0] = hex(1)
+    with pytest.raises(SystemExit, match="differs"):
+        cs.native_runs(goldens, inputs, ed_inputs)

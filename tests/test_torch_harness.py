@@ -8,12 +8,16 @@ return the port's scalar words and expected values, both curves; text
 cases saved by either package load in the other; the reference-format
 loader parses a fixture as the JAX one does.  The JAX testdata writes its
 golden registry and may run its native oracle: here it writes a copy and
-its oracle reports itself absent.  Exact equality throughout.
+its oracle reports itself absent.  The port's make_bench_case has the
+port's native oracle check a case no golden records as checked (both
+curves, goldens.json untouched), and raises where the oracle disagrees.
+Exact equality throughout.
 """
 
 import json
 import random
 import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,6 +28,7 @@ from webgpu_msm_bls12_377_tpu.params import CurveId as JCurveId
 from webgpu_msm_bls12_377_tpu.reference import curve as jcrv
 from webgpu_msm_bls12_377_tpu.reference.msm import EDWARDS as JEDWARDS
 from webgpu_msm_bls12_377_tpu.reference.msm import naive_msm
+from webgpu_msm_bls12_377_tpu_torch import native
 from webgpu_msm_bls12_377_tpu_torch.harness import testdata as TD
 from webgpu_msm_bls12_377_tpu_torch.params import CurveId
 
@@ -31,6 +36,8 @@ torch.set_num_threads(1)
 
 G1, ED = CurveId.BLS12_377, CurveId.EDWARDS_BLS12
 CURVES = pytest.mark.parametrize("curve", [G1, ED], ids=["", "ed"])
+needs_gpp = pytest.mark.skipif(shutil.which("g++") is None,
+                               reason="g++ not available")
 
 
 def jcurve(curve):
@@ -68,7 +75,9 @@ def test_g1_bench_case_equals_the_pinned_golden(cache):
     entry = TD.load_goldens()["bls12_377:6:bench-6"]
     assert case.golden_pinned
     assert case.expected == tuple(int(v, 16) for v in entry[:2])
-    assert case.oracle_checked == bool(entry[2])
+    # as in the JAX package: a pin that records no oracle check is checked
+    # now (cross_check, the default) where the oracle is available
+    assert case.oracle_checked == (bool(entry[2]) or native.available())
     assert case.point_words.shape == (2, 12, 64)
     assert case.point_words.dtype == case.scalar_words.dtype == np.uint32
 
@@ -92,6 +101,37 @@ def test_edwards_bench_case_equals_the_jax_scheme():
     kw = TD.randrange_words(TD.MTWords(random.Random("bench-4-edwards_bls12")),
                             1, order, 16)
     assert TD.msm_oracle(case.scalar_words, kw, ED) == dict(zip("xy", want))
+
+
+@needs_gpp
+def test_bench_cases_are_checked_by_the_native_oracle(cache):
+    """cross_check: Edwards 2^4 (no golden) and G1 2^6 (pinned, its golden
+    recording no oracle check) come back oracle_checked; without
+    cross_check G1 2^6 repeats its golden's record; goldens.json is
+    byte-identical before and after."""
+    d, _ = cache
+    before = Path(TD.GOLDEN_PATH).read_bytes()
+    ed = TD.make_bench_case(ED, 4, device="cpu", cross_check=True)
+    g1 = TD.make_bench_case(G1, 6, device="cpu", cache_dir=d,
+                            cross_check=True)
+    assert ed.oracle_checked and not ed.golden_pinned
+    assert g1.oracle_checked and g1.golden_pinned
+    assert not TD.make_bench_case(G1, 6, device="cpu", cache_dir=d,
+                                  cross_check=False).oracle_checked
+    assert not TD.load_goldens()["bls12_377:6:bench-6"][2]
+    assert Path(TD.GOLDEN_PATH).read_bytes() == before
+
+
+@CURVES
+def test_a_disagreeing_oracle_raises(cache, curve, monkeypatch):
+    """The 2^6 cases (neither recorded as oracle-checked) against an
+    oracle that answers a wrong point."""
+    d, _ = cache
+    monkeypatch.setattr(native, "available", lambda: True)
+    monkeypatch.setattr(native, "msm_g1" if curve == G1 else "msm_edwards",
+                        lambda points, scalars: (1, 2))
+    with pytest.raises(AssertionError, match="native oracle disagrees"):
+        TD.make_bench_case(curve, 6, device="cpu", cache_dir=d)
 
 
 @CURVES

@@ -49,7 +49,8 @@ With --variants (a checkout whose tree.cu and stream.cu take the macros
 below), tree.cu and stream.cu are also built with each of VARIANTS'
 flags (the C-form product; the register budget of 2, 3 and 4 blocks a SM)
 (ops/kernels.py:build_variants, which --root's checkout must have) into
-build/variants/<hash of the sources>/<sources>/<variant>/, and rows 2, 3, 9
+variants/<key>/<sources>/<variant>/ of the build root ($MSM_BUILD_DIR,
+else build/), and rows 2, 3, 9
 and the folds are timed again with each variant's libraries in place of
 the default build's; each library's ptxas registers and spills of the
 full level, the fold and the stream kernel are reported as
@@ -136,7 +137,7 @@ and -DMSM_MONT_CHAIN) it compiles SASS_KERNELS, which call
 csrc/field.cuh's mont_mul once (one_mont_mul) and mont_mul_pair once
 (one_mont_mul_pair), and csrc/curve.cuh's canonical add pt_add (one_pt_add)
 and lazy full add pt_add_lazy (one_pt_add_lazy) once, into sm_90a cubins
-under build/sass/, disassembles
+under sass/ of the build root ($MSM_BUILD_DIR, else build/), disassembles
 them with cuobjdump -sass and prints one JSON line of each kernel's
 instruction count by opcode (the part before the first dot: IMAD,
 IADD3, ...; the operands' loads and stores are in every count alike):
@@ -245,10 +246,17 @@ def sass_opcodes(sass: str) -> dict:
     return out
 
 
+def sass_dir(K) -> Path:
+    """sass/ beside the kernels' build root (a checkout from before
+    kernels_root: beside its BUILD_ROOT)."""
+    root = K.kernels_root() if hasattr(K, "kernels_root") else K.BUILD_ROOT
+    return root.parent / "sass"
+
+
 def sass_counts(K) -> dict:
     """--sass: the SASS opcode counts of one product in each form and field,
     every nvcc started together."""
-    out_dir = K.BUILD_ROOT.parent / "sass"
+    out_dir = sass_dir(K)
     out_dir.mkdir(parents=True, exist_ok=True)
     src = out_dir / "one_product.cu"
     src.write_text(SASS_KERNELS)

@@ -2,7 +2,8 @@
 Edwards BLS12: on either curve, the cuZK engine's tree (hybrid and pure),
 stream, fused and legacy paths and its batch mode over a fixed point set
 (also over a pool of devices), the Pippenger and naive baseline engines,
-and (parallel/) the sharded engine over a mesh of devices and processes.
+and (parallel/) the sharded engine over a mesh of devices and processes;
+and (native/) an independent host C++ oracle that checks a sum of points.
 
 The JAX package webgpu_msm_bls12_377_tpu is the reference this port is
 tested against; the port imports nothing of it and no JAX.  Kernels are

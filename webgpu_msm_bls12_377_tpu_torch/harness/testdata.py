@@ -1,5 +1,5 @@
 """Test cases: generate, save and load MSM inputs and their expected
-results, and read the pinned goldens.
+results, read the pinned goldens, and check a case with the native oracle.
 
 The port's copy of the JAX package's harness/testdata.py, under its
 names and with its seed schemes, so that a case here holds the same words
@@ -8,12 +8,14 @@ as the JAX one:
   both drawn from random.Random(f"{seed}-{curve}"), seed "bench-{power}";
   the expected result is (sum of s_i k_i mod r) * G (msm_oracle: n
   multiply-adds and one scalar multiplication on the host), held against
-  test-data/goldens.json where that pins the case.  The goldens are read,
-  never written: a case the registry lacks is checked by the identity
-  alone.
+  test-data/goldens.json where that pins the case.  Where no golden pins
+  the case, or its golden records no native-oracle check, the native C++
+  oracle (native/) sums the case's own points (cross_check, the default),
+  and oracle_checked says whether a check, recorded or made now, holds.
+  The goldens are read, never written: the port upgrades no pin on disk.
 - make_zipf_case: the same points, scalars drawn zipf(alpha) from a pool
   of 2^pool_bits values (duplicate-heavy buckets).
-- make_batch_case: scalar sets over the same points.
+- make_batch_case: scalar sets over the same points (no oracle check).
 - make_test_case / save_test_case / load_test_case: the reference's text
   format; load_reference_test_case: the reference's own fixture format.
 
@@ -24,8 +26,7 @@ words random.Random would), and the points are made on the device: kernel
 CPU the same calls take the kernels' plain forms.  `device` None means
 the first CUDA device, as for the engines.  cache_dir, where given, keeps
 a case's words in an .npz under the JAX package's name for it, which
-either package reads.  The JAX package's native C++ oracle has no
-counterpart here, so oracle_checked only repeats a golden's record.
+either package reads.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import native
 from ..models.cuzk import resolve_device, words_to_device
 from ..ops import curve as C
 from ..ops import field as F
@@ -81,7 +83,8 @@ class BenchCase:
     scalar_words: np.ndarray  # (8, n) uint32
     expected: tuple[int, int]
     golden_pinned: bool  # goldens.json pins this case (and agrees)
-    oracle_checked: bool  # the golden records a native-oracle check
+    oracle_checked: bool  # the native oracle agreed: as the golden
+                          # records, or in this call
 
 
 @dataclasses.dataclass
@@ -311,10 +314,17 @@ def bench_words(power: int, curve="bls12_377", device=None):
 
 
 def make_bench_case(curve, power: int, seed: str | None = None, device=None,
-                    cache_dir: str | None = None) -> BenchCase:
+                    cache_dir: str | None = None,
+                    cross_check: bool = True) -> BenchCase:
     """Distinct-point bench case at n = 2^power.  The expected result is
     the known-k identity; where goldens.json pins "{curve}:{power}:{seed}"
-    the pin must equal it (AssertionError otherwise)."""
+    the pin must equal it (AssertionError otherwise).  oracle_checked is
+    the golden's record; where that is missing or False and cross_check
+    is set, the native oracle sums the case's points
+    (_native_cross_check: True where it agrees, AssertionError where it
+    does not, False where it is unavailable).  Unlike the JAX package,
+    this writes no golden and upgrades no pin: the registry stays as it
+    is on disk."""
     curve = CurveId(curve)
     seed = seed or f"bench-{power}"
     pw, sw, kw = _bench_inputs(curve, power, seed, device, cache_dir)
@@ -328,8 +338,27 @@ def make_bench_case(curve, power: int, seed: str | None = None, device=None,
             raise AssertionError(
                 f"golden mismatch for {key}: registry vs known-k identity")
         oracle_checked = bool(entry[2]) if len(entry) > 2 else False
+    if cross_check and not oracle_checked:
+        oracle_checked = _native_cross_check(curve, pw, sw, expected)
     return BenchCase(curve, pw, sw, expected, entry is not None,
                      oracle_checked)
+
+
+def _native_cross_check(curve, point_words: np.ndarray,
+                        scalar_words: np.ndarray,
+                        expected: tuple[int, int]) -> bool:
+    """The native oracle's sum of the case's wire bytes (to_wire) against
+    `expected`: True where they agree, AssertionError where they do not,
+    False where the oracle is unavailable (no g++)."""
+    if not native.available():
+        return False
+    fn = (native.msm_g1 if CurveId(curve) == CurveId.BLS12_377
+          else native.msm_edwards)
+    got = fn(*to_wire(point_words, scalar_words))
+    if got != tuple(expected):
+        raise AssertionError(f"native oracle disagrees with the known-k "
+                             f"identity: {got} vs {tuple(expected)}")
+    return True
 
 
 def staged_inputs(engine, point_words, scalar_words):

@@ -13,12 +13,16 @@ shared library with a plain C interface, loaded with ctypes, and a second
 time with -DMSM_CURVE_ED, for the Edwards field and curve
 (libmsm_<source>_ed.so): 16 libraries, 36 entry points.  The build runs
 at first use, one nvcc per library, all started together, into
-<repo>/build/kernels/<hash of the sources>/ (listed in .gitignore), so a
-fresh checkout builds everything the first time a kernel launches and a
-changed source never reuses a stale library.  build_variants builds a
-source again with extra nvcc flags (the C-form product, register budgets)
-into <repo>/build/variants/, and `using` launches through such a build.
-Importing this module builds and loads nothing.
+kernels_root()/<key>/: kernels_root() is $MSM_BUILD_DIR/kernels where that
+is set, else BUILD_ROOT (<repo>/build/kernels, listed in .gitignore), and
+the key (utils/build_cache.py) hashes the sources, NVCC_FLAGS and nvcc's
+--version, so a fresh checkout builds everything the first time a kernel
+launches, and a changed source or CUDA release never reuses a stale
+library.  build_variants builds a source again with extra nvcc flags (the
+C-form product, register budgets) into variants/ beside kernels_root(),
+and `using` launches through such a build.  Importing this module builds
+and loads nothing, and keying a directory where there is no nvcc runs
+none.
 
 Every wrapper takes the plain PyTorch form of its kernel when its tensors
 lie on the CPU, launches the kernel on their CUDA device, with that device
@@ -35,7 +39,6 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
@@ -46,6 +49,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..utils import build_cache
 from . import curve as C
 from . import field as F
 from .convert import WireLayout, limbs_from_u32_words
@@ -53,7 +57,8 @@ from .curve import G1
 from .field import ED_CTX, G1_CTX, FieldCtx
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+#: the kernels root where $MSM_BUILD_DIR is unset (kernels_root)
+BUILD_ROOT = build_cache.DEFAULT_ROOT / "kernels"
 SOURCES = ("convert", "tree", "packed", "bpr", "stream", "legacy", "canon",
            "fused")
 #: every library, each source for G1 and for Edwards: (library name,
@@ -129,17 +134,31 @@ def _nvcc() -> str:
     return found
 
 
+def kernels_root() -> Path:
+    """$MSM_BUILD_DIR/kernels where that is set, else BUILD_ROOT."""
+    if os.environ.get(build_cache.ENV):
+        return build_cache.build_root() / "kernels"
+    return BUILD_ROOT
+
+
+def _toolkit() -> str:
+    """nvcc's toolkit id, build_cache.NO_TOOLKIT where there is no nvcc."""
+    try:
+        nvcc = _nvcc()
+    except RuntimeError:
+        return build_cache.NO_TOOLKIT
+    return build_cache.toolkit_id(nvcc)
+
+
 def _build_dir() -> Path:
-    h = hashlib.sha256()
-    for f in sorted(CSRC.iterdir()):
-        h.update(f.name.encode() + b"\0" + f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_ROOT / h.hexdigest()[:16]
+    return kernels_root() / build_cache.key(sorted(CSRC.iterdir()),
+                                            NVCC_FLAGS, _toolkit())
 
 
 def build_all(out_dir: Path | None = None) -> tuple[Path, float]:
     """Compile every library that is not built yet in out_dir (default:
-    this checkout's build directory of these sources), in parallel.
+    _build_dir(), the directory of these sources, flags and nvcc), in
+    parallel, each published with one rename (build_cache.publish).
 
     Returns (build directory, seconds spent compiling).  Each library's
     compiler output (ptxas registers and spills per kernel) is kept
@@ -153,7 +172,7 @@ def build_all(out_dir: Path | None = None) -> tuple[Path, float]:
         lib = out_dir / f"libmsm_{name}.so"
         if lib.exists():
             continue
-        tmp = out_dir / f"libmsm_{name}.so.tmp{os.getpid()}"
+        tmp = build_cache.staging(lib)
         cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp),
                str(CSRC / f"{source}.cu")]
         procs.append((name, lib, tmp, subprocess.Popen(
@@ -166,16 +185,16 @@ def build_all(out_dir: Path | None = None) -> tuple[Path, float]:
             errors.append(f"{name}.cu:\n{log}")
         else:
             (out_dir / f"{name}.log").write_text(log)
-            os.replace(tmp, lib)
+            build_cache.publish(tmp, lib)
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
     return out_dir, time.perf_counter() - t0
 
 
 def rebuild() -> tuple[Path, float]:
-    """Compile every library again from csrc/ (compute_msm's
-    force_recompile) and forget the loaded ones, so that the next launch
-    loads the new builds.
+    """Compile every library again from csrc/ into _build_dir()
+    (compute_msm's force_recompile) and forget the loaded ones, so that
+    the next launch loads the new builds.
 
     The libraries are built in a fresh directory and each is then moved
     over its old build with one rename: another process of this checkout
@@ -204,9 +223,10 @@ def build_variants(sources: tuple[str, ...],
     each variant's extra nvcc flags (-DMSM_MONT_C: the C-form product; a
     source's register-budget macros), those not built yet, every nvcc
     started together, into
-    <repo>/build/variants/<hash of the sources>/<sources>/<variant>/.
-    Returns {variant: directory}; load_variant loads a directory."""
-    root = BUILD_ROOT.parent / "variants" / _build_dir().name
+    variants/<key of the default build>/<sources>/<variant>/ beside
+    kernels_root().  Returns {variant: directory}; load_variant loads a
+    directory."""
+    root = kernels_root().parent / "variants" / _build_dir().name
     procs, dirs = [], {}
     for v, flags in variants.items():
         d = dirs[v] = root / "_".join(sources) / v
@@ -215,7 +235,7 @@ def build_variants(sources: tuple[str, ...],
             lib = d / f"libmsm_{name}.so"
             if source not in sources or lib.exists():
                 continue
-            tmp = d / f"libmsm_{name}.so.tmp{os.getpid()}"
+            tmp = build_cache.staging(lib)
             cmd = [_nvcc(), *NVCC_FLAGS, *cflags, *flags, "-o", str(tmp),
                    str(CSRC / f"{source}.cu")]
             procs.append((d, name, lib, tmp, subprocess.Popen(
@@ -228,7 +248,7 @@ def build_variants(sources: tuple[str, ...],
             errors.append(f"{name} in {d}:\n{log}")
             continue
         (d / f"{name}.log").write_text(log)
-        os.replace(tmp, lib)
+        build_cache.publish(tmp, lib)
     if errors:
         raise RuntimeError("variant build failed:\n" + "\n".join(errors))
     return dirs

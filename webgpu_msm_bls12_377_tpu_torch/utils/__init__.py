@@ -1,1 +1,2 @@
-"""Timing helpers of the port."""
+"""Timing (timing.py) and the build directories and keys (build_cache.py)
+of the port."""
