@@ -104,7 +104,8 @@ but the variant builds.
 --baseline times the rows that only the baseline engines and the chain
 reach, both curves, on the bench cases (chip_smoke.py's bench_case, whose
 time at 2^16 and 2^14 is reported too):
-  - row 11, the legacy SMVP with its BPR (CuzkMsmEngine._smvp_legacy) on
+  - row 11, the legacy SMVP with its BPR (CuzkMsmEngine's plan, sum and
+    BPR of the legacy path; a parent's _smvp_legacy) on
     the operands of one PippengerMsmEngine call at 2^16 (chunk 15) and of
     one call forced through legacy at 2^14 (chunk 4); where the checkout
     sums buckets in one launch (legacy_buckets), also that launch over the
@@ -623,6 +624,14 @@ def captured(fn, args, *names):
     return calls
 
 
+def legacy_smvp(eng, table, plan, chunk, num_windows):
+    """The legacy SMVP with its BPR, as CuzkMsmEngine._msm_set runs it."""
+    order = eng._bpr_order(num_windows, chunk, table.device)
+    own = eng._plan_legacy(table, plan, chunk, num_windows)
+    return eng._bpr(eng._buckets_legacy(table, plan, own, chunk, num_windows,
+                                        order), chunk, num_windows)
+
+
 def baseline_rows(opts, smi, kernel_ms) -> int:
     """--baseline: rows 11 and 12a-c (see the module docstring)."""
     import torch
@@ -714,10 +723,14 @@ def baseline_rows(opts, smi, kernel_ms) -> int:
             # the one launch over the pieces and the fold)
             eng = (CuzkMsmEngine(cid, chunk_size=chunk, smvp_mode="legacy")
                    if forced else PippengerMsmEngine(cid))
-            calls = captured(eng.compute_msm, (pw, sw),
-                             (CuzkMsmEngine, "_smvp_legacy"))
-            args = calls["_smvp_legacy"][0]
-            smvp = CuzkMsmEngine._smvp_legacy
+            # (the parent's _smvp_legacy, or the plan, the sum and BPR;
+            # both take (engine, table, plan, chunk, windows))
+            name = ("_smvp_legacy" if hasattr(CuzkMsmEngine, "_smvp_legacy")
+                    else "_plan_legacy")
+            calls = captured(eng.compute_msm, (pw, sw), (CuzkMsmEngine, name))
+            args = calls[name][0]
+            smvp = (CuzkMsmEngine._smvp_legacy if name == "_smvp_legacy"
+                    else legacy_smvp)
             slow = forced and not fresh  # ~20,000 launches a call
             timed(f"row11{key}_smvp", lambda: smvp(*args),
                   reps=2 if slow else 5, calls=1 if slow else 5)

@@ -17,10 +17,12 @@ from typing import Any
 
 def _run(curve, points, scalars, log_result, force_recompile, device):
     from .models.cuzk import CuzkMsmEngine
+    from .utils import trace
 
-    engine = CuzkMsmEngine(curve, device=device,
-                           force_recompile=force_recompile)
-    result = engine.compute_msm(points, scalars)
+    with trace.span("msm.api"):
+        engine = CuzkMsmEngine(curve, device=device,
+                               force_recompile=force_recompile)
+        result = engine.compute_msm(points, scalars)
     if log_result:
         print(result)
     return result

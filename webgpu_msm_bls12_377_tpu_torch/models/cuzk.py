@@ -50,6 +50,11 @@ against host models at the full n.
 PyTorch runs eagerly, so the JAX package's plan/main program split, its
 size classes and their host readbacks, and its compile caches have no
 counterpart here; the pure tree's readback of its level count stays.
+Stages run in spans of utils/trace.py (the input checks in msm.prepare,
+0 msm.copy, 1 msm.point_prep, 2 msm.plan with the BPR order and the
+path's own plan, 3 msm.smvp, 6 msm.horner), once a set in a batch; BPR,
+the exit and the readback only enqueue behind the SMVP or wait for the
+device, so they need none.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ import functools
 import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Sequence
+from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -111,6 +116,7 @@ from ..ops.smvp_tree import (
 from ..params import CurveId
 from ..reference import curve as ocurve
 from ..reference import msm as omsm
+from ..utils import trace
 
 #: n from which "auto" takes the hybrid tree (the JAX package's static
 #: policy, models/cuzk.py:_select_smvp)
@@ -168,29 +174,30 @@ def words_to_device(words: np.ndarray, device: torch.device) -> torch.Tensor:
     device), and the host does not wait for the stream.  A tensor (int32
     words staged earlier) is moved to device, and is not copied where it
     lies there."""
-    if isinstance(words, torch.Tensor):
-        return words.to(device)
-    host = words.view(np.int32)
-    if device.type != "cuda":
-        return torch.from_numpy(host.copy()).to(device)
-    rows = host.reshape(int(np.prod(host.shape[:-1])), host.shape[-1])
-    staged = torch.empty(rows.shape, dtype=torch.int32, pin_memory=True)
-    pinned = staged.numpy()
-    chunks = staging_chunks(rows.shape[0], 4 * rows.shape[1])
-    if len(chunks) == 1:
-        np.copyto(pinned, rows)
-        return staged.to(device, non_blocking=True).reshape(host.shape)
-    out = torch.empty(rows.shape, dtype=torch.int32, device=device)
+    with trace.span("msm.copy"):
+        if isinstance(words, torch.Tensor):
+            return words.to(device)
+        host = words.view(np.int32)
+        if device.type != "cuda":
+            return torch.from_numpy(host.copy()).to(device)
+        rows = host.reshape(int(np.prod(host.shape[:-1])), host.shape[-1])
+        staged = torch.empty(rows.shape, dtype=torch.int32, pin_memory=True)
+        pinned = staged.numpy()
+        chunks = staging_chunks(rows.shape[0], 4 * rows.shape[1])
+        if len(chunks) == 1:
+            np.copyto(pinned, rows)
+            return staged.to(device, non_blocking=True).reshape(host.shape)
+        out = torch.empty(rows.shape, dtype=torch.int32, device=device)
 
-    def fill(lo, hi):
-        np.copyto(pinned[lo:hi], rows[lo:hi])
+        def fill(lo, hi):
+            np.copyto(pinned[lo:hi], rows[lo:hi])
 
-    with ThreadPoolExecutor(STAGE_WORKERS) as pool:
-        filled = [pool.submit(fill, lo, hi) for lo, hi in chunks]
-        for (lo, hi), done in zip(chunks, filled):
-            done.result()
-            out[lo:hi].copy_(staged[lo:hi], non_blocking=True)
-    return out.reshape(host.shape)
+        with ThreadPoolExecutor(STAGE_WORKERS) as pool:
+            filled = [pool.submit(fill, lo, hi) for lo, hi in chunks]
+            for (lo, hi), done in zip(chunks, filled):
+                done.result()
+                out[lo:hi].copy_(staged[lo:hi], non_blocking=True)
+        return out.reshape(host.shape)
 
 
 def mont_point_table(point_words: torch.Tensor, group=C.G1) -> torch.Tensor:
@@ -199,6 +206,17 @@ def mont_point_table(point_words: torch.Tensor, group=C.G1) -> torch.Tensor:
     (x; y; t = x*y)."""
     layout = WireLayout.of(point_words, False, group.ctx.nw - 1, 2)
     return point_prep_plain(point_words, layout, group, PLANE)
+
+
+class Smvp(NamedTuple):
+    """A path's SMVP in two steps (CuzkMsmEngine._smvp_fn):
+    plan(table, plan, chunk_size, num_windows) -> the path's own plan from
+    the bucket plan; buckets(table, plan, own_plan, chunk_size,
+    num_windows, order) -> the canonical buckets gathered in order
+    (window-major with order None, which the fused path does not take)."""
+
+    plan: Callable
+    buckets: Callable
 
 
 class CuzkMsmEngine:
@@ -357,10 +375,12 @@ class CuzkMsmEngine:
         Montgomery table)."""
         words, layout = points
         dev_words = words_to_device(words, device or self.device)
-        if path in ("tree", "stream", "legacy"):
-            return point_prep(dev_words, layout, self.group, SIGNED)
-        table = point_prep(dev_words, layout, self.group, PLANE)
-        return make_wide_rows(table, self.group) if path == "fused" else table
+        with trace.span("msm.point_prep"):
+            if path in ("tree", "stream", "legacy"):
+                return point_prep(dev_words, layout, self.group, SIGNED)
+            table = point_prep(dev_words, layout, self.group, PLANE)
+            return (make_wide_rows(table, self.group) if path == "fused"
+                    else table)
 
     def _scalars_to_device(self, scalars, device=None) -> torch.Tensor:
         """Prepared scalars -> their (8, N) words on device (default the
@@ -370,31 +390,31 @@ class CuzkMsmEngine:
         sw = words_to_device(words, device or self.device)
         return sw.T.contiguous() if layout.point_major else sw
 
-    def _smvp_fn(self, path: str, n: int, batch: bool = False):
+    def _smvp_fn(self, path: str, n: int, batch: bool = False) -> Smvp:
         if path == "tree":
-            return functools.partial(self._smvp_tree,
-                                     tree_k=self._tree_k(n, batch))
-        return {"stream": self._smvp_stream, "fused": self._smvp_fused,
-                "legacy": self._smvp_legacy}[path]
+            k = self._tree_k(n, batch)
+            return Smvp(functools.partial(self._plan_tree, tree_k=k),
+                        functools.partial(self._buckets_tree, tree_k=k))
+        return {"stream": Smvp(self._plan_stream, self._buckets_stream),
+                "fused": Smvp(self._plan_fused, self._buckets_fused),
+                "legacy": Smvp(self._plan_legacy, self._buckets_legacy)}[path]
 
-    def _buckets_fn(self, path: str, n: int, batch: bool = False):
-        """The path's SMVP up to its buckets (tree, stream and legacy):
-        fn(table, plan, chunk_size, num_windows, order) -> the canonical
-        buckets gathered in order, or window-major with order=None."""
-        if path == "tree":
-            return functools.partial(self._buckets_tree,
-                                     tree_k=self._tree_k(n, batch))
-        return {"stream": self._buckets_stream,
-                "legacy": self._buckets_legacy}[path]
-
-    def _msm_set(self, smvp, points, sw: torch.Tensor, chunk_size: int):
-        """Everything that depends on the scalars: plan, SMVP, BPR and the
-        Montgomery exit over prepared points and device scalar words."""
+    def _msm_set(self, smvp: Smvp, points, sw: torch.Tensor, chunk_size: int):
+        """Everything that depends on the scalars, over prepared points and
+        device scalar words: the plan (signed digits, the bucket plan, the
+        BPR walk order and the path's own plan), the path's SMVP into that
+        order, BPR and the Montgomery exit."""
         num_windows = num_windows_for(chunk_size)
-        digits = decompose_scalars_signed(sw, chunk_size, num_windows)
-        plan = build_bucket_plan(digits, chunk_size)
-        return mont_mul_const(smvp(points, plan, chunk_size, num_windows), 1,
-                              self.group.ctx)
+        with trace.span("msm.plan"):
+            digits = decompose_scalars_signed(sw, chunk_size, num_windows)
+            plan = build_bucket_plan(digits, chunk_size)
+            order = self._bpr_order(num_windows, chunk_size, points.device)
+            own = smvp.plan(points, plan, chunk_size, num_windows)
+        with trace.span("msm.smvp"):
+            buckets = smvp.buckets(points, plan, own, chunk_size, num_windows,
+                                   order)
+        sums = self._bpr(buckets, chunk_size, num_windows)
+        return mont_mul_const(sums, 1, self.group.ctx)
 
     def _bpr_order(self, num_windows: int, chunk_size: int,
                    device=None) -> torch.Tensor:
@@ -407,30 +427,29 @@ class CuzkMsmEngine:
             buckets, num_windows, chunk_size, self.num_bpr_threads, self.group
         )
 
-    def _smvp_tree(self, signed_table, plan, chunk_size, num_windows, tree_k):
-        order = self._bpr_order(num_windows, chunk_size, signed_table.device)
-        return self._bpr(self._buckets_tree(signed_table, plan, chunk_size,
-                                            num_windows, order, tree_k),
-                         chunk_size, num_windows)
-
-    def _buckets_tree(self, signed_table, plan, chunk_size, num_windows,
-                      order, tree_k):
-        """The hybrid tree (K = tree_k) or the pure tree (None), its
-        buckets permuted into order (the BPR walk composed in)."""
+    def _plan_tree(self, signed_table, plan, chunk_size, num_windows, tree_k):
+        """The hybrid plan (K = tree_k), or for the pure tree (None) its
+        plan and level count."""
         kn = plan.sorted_vals.shape[0]
         if tree_k is not None:
-            tplan = build_hybrid_plan(
-                plan.starts, plan.lens, kn, tree_k, num_windows
-            )
+            return build_hybrid_plan(plan.starts, plan.lens, kn, tree_k,
+                                     num_windows)
+        tplan = build_tree_plan(plan.starts, plan.lens, kn, num_windows)
+        # the pure tree's one host readback: the longest bucket picks the
+        # level count
+        return tplan, num_levels(int(tplan.max_len))
+
+    def _buckets_tree(self, signed_table, plan, tplan, chunk_size,
+                      num_windows, order, tree_k):
+        """The hybrid tree or the pure tree, its buckets permuted into
+        order (the BPR walk composed in)."""
+        if tree_k is not None:
             blocks = tree_smvp_hybrid(
                 signed_table, plan.sorted_vals, tplan, tree_k, self.group
             )
             return permute_buckets(blocks, tplan.layout, order=order,
                                    group=self.group)
-        tplan = build_tree_plan(plan.starts, plan.lens, kn, num_windows)
-        # the pure tree's one host readback: the longest bucket picks the
-        # level count
-        levels = num_levels(int(tplan.max_len))
+        tplan, levels = tplan
         final, s_fin = tree_smvp(signed_table, plan.sorted_vals, tplan, levels,
                                  self.group)
         return permute_tree(
@@ -441,55 +460,52 @@ class CuzkMsmEngine:
             group=self.group,
         )
 
-    def _smvp_stream(self, signed_table, plan, chunk_size, num_windows):
-        order = self._bpr_order(num_windows, chunk_size, signed_table.device)
-        return self._bpr(self._buckets_stream(signed_table, plan, chunk_size,
-                                              num_windows, order),
-                         chunk_size, num_windows)
+    def _plan_stream(self, signed_table, plan, chunk_size, num_windows):
+        return build_stream_layout(plan.starts, plan.lens, num_windows)
 
-    def _buckets_stream(self, signed_table, plan, chunk_size, num_windows,
-                        order):
-        layout = build_stream_layout(plan.starts, plan.lens, num_windows)
+    def _buckets_stream(self, signed_table, plan, layout, chunk_size,
+                        num_windows, order):
         blocks = accumulate_buckets_streamed(
             signed_table, plan.sorted_vals, layout, self.group
         )
         return permute_buckets(blocks, layout, order=order, group=self.group)
 
-    def _smvp_fused(self, rows, plan, chunk_size, num_windows):
-        n, group = rows.shape[0], self.group
-        order = self._bpr_order(num_windows, chunk_size, rows.device)
-        if windowed_supported(plan.starts.shape[0], num_windows, n):
-            buckets = accumulate_buckets_windowed(
+    def _plan_fused(self, rows, plan, chunk_size, num_windows):
+        """None: the fused path sums straight off the bucket plan."""
+        return None
+
+    def _buckets_fused(self, rows, plan, own, chunk_size, num_windows, order):
+        if windowed_supported(plan.starts.shape[0], num_windows, rows.shape[0]):
+            return accumulate_buckets_windowed(
                 rows, plan.sorted_vals, plan.starts, plan.lens, num_windows,
-                group, order=order
+                self.group, order=order
             )
-        else:
-            buckets = accumulate_buckets_fused(
-                pregather_signed(rows, plan.sorted_vals, group), plan.starts,
-                plan.lens, group, max_len=n, order=order
-            )
-        return self._bpr(buckets, chunk_size, num_windows)
+        return accumulate_buckets_fused(
+            pregather_signed(rows, plan.sorted_vals, self.group), plan.starts,
+            plan.lens, self.group, max_len=rows.shape[0], order=order
+        )
 
-    def _smvp_legacy(self, signed_table, plan, chunk_size, num_windows):
-        order = self._bpr_order(num_windows, chunk_size, signed_table.device)
-        return self._bpr(self._buckets_legacy(signed_table, plan, chunk_size,
-                                              num_windows, order),
-                         chunk_size, num_windows)
-
-    def _buckets_legacy(self, signed_table, plan, chunk_size, num_windows,
-                        order):
-        """Kernel 6 in one launch, its buckets gathered into order.  Where a
-        window's mean bucket (n / h entries) is longer than PIECE, as at
-        chunk 4, the launch sums pieces of at most PIECE entries, one
-        thread each, and a second launch folds each bucket's pieces
-        (tree.cu's fold, as on the fused path): one thread a bucket would
-        walk a chain of thousands of adds on a few SMs.  Else one thread
-        sums a whole bucket, word for word the JAX package's legacy sum;
-        a bucket summed in pieces is the same point."""
-        group, n = self.group, signed_table.shape[0] // 2
+    def _plan_legacy(self, signed_table, plan, chunk_size, num_windows):
+        """Where a window's mean bucket (n / h entries) is longer than
+        PIECE, as at chunk 4, the piece plan (pieces of at most PIECE
+        entries), else None."""
+        n = signed_table.shape[0] // 2
         if n >> (chunk_size - 1) > PIECE:
-            pp = piece_plan(plan.starts, plan.lens, plan.sorted_vals.shape[0],
-                            n, PIECE)
+            return piece_plan(plan.starts, plan.lens,
+                              plan.sorted_vals.shape[0], n, PIECE)
+        return None
+
+    def _buckets_legacy(self, signed_table, plan, pp, chunk_size,
+                        num_windows, order):
+        """Kernel 6 in one launch, its buckets gathered into order.  Over
+        the piece plan pp, one thread sums a piece and a second launch
+        folds each bucket's pieces (tree.cu's fold, as on the fused path):
+        one thread a bucket would walk a chain of thousands of adds on a
+        few SMs.  Else one thread sums a whole bucket, word for word the
+        JAX package's legacy sum; a bucket summed in pieces is the same
+        point."""
+        group = self.group
+        if pp is not None:
             sums = legacy_buckets(signed_table, plan.sorted_vals, pp.starts,
                                   pp.lens, group)
             buckets, _ = fold_pieces(sums, pp.counts, pp.offsets, pp.caps,
@@ -500,27 +516,37 @@ class CuzkMsmEngine:
         return buckets if order is None else buckets[:, order]
 
     def _finalize(self, coords: torch.Tensor, chunk_size: int) -> dict[str, int]:
-        nw = self.group.ctx.nw
-        cols = [F.plane_to_ints(coords[c * nw : (c + 1) * nw])
-                for c in range(coords.shape[0] // nw)]
-        if self.curve == CurveId.BLS12_377:
-            point, ogroup, to_affine = (ocurve.ProjectivePoint, omsm.G1,
-                                        ocurve.g1_to_affine)
-        else:
-            point, ogroup, to_affine = (ocurve.ExtendedPoint, omsm.EDWARDS,
-                                        ocurve.ed_to_affine)
-        window_pts = [point(*v) for v in zip(*cols)]
-        x, y = to_affine(omsm.horner(window_pts, chunk_size, ogroup))
-        return {"x": x, "y": y}
+        """The window sums read back (where the host waits for the device),
+        then the host Horner."""
+        return self._horner(coords.cpu(), chunk_size)
+
+    def _horner(self, coords: torch.Tensor, chunk_size: int) -> dict[str, int]:
+        """Host window sums -> the affine result: Horner across windows
+        with Python integers."""
+        with trace.span("msm.horner"):
+            nw = self.group.ctx.nw
+            cols = [F.plane_to_ints(coords[c * nw : (c + 1) * nw])
+                    for c in range(coords.shape[0] // nw)]
+            if self.curve == CurveId.BLS12_377:
+                point, ogroup, to_affine = (ocurve.ProjectivePoint, omsm.G1,
+                                            ocurve.g1_to_affine)
+            else:
+                point, ogroup, to_affine = (ocurve.ExtendedPoint, omsm.EDWARDS,
+                                            ocurve.ed_to_affine)
+            window_pts = [point(*v) for v in zip(*cols)]
+            x, y = to_affine(omsm.horner(window_pts, chunk_size, ogroup))
+            return {"x": x, "y": y}
 
     def compute_msm(self, points: Any, scalars: Any) -> dict[str, int]:
-        return self._compute(self._prepare_points(points), scalars)
+        with trace.span("msm.prepare"):
+            points = self._prepare_points(points)
+            scalars = self._prepare_scalars(scalars)
+            self._validate(points[1].n, scalars)
+        return self._compute(points, scalars)
 
-    def _compute(self, points, scalars: Any) -> dict[str, int]:
-        """compute_msm over prepared points."""
-        scalars = self._prepare_scalars(scalars)
+    def _compute(self, points, scalars) -> dict[str, int]:
+        """compute_msm over prepared and checked points and scalars."""
         n = points[1].n
-        self._validate(n, scalars)
         chunk_size = self._chunk_for(n)
         coords = self.msm_device(points, scalars, chunk_size)
         return self._finalize(coords, chunk_size)
@@ -553,15 +579,16 @@ class CuzkMsmEngine:
                 "give the device to the constructor"
             )
         pool = [resolve_device(d) for d in devices or ()]
-        points = self._prepare_points(points)
-        n = points[1].n
+        with trace.span("msm.prepare"):
+            points = self._prepare_points(points)
+            n = points[1].n
+            sws = [self._prepare_scalars(sc) for sc in scalars_batch]
+            for sw in sws:
+                self._validate(n, sw)
         chunk_size = self._chunk_for(n)
         path = self._select_smvp(chunk_size, n)
         if path not in ("tree", "stream", "fused"):
-            return [self._compute(points, sc) for sc in scalars_batch]
-        sws = [self._prepare_scalars(sc) for sc in scalars_batch]
-        for sw in sws:
-            self._validate(n, sw)
+            return [self._compute(points, sw) for sw in sws]
         if len(pool) > 1 and path in ("tree", "stream"):
             return self._batch_pool(points, sws, chunk_size, pool)
         shared = self._batch_prep(path, points)
@@ -574,9 +601,10 @@ class CuzkMsmEngine:
         BPR and exit on member i % D, all enqueued before any wait; one
         readback per member of its sets' window sums, then the host
         Horner."""
+        smvp = self._smvp_fn("stream", points[1].n)
         tables = [self._point_prep("stream", points, dev) for dev in pool]
         coords = [
-            self._msm_set(self._smvp_stream, tables[i % len(pool)],
+            self._msm_set(smvp, tables[i % len(pool)],
                           self._scalars_to_device(sc, pool[i % len(pool)]),
                           chunk_size)
             for i, sc in enumerate(sws)
@@ -586,7 +614,7 @@ class CuzkMsmEngine:
             mine = range(k, len(coords), len(pool))
             host.update(zip(mine, torch.stack([coords[i] for i in mine])
                             .cpu()))
-        return [self._finalize(host[i], chunk_size)
+        return [self._horner(host[i], chunk_size)
                 for i in range(len(coords))]
 
     def _batch_prep(self, path: str, points):
@@ -609,7 +637,7 @@ class CuzkMsmEngine:
         if not coords:
             return []
         host = torch.stack(coords).cpu()
-        return [self._finalize(c, chunk_size) for c in host]
+        return [self._horner(c, chunk_size) for c in host]
 
     # -- warm-up and stage checks -------------------------------------------
 

@@ -27,6 +27,7 @@ import torch
 
 from . import curve as C
 from .buckets import check_signed_table, signed_rows
+from ..utils import trace
 from .curve import G1
 # the signed table's plain form lives beside kernel 1, which builds it
 from .kernels import ROW_WORDS, build_signed_table, check_plane, launch, on_cuda
@@ -164,11 +165,15 @@ def packed_finish(rows: torch.Tensor, layout: StreamLayout,
     """(T_K, node_words) level-K node rows (the hybrid tree's last level)
     -> (39|36, B) canonical bucket sums, column r the bucket of the
     layout's column r: the sum of rows [starts_rk[r], starts_rk[r] +
-    lens_rk[r]) from the identity."""
+    lens_rk[r]) from the identity.  While a profiler records, the longest
+    chain a thread walks (the largest lens_rk) goes to the counter
+    msm.finish_chain, left on the device."""
     w = node_words(group)
     if rows.dim() != 2 or rows.shape[1] != w:
         raise ValueError(f"expected (T, {w}) node rows, got {tuple(rows.shape)}")
     starts, lens = layout.starts_rk, layout.lens_rk
+    if trace.recording() and lens.numel():
+        trace.count("msm.finish_chain", lens.max())
     if not on_cuda(rows, starts, lens):
         return packed_finish_plain(rows, starts, lens, group)
     nb = starts.shape[0]

@@ -203,7 +203,7 @@ class ShardedMsmEngine(CuzkMsmEngine):
                     path, shard_words(words, layout, lo, lo + m), dev))
         return tables
 
-    def _shard_buckets(self, buckets_fn, tables, scalars, m: int,
+    def _shard_buckets(self, smvp, tables, scalars, m: int,
                        chunk_size: int, order_windows: int | None):
         """Each local shard's scalar copy, plan and SMVP up to its buckets:
         window-major partials (order_windows None), or gathered into
@@ -220,20 +220,21 @@ class ShardedMsmEngine(CuzkMsmEngine):
                 plan = build_bucket_plan(digits, chunk_size)
                 order = None if order_windows is None else self._bpr_order(
                     order_windows, chunk_size, dev)
-                out.append(buckets_fn(table, plan, chunk_size, num_windows,
-                                      order))
+                own = smvp.plan(table, plan, chunk_size, num_windows)
+                out.append(smvp.buckets(table, plan, own, chunk_size,
+                                        num_windows, order))
         return out
 
-    def _set(self, buckets_fn, tables, scalars, m: int, chunk_size: int):
+    def _set(self, smvp, tables, scalars, m: int, chunk_size: int):
         """One scalar set over the shards' tables: the shards' buckets, then
         the tail; the (rows, num_windows) plain window sums on the first
         local shard's device."""
         num_windows = num_windows_for(chunk_size)
         if window_sharded(self.mesh.size, num_windows):
-            partials = self._shard_buckets(buckets_fn, tables, scalars, m,
+            partials = self._shard_buckets(smvp, tables, scalars, m,
                                            chunk_size, None)
             return self._tail_windows(partials, chunk_size)
-        buckets = self._shard_buckets(buckets_fn, tables, scalars, m,
+        buckets = self._shard_buckets(smvp, tables, scalars, m,
                                       chunk_size, num_windows)
         return self._tail_tree(buckets, chunk_size)
 
@@ -338,7 +339,7 @@ class ShardedMsmEngine(CuzkMsmEngine):
         n_pad, m = self._padded(points[1].n)
         path = self._shard_path(chunk_size, m)
         tables = self._shard_prep(path, points, m)
-        return self._set(self._buckets_fn(path, m), tables, scalars, m,
+        return self._set(self._smvp_fn(path, m), tables, scalars, m,
                          chunk_size)
 
     def compute_msm_batch(self, points: Any,
@@ -356,8 +357,8 @@ class ShardedMsmEngine(CuzkMsmEngine):
             return []
         n_pad, m = self._padded(n)
         path = self._shard_path(chunk_size, m)
-        buckets_fn = self._buckets_fn(path, m, batch=True)
+        smvp = self._smvp_fn(path, m, batch=True)
         tables = self._shard_prep(path, points, m)
-        coords = [self._set(buckets_fn, tables, sw, m, chunk_size)
+        coords = [self._set(smvp, tables, sw, m, chunk_size)
                   for sw in sws]
         return self._batch_finish(coords, chunk_size)

@@ -1,2 +1,2 @@
-"""Timing (timing.py) and the build directories and keys (build_cache.py)
-of the port."""
+"""Timing (timing.py), the build directories and keys (build_cache.py)
+and the spans and counters a profiler reads (trace.py) of the port."""
