@@ -7,7 +7,7 @@ Phases, each of which fails the run on any error:
   1. the card's name and power limit (nvidia-smi), and the build of every
      kernel library with nvcc: each source under
      webgpu_msm_bls12_377_tpu_torch/csrc/ for BLS12-377 and again with
-     -DMSM_CURVE_ED for Twisted Edwards BLS12 (16 libraries, 36 entry
+     -DMSM_CURVE_ED for Twisted Edwards BLS12 (16 libraries, 38 entry
      points);
   2. every kernel entry point, both curves, against its plain PyTorch form
      on random inputs of a few thousand lanes (the point prep from wire
@@ -20,7 +20,9 @@ Phases, each of which fails the run on any error:
      and on a small real plan for
      the tree, finish, stream and fused kernels (the fused path's two
      passes: kernel 8 over pieces of at most PIECE rows, and the fold in
-     one launch of tree.cu's msm_fold_pieces); tree.cu's carry-chain
+     one launch of tree.cu's msm_fold_pieces), and the finish on buckets
+     of up to 130 PIECE + 5 nodes (the piece pass, then tree.cu's
+     msm_fold_split over the buckets cut into pieces); tree.cu's carry-chain
      Montgomery products on their own (field_mul_lanes) at extreme
      operands (R - 1, carries at every word, the formulas' largest
      bounds); the fold on buckets of up to 2,048 pieces: bit-exact
@@ -247,6 +249,9 @@ KERNELS = {
                 "webgpu_msm_bls12_377_tpu/ops/pallas_kernels.py:435"),
 }
 BPR = ("bpr_stage1", "bpr_stage2", "bpr_fold")
+#: launches that belong to another kernel's row: the hybrid finish's fold
+#: (tree.cu msm_fold_split) runs once after each piece pass of row 4
+PARTS = {"packed_finish": "finish_fold", "packed_finish_ed": "finish_fold_ed"}
 # the Edwards build (-DMSM_CURVE_ED) of every source; its point prep also
 # computes t = x*y (an XLA product in the JAX package, outside any Pallas
 # kernel)
@@ -565,6 +570,7 @@ def lazy_kernel_cases(rng, group, n=4096):
     cases.append(("packed_finish" + tag, S.packed_finish(lvl2, hp.layout, group),
                   S.packed_finish_plain(lvl2, hp.layout.starts_rk,
                                         hp.layout.lens_rk, group)))
+    cases += finish_cases(rng, group)
     layout = S.build_stream_layout(plan.starts, plan.lens, windows)
     cases.append((
         "stream_buckets" + tag,
@@ -574,6 +580,35 @@ def lazy_kernel_cases(rng, group, n=4096):
                                             group),
     ))
     return cases, points, plan, windows
+
+
+def finish_cases(rng, group):
+    """Phase 2: the hybrid finish (the piece pass, then the fold of the
+    buckets cut into two or more pieces) on random lazy node rows, over
+    disjoint buckets of 0, 1, PIECE, PIECE + 1 and 130 PIECE + 5 nodes
+    (the fold's first level more than its shared memory holds) among short
+    ones, length-sorted as the plan lays them out."""
+    import numpy as np
+    import torch
+
+    from webgpu_msm_bls12_377_tpu_torch.ops import smvp_stream as S
+
+    ctx, piece = group.ctx, S.PIECE
+    lens = np.array([rng.randrange(9) for _ in range(500)])
+    lens[:5] = (0, 1, piece, piece + 1, 130 * piece + 5)
+    lens = -np.sort(-lens)
+    starts = np.cumsum(np.concatenate([[0], lens[:-1]]))
+    t_rows = int(lens.sum()) + 7
+    # lazy values below 2p
+    rows = S.node_rows(rand_plane(rng, group.rows, t_rows, 2 * ctx.p, ctx.nw),
+                       group)
+    s, ln = (torch.as_tensor(v.astype(np.int32), device=DEV)
+             for v in (starts, lens))
+    layout = S.StreamLayout(starts_rk=s, lens_rk=ln,
+                            perm=torch.arange(lens.size, dtype=torch.int32,
+                                              device=DEV))
+    return [("packed_finish" + ctx.tag, S.packed_finish(rows, layout, group),
+             S.packed_finish_plain(rows, s, ln, group))]
 
 
 def edge_lanes(group, a, b):
@@ -1116,6 +1151,10 @@ def drive(label, path, fn, args, want, warm_runs=3, shards=1, preps=None,
         if launches[name] != once:
             raise SystemExit(f"{label}: {name} launched {launches[name]} "
                              f"times, not {once}")
+    for name, part in PARTS.items():
+        if name in PATHS[path] and launches.get(part) != launches[name]:
+            raise SystemExit(f"{label}: {launches[name]} finishes and "
+                             f"{launches.get(part, 0)} folds of their pieces")
     # a BPR reduction is stage 1 (where bpt > 1), stage 2 and the fold, one
     # launch each, once a shard and scalar set (the chain runs stage 1
     # alone, no reduction); bpr_add only in the sharded tail
@@ -1857,11 +1896,13 @@ def timed_paths(inputs, ed_inputs):
         adds = int((lens.to(torch.int64) - 1).clamp(min=0).sum())
         return adds * add_muls, entries * entry_bytes + nb * (8 + pt)
 
-    def finish(rows, layout, group=G1):
+    def finish(rows, layout, group=G1, plan=None):
+        # both launches of the finish (the piece pass and the fold): a
+        # bucket's c - 1 adds, however it is cut
         w = WORK[group.ctx.tag]
         return record(
             "packed_finish" + group.ctx.tag,
-            lambda r, s, l, g: K_FINISH(r, layout, g),
+            lambda r, s, l, g: K_FINISH(r, layout, g, plan),
             S.packed_finish_plain,
             (rows, layout.starts_rk, layout.lens_rk, group),
             *bucket_work(layout.lens_rk, w["add_full"], w["pt"], w["pt"]))
@@ -2312,7 +2353,8 @@ def phases(goldens, profile: bool, tuned_dir: str) -> int:
             row = {
                 "name": name, "route": "cuda", "source": KERNELS[name][0],
                 "replaces": KERNELS[name][1], "path": path,
-                "launches": counts[path].get(name, 0), "max_abs_err": s["err"],
+                "launches": counts[path].get(name, 0) + counts[path].get(
+                    PARTS.get(name), 0), "max_abs_err": s["err"],
                 "ms": s["ms"], "plain_ms": s["plain_ms"],
                 "bound_ms": max(t_mul, t_mem),
                 "bound_by": "operations" if t_mul >= t_mem else "bytes",

@@ -129,6 +129,30 @@ def test_phase2_product_and_fold_cases_on_the_cpu(ctx, monkeypatch):
 
 
 @pytest.mark.parametrize("ctx", [F.G1_CTX, F.ED_CTX], ids=["", "ed"])
+def test_phase2_finish_case_on_the_cpu(ctx, monkeypatch):
+    """finish_cases builds its layout on the CPU too (the wrapper takes the
+    plain form, so the case equals itself): length-sorted disjoint buckets
+    of 0, 1, PIECE, PIECE + 1 and 130 PIECE + 5 nodes, the longer two cut
+    into pieces."""
+    from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
+    from webgpu_msm_bls12_377_tpu_torch.ops import smvp_stream as S
+
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    group = C.G1 if ctx is F.G1_CTX else C.EDWARDS
+    calls = []
+    real = S.packed_finish_plain
+    monkeypatch.setattr(S, "packed_finish_plain", lambda r, s, ln, g: (
+        calls.append(ln.tolist()), real(r, s, ln, g))[1])
+    (name, got, want), = cs.finish_cases(random.Random(5), group)
+    assert name == "packed_finish" + ctx.tag and got.shape == (group.rows, 500)
+    assert torch.equal(got, want)
+    lens = calls[0]
+    assert lens == sorted(lens, reverse=True)
+    assert {0, 1, S.PIECE, S.PIECE + 1, 130 * S.PIECE + 5} <= set(lens)
+    assert cs.PARTS["packed_finish" + ctx.tag] == "finish_fold" + ctx.tag
+
+
+@pytest.mark.parametrize("ctx", [F.G1_CTX, F.ED_CTX], ids=["", "ed"])
 def test_phase2_prep_cases_on_the_cpu(ctx, monkeypatch):
     """prep_cases builds the point prep's four cases (two layouts, two
     forms) on the CPU: the wire words hold 0, 1, p - 1 and p, and each

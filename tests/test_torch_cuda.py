@@ -357,7 +357,55 @@ def test_node_rows_and_finish_random(dev, group, t_out):
                                      group)
         same(S.packed_finish(rows, layout, group), want)
     assert K.launches["tree_level_full" + tag] == 1
+    # each finish: the piece pass and the fold of its cut bucket
     assert K.launches["packed_finish" + tag] == 2
+    assert K.launches["finish_fold" + tag] == 2
+
+
+@GROUPS
+def test_finish_pieces_and_fold_against_plain(dev, group):
+    """The finish's two launches (kernel 3 over pieces, then the fold of
+    the buckets cut into two or more) against the plain form, bit for bit,
+    on random lazy node rows: empty buckets, buckets of one node, of
+    exactly PIECE and PIECE + 1 nodes, of 130 PIECE + 5 nodes (131
+    pieces: the fold's first level, 66 nodes, is more than its shared
+    memory holds) and random short ones, in length-sorted and in natural
+    order.  The plan and both
+    launches run under PyTorch's sync debug mode "error": nothing of the
+    finish waits for the card."""
+    ctx, tag = group.ctx, group.ctx.tag
+    piece = S.PIECE
+    rng = np.random.default_rng(21 + len(tag))
+    t_rows = 135 * piece + 2400
+    nodes = rand_plane(random.Random("pieces" + tag), group.rows, t_rows,
+                       lazy_bound(group) * ctx.p, dev, ctx.nw)
+    rows = S.node_rows(nodes, group)
+    lens = rng.integers(0, 9, size=300)
+    lens[:8] = (0, 1, piece, piece + 1, 130 * piece + 5, 0, piece,
+                2 * piece + 1)
+    # disjoint segments, as the tree's levels lay them out
+    starts = np.cumsum(np.concatenate([[0], lens[:-1]]))
+    assert starts[-1] + lens[-1] <= t_rows
+    for perm in (np.arange(lens.size), np.argsort(-lens, kind="stable")):
+        layout = S.StreamLayout(
+            starts_rk=torch.as_tensor(starts[perm].astype(np.int32), device=dev),
+            lens_rk=torch.as_tensor(lens[perm].astype(np.int32), device=dev),
+            perm=torch.as_tensor(np.argsort(perm).astype(np.int32), device=dev))
+        want = S.packed_finish_plain(rows.cpu(), layout.starts_rk.cpu(),
+                                     layout.lens_rk.cpu(), group)
+        K.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            plan = S.finish_plan(layout.starts_rk, layout.lens_rk, t_rows)
+            got = S.packed_finish(rows, layout, group, plan)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        same(got, want.to(dev))
+        assert dict(K.launches) == {"packed_finish" + tag: 1,
+                                    "finish_fold" + tag: 1}
+        assert int(plan.n_split) == 3
+        assert sorted(plan.split[0, :3].tolist()) == [2, 3, 131]
 
 
 def extreme_values(ctx):
@@ -893,8 +941,36 @@ def test_engine_on_the_card_matches_oracle(dev):
     assert (got["x"], got["y"]) == crv.g1_to_affine(naive_msm(pts, scalars, G1))
     assert all(K.launches[k] > 0 for k in
                ("point_prep", "mont_mul_const", "tree_level_aff",
-                "tree_level_full",
-                "packed_finish", "bpr_stage1", "bpr_stage2", "bpr_fold"))
+                "tree_level_full", "packed_finish", "finish_fold",
+                "bpr_stage1", "bpr_stage2", "bpr_fold"))
+    assert K.launches["packed_finish"] == K.launches["finish_fold"] == 1
+
+
+@GROUPS
+def test_hybrid_engine_cuts_a_long_bucket_on_the_card(dev, group):
+    """300 of 320 points share one scalar: that bucket's 75 level-2 nodes
+    a window are cut into pieces and folded on the card; the MSM equals
+    the oracle, and a finish is one piece pass and one fold."""
+    rng = random.Random("k-long" + group.ctx.tag)
+    shared = (1 << 252) + 0x0F1E2D3C4B5A6978
+    scalars = [shared] * 300 + [rng.randrange(0, 1 << 253) for _ in range(20)]
+    ks = [rng.randrange(1, 1 << 60) for _ in range(320)]
+    if group is C.G1:
+        pts = [crv.g1_scalar_mult(crv.G1_GENERATOR, k) for k in ks]
+        aff = [crv.g1_to_affine(p) for p in pts]
+        want = crv.g1_to_affine(naive_msm(pts, scalars, G1))
+    else:
+        pts = [crv.ed_scalar_mult(crv.ED_GENERATOR, k) for k in ks]
+        aff = [crv.ed_to_affine(p) for p in pts]
+        want = crv.ed_to_affine(naive_msm(pts, scalars, EDWARDS))
+    eng = CuzkMsmEngine(group.CURVE, chunk_size=4, num_bpr_threads=4,
+                        smvp_mode="tree", tree_finish=2)
+    K.reset_launches()
+    got = eng.compute_msm(aff, scalars)
+    assert (got["x"], got["y"]) == want
+    tag = group.ctx.tag
+    assert K.launches["packed_finish" + tag] == 1
+    assert K.launches["finish_fold" + tag] == 1
 
 
 def test_force_recompile_rebuilds_on_the_card(dev, msm_case):

@@ -27,7 +27,7 @@ from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
 from webgpu_msm_bls12_377_tpu_torch.ops import kernels as K
 from webgpu_msm_bls12_377_tpu_torch.params import CurveId
 from webgpu_msm_bls12_377_tpu_torch.reference import curve as crv
-from webgpu_msm_bls12_377_tpu_torch.reference.msm import G1, naive_msm
+from webgpu_msm_bls12_377_tpu_torch.reference.msm import EDWARDS, G1, naive_msm
 
 # tiny tensors: one intra-op thread avoids oversubscribing the CPU
 # beside the other test workers
@@ -68,6 +68,32 @@ def test_hybrid_engine_duplicate_heavy(case):
     scalars = [0x1234_5678_9ABC_DEF0] * N
     got = engine(tree_finish=1).compute_msm(aff, scalars)
     assert (got["x"], got["y"]) == crv.g1_to_affine(naive_msm(pts, scalars, G1))
+
+
+@pytest.mark.parametrize("curve", ["bls12_377", "edwards_bls12"],
+                         ids=["", "ed"])
+def test_hybrid_engine_cuts_a_long_bucket_into_pieces(curve):
+    """300 points share one scalar beside 20 random ones: after two tree
+    levels that scalar's bucket holds 75 nodes a window, more than PIECE,
+    so the finish cuts it into pieces and folds them; the MSM is exact."""
+    from webgpu_msm_bls12_377_tpu_torch.ops.smvp_stream import PIECE
+
+    rng = random.Random("long-bucket" + curve)
+    n, shared = 320, (1 << 252) + 0x0F1E2D3C4B5A6978
+    scalars = [shared] * 300 + [rng.randrange(0, 1 << 253) for _ in range(20)]
+    assert 300 // 4 > PIECE
+    if curve == "bls12_377":
+        pts = [crv.g1_scalar_mult(crv.G1_GENERATOR, rng.randrange(1, 1 << 60))
+               for _ in range(n)]
+        aff, want = ([crv.g1_to_affine(p) for p in pts],
+                     crv.g1_to_affine(naive_msm(pts, scalars, G1)))
+    else:
+        pts = [crv.ed_scalar_mult(crv.ED_GENERATOR, rng.randrange(1, 1 << 60))
+               for _ in range(n)]
+        aff, want = ([crv.ed_to_affine(p) for p in pts],
+                     crv.ed_to_affine(naive_msm(pts, scalars, EDWARDS)))
+    got = engine(curve=CurveId(curve)).compute_msm(aff, scalars)
+    assert (got["x"], got["y"]) == want
 
 
 def test_wire_buffers_equal_int_inputs(case):

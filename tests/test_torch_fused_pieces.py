@@ -1,5 +1,7 @@
 """The fused path's piece split (ops/smvp_kernel.py: piece_plan,
-fold_pieces, accumulate_buckets_fused) on the CPU, without the JAX package:
+fold_pieces, accumulate_buckets_fused) and the hybrid finish's
+(ops/smvp_stream.py: finish_plan, fold_depth) on the CPU, without the JAX
+package:
 the plan against a plain enumeration of the pieces, built from shapes
 alone (on the meta device, which holds no data to read back), the default
 2^14 shape's chains no longer than PIECE, and the two passes against one
@@ -19,6 +21,7 @@ from webgpu_msm_bls12_377_tpu_torch.ops import buckets, decompose
 from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
 from webgpu_msm_bls12_377_tpu_torch.ops import field as F
 from webgpu_msm_bls12_377_tpu_torch.ops import smvp_kernel as SK
+from webgpu_msm_bls12_377_tpu_torch.ops import smvp_stream as S
 from webgpu_msm_bls12_377_tpu_torch.ops import smvp_tree as T
 from webgpu_msm_bls12_377_tpu_torch.reference import curve as crv
 
@@ -56,6 +59,62 @@ def test_piece_plan_matches_enumeration(piece):
     levels = SK.fold_levels(max_len, piece)
     assert levels == int(np.ceil(np.log2(max(counts))))
     assert plan.caps == T.level_caps(cap, len(lens), levels)
+
+
+@pytest.mark.parametrize("piece", [2, 3, 32])
+def test_finish_plan_matches_enumeration(piece):
+    """The hybrid finish's pieces (ops/smvp_stream.py:finish_plan): every
+    bucket at least one piece (an empty bucket an empty one), a one-piece
+    bucket's output column in dst, the buckets of two or more pieces in
+    the first slots of split, in column order, and nothing past the real
+    pieces."""
+    lens = [0, 1, piece, piece + 1, 0, 7 * piece + 3, 2, 0, 3 * piece]
+    starts = list(np.cumsum([0] + lens[:-1]))
+    t_rows = sum(lens) + 5
+    plan = S.finish_plan(torch.tensor(starts, dtype=torch.int32),
+                         torch.tensor(lens, dtype=torch.int32), t_rows, piece)
+    counts = [max(1, -(-n // piece)) for n in lens]
+    want, dst = [], []
+    for r, (st, n) in enumerate(zip(starts, lens)):
+        want += [(st + j, min(piece, n - j)) for j in range(0, n, piece)] or [
+            (st, 0)]
+        dst += [r if counts[r] == 1 else -1] * counts[r]
+    cap = t_rows // piece + len(lens)
+    assert len(want) <= cap == plan.starts.shape[0] == plan.dst.shape[0]
+    assert plan.starts.dtype == plan.lens.dtype == plan.dst.dtype == torch.int32
+    got = list(zip(plan.starts.tolist(), plan.lens.tolist()))
+    assert got[:len(want)] == want and plan.dst.tolist()[:len(want)] == dst
+    assert set(got[len(want):]) <= {(0, 0)}
+    assert set(plan.dst.tolist()[len(want):]) <= {-1}
+    assert plan.counts.tolist() == counts
+    split = [r for r, c in enumerate(counts) if c > 1]
+    offsets = list(np.cumsum([0] + counts[:-1]))
+    assert int(plan.n_split) == len(split)
+    assert plan.split.shape == (3, t_rows // (piece + 1) + 1)
+    assert plan.split[:, :len(split)].tolist() == [
+        [counts[r] for r in split], [offsets[r] for r in split], split]
+    assert S.fold_depth(plan.counts.max()).item() == int(
+        np.ceil(np.log2(max(counts))))
+
+
+def test_finish_plan_builds_from_shapes_alone():
+    """The finish's plan builds on the meta device, which has no values to
+    read back: the hybrid path plans a batch's sets without a host
+    wait."""
+    nb, t_rows = 512, 64 * 1024
+    starts = torch.empty(nb, dtype=torch.int32, device="meta")
+    lens = torch.empty(nb, dtype=torch.int32, device="meta")
+    plan = S.finish_plan(starts, lens, t_rows)
+    assert plan.starts.device.type == "meta"
+    assert plan.starts.shape == plan.dst.shape == (t_rows // S.PIECE + nb,)
+    assert plan.split.shape == (3, t_rows // (S.PIECE + 1) + 1)
+    assert plan.n_split.shape == (1,)
+
+
+@pytest.mark.parametrize("pieces,depth", [(1, 0), (2, 1), (3, 2), (4, 2),
+                                          (5, 3), (520, 10), (1 << 20, 20)])
+def test_fold_depth(pieces, depth):
+    assert S.fold_depth(torch.tensor(pieces)).item() == depth
 
 
 @pytest.mark.parametrize("max_len,piece,levels", [

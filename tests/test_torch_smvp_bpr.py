@@ -236,18 +236,37 @@ def jax_finish(jg, lvl, starts, lens):
     return jax.jit(jg.canon)(acc)
 
 
+def one_chain_finish(rows, starts, lens, group):
+    """The finish as one thread a bucket walked it before buckets were cut
+    into pieces: per bucket its nodes from the identity, lazily, then
+    canonicalized once."""
+    starts, lens = torch.as_tensor(starts), torch.as_tensor(lens)
+    acc = group.zero(starts.shape[0])
+    for t in range(int(lens.max())):
+        live = t < lens
+        idx = torch.where(live, starts + t, 0)
+        new = group.add_lazy(acc, group.split(rows[idx, :group.rows].T))
+        acc = group.select(live, new, acc)
+    return C.merge(group.canon(acc))
+
+
 def test_packed_finish_long_and_empty_buckets_match_jax(stage, levels):
     """The finish on node rows over a hand-made layout, in no particular
-    order: empty buckets, buckets of one node, a bucket of 200 nodes
-    (longer than a block of threads) and buckets that overlap, against the
-    JAX finish's adds on the same nodes, word for word mod p."""
+    order: empty buckets, buckets of one node, of PIECE and PIECE + 1
+    nodes, of 200 nodes (longer than a block of threads) and of 9 PIECE +
+    5 (ten pieces: four fold levels), and buckets that overlap, against
+    the JAX finish's adds on the same nodes (one chain a bucket): word for
+    word up to PIECE nodes, where a bucket is one piece; the same point
+    beyond, where the pieces are folded pairwise (other projective
+    coordinates)."""
     cv, jg = stage["cv"], stage["cv"].jgroup
     lvl2, t2 = levels["lvl2"], levels["t2"]
+    piece = smvp_stream.PIECE
     rng = np.random.default_rng(7)
     nb = 300
     lens = rng.integers(0, 12, size=nb)
     lens[rng.random(nb) < 0.2] = 0
-    lens[:3] = (1, 200, 0)
+    lens[:6] = (1, 200, 0, piece, piece + 1, 9 * piece + 5)
     starts = rng.integers(0, t2 - lens + 1)
     want = cv.carry(jax_finish(jg, lvl2, starts, lens))
     layout = smvp_stream.StreamLayout(
@@ -257,10 +276,38 @@ def test_packed_finish_long_and_empty_buckets_match_jax(stage, levels):
     rows = smvp_stream.node_rows(cv.carry(lvl2), cv.group)
     got = smvp_stream.packed_finish(rows, layout, cv.group)
     assert got.shape == (cv.group.rows, nb)
-    assert (cv.mod_p(got) == cv.mod_p(want)).all()
+    short = torch.as_tensor(lens <= piece)
+    assert torch.equal(got[:, short], want[:, short])
+    assert int((~short).sum()) == 3
+    same_points(got[:, ~short], want[:, ~short], cv.group)
     zero = cv.mod_p(C.merge(cv.group.zero(1)))[:, 0]
     assert all((cv.mod_p(got[:, [j]])[:, 0] == zero).all()
                for j in np.flatnonzero(lens == 0))
+
+
+def test_packed_finish_keeps_the_words_of_short_buckets(stage, levels):
+    """Buckets of at most PIECE nodes (every one a single piece), in
+    length-sorted and in natural order, beside empty buckets: the finish
+    gives the words of one chain a bucket, as before buckets were cut into
+    pieces; the plan cuts none of them."""
+    cv = stage["cv"]
+    lvl2, t2 = levels["lvl2"], levels["t2"]
+    piece = smvp_stream.PIECE
+    rng = np.random.default_rng(11)
+    lens = rng.integers(0, piece + 1, size=120)
+    lens[:4] = (0, 1, piece, piece - 1)
+    starts = rng.integers(0, t2 - lens + 1)
+    rows = smvp_stream.node_rows(cv.carry(lvl2), cv.group)
+    for perm in (np.arange(lens.size), np.argsort(-lens, kind="stable")):
+        s = torch.as_tensor(starts[perm], dtype=torch.int32)
+        ln = torch.as_tensor(lens[perm], dtype=torch.int32)
+        layout = smvp_stream.StreamLayout(
+            starts_rk=s, lens_rk=ln, perm=torch.as_tensor(np.argsort(perm)))
+        plan = smvp_stream.finish_plan(s, ln, rows.shape[0])
+        assert int(plan.n_split) == 0 and int(plan.counts.max()) == 1
+        assert torch.equal(smvp_stream.packed_finish(rows, layout, cv.group),
+                           one_chain_finish(rows, s.long(), ln.long(),
+                                            cv.group))
 
 
 def test_node_rows_round_trip(stage, levels):

@@ -156,7 +156,8 @@ def test_finish_chain_is_the_longest_level_k_bucket(curve):
     """11 points share one scalar and 5 have scalar 0: in every window
     where that scalar's digit is not 0 its bucket holds 11 entries, every
     other bucket none (a 0 digit joins no bucket).  Two tree levels halve
-    it twice, rounding up: 11 -> 6 -> 3 nodes, the finish's chain."""
+    it twice, rounding up: 11 -> 6 -> 3 nodes, one piece, the finish's
+    chain; no bucket is cut."""
     s = (1 << 252) + 0x123456789ABCDEF
     fn, aff, sc, want = case(curve, [s] * 11 + [0] * 5)
     eng = engine(curve)
@@ -164,7 +165,38 @@ def test_finish_chain_is_the_longest_level_k_bucket(curve):
         got = eng.compute_msm(aff, sc)
     assert (got["x"], got["y"]) == want
     assert trace.counters() == {
-        "msm.finish_chain": (math.ceil(math.ceil(11 / 2) / 2), 1)}
+        "msm.finish_chain": (math.ceil(math.ceil(11 / 2) / 2), 1),
+        "msm.finish_split": (0, 1)}
+
+
+@CURVES
+def test_finish_counters_of_a_bucket_cut_into_pieces(curve):
+    """300 points share one scalar: its bucket holds 300 entries in every
+    window where its digit is not 0, 75 nodes after two levels, cut into
+    pieces of at most PIECE nodes.  The longest chain a thread walks is a
+    whole piece and the fold's levels of those pieces; the buckets cut are
+    those windows' buckets."""
+    from webgpu_msm_bls12_377_tpu_torch.ops import decompose
+    from webgpu_msm_bls12_377_tpu_torch.ops.smvp_stream import PIECE
+
+    s = (1 << 252) + 0x123456789ABCDEF
+    fn, aff, sc, want = case(curve, [s] * 300)
+    eng = engine(curve)
+    windows = decompose.num_windows_for(4)
+    words = torch.tensor([[(s >> (32 * i)) & 0xFFFFFFFF for i in range(8)]],
+                         dtype=torch.int64).T
+    digits = decompose.decompose_scalars_signed(words, 4, windows)
+    # digits are stored shifted by 2^(chunk - 1): 8 is the digit 0
+    cut = int((digits[:, 0] != 8).sum())
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = eng.compute_msm(aff, sc)
+    assert (got["x"], got["y"]) == want
+    assert 0 < cut < windows
+    pieces = math.ceil(75 / PIECE)
+    assert pieces > 1
+    assert trace.counters() == {
+        "msm.finish_chain": (PIECE + math.ceil(math.log2(pieces)), 1),
+        "msm.finish_split": (cut, 1)}
 
 
 def test_names_are_listed_and_checked():

@@ -1,6 +1,7 @@
 // Kernel 2: one level of the packed bucket tree (the hybrid SMVP's levels
-// 1..K, every level of the pure tree), and the fused path's fold of every
-// bucket's pieces in one launch.  One thread per output node.
+// 1..K, every level of the pure tree), and the fold of every bucket's
+// pieces in one launch (the fused path's, and the hybrid finish's of the
+// buckets it cut).  One thread per output node.
 //
 // Replaces ops/smvp_tree.py:run_tree_level of the JAX package (kernel body
 // _tree_kernel_body_build), modes "aff" (level 1) and "full" (later
@@ -73,7 +74,11 @@
 // a scratch plane (in L2 at the fused path's sizes), a smaller one in
 // dynamic shared memory.  Each bucket runs only its own levels: no level
 // maps, no padding levels, one launch where the level loop made one a
-// level.
+// level.  The hybrid finish (msm_fold_split, ops/smvp_stream.py) runs the
+// same fold over the buckets its piece pass (packed.cu) cut into two or
+// more pieces, listed in slots whose count stays on the card: a fixed grid
+// of blocks walks the slots, so no host reads the count, and a finish with
+// no long bucket pays an empty launch.
 #ifndef MSM_MONT_C
 #define MSM_MONT_CHAIN
 #endif
@@ -192,6 +197,9 @@ extern "C" int msm_tree_level_full(const int32_t* in, long long in_cols,
 // a level and the one before it)
 #define FOLD_SMEM_NODES 64
 #define FOLD_SMEM_BYTES (2 * FOLD_SMEM_NODES * (int)sizeof(Point))
+// blocks of the hybrid finish's fold: more than the card holds at once, so
+// a skewed finish's few thousand split buckets take one or two a block
+#define FOLD_SPLIT_GRID 2048
 
 // The add sits in a __noinline__ helper: nvcc 12.8's cicc crashes on a
 // runtime-length loop around an inlined point add.
@@ -232,17 +240,14 @@ struct FoldLevels {
   }
 };
 
-__global__ void __launch_bounds__(FOLD_THREADS)
-    fold_pieces_kernel(const int32_t* __restrict__ sums, long long cols,
-                       const int32_t* __restrict__ counts,
-                       const int32_t* __restrict__ offsets,
-                       int32_t* __restrict__ scratch,
-                       int32_t* __restrict__ out, long long nb) {
-  extern __shared__ __align__(16) unsigned char fold_smem[];
-  const long long b = blockIdx.x;
-  long long c = counts[b];
-  const FoldLevels lv{sums, scratch, cols, offsets[b], (c + 1) >> 1,
-                      reinterpret_cast<Point*>(fold_smem)};
+// Fold one bucket of c pieces (columns off.. of sums) and store its
+// canonical sum at column col of out.  The caller's block runs it whole.
+__device__ __forceinline__ void fold_bucket(const int32_t* sums,
+                                            long long cols, long long c,
+                                            long long off, int32_t* scratch,
+                                            int32_t* out, long long nb,
+                                            long long col, Point* smem) {
+  const FoldLevels lv{sums, scratch, cols, off, (c + 1) >> 1, smem};
   int k = 0;
   while (c > 1) {
     const long long cn = (c + 1) >> 1;
@@ -267,8 +272,57 @@ __global__ void __launch_bounds__(FOLD_THREADS)
     else
       lv.load(r, k, 1, 0);
     pt_canon(r);
-    pt_store(out, nb, b, r);
+    pt_store(out, nb, col, r);
   }
+}
+
+// SPLIT false (the fused path): block b folds bucket b into column b.
+// SPLIT true (the hybrid finish): the buckets are the first *live of the
+// slots, slot s's sum goes to column dst[s], and each block folds slots
+// blockIdx.x, + gridDim.x, ... (a fixed grid, so that a finish with no
+// bucket to fold costs an empty launch).
+template <bool SPLIT>
+__global__ void __launch_bounds__(FOLD_THREADS)
+    fold_pieces_kernel(const int32_t* __restrict__ sums, long long cols,
+                       const int32_t* __restrict__ counts,
+                       const int32_t* __restrict__ offsets,
+                       const int32_t* __restrict__ dst,
+                       const long long* __restrict__ live,
+                       int32_t* __restrict__ scratch,
+                       int32_t* __restrict__ out, long long nb) {
+  extern __shared__ __align__(16) unsigned char fold_smem[];
+  Point* smem = reinterpret_cast<Point*>(fold_smem);
+  if (!SPLIT) {
+    const long long b = blockIdx.x;
+    fold_bucket(sums, cols, counts[b], offsets[b], scratch, out, nb, b, smem);
+    return;
+  }
+  const long long n = *live;
+  for (long long s = blockIdx.x; s < n; s += gridDim.x) {
+    fold_bucket(sums, cols, counts[s], offsets[s], scratch, out, nb, dst[s],
+                smem);
+    // thread 0 may still read the last level from shared memory
+    __syncthreads();
+  }
+}
+
+template <bool SPLIT>
+static int fold_launch(unsigned blocks, const int32_t* sums, long long cols,
+                       const int32_t* counts, const int32_t* offsets,
+                       const int32_t* dst, const long long* live,
+                       int32_t* scratch, int32_t* out, long long nb,
+                       cudaStream_t stream) {
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fold_pieces_kernel<SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        FOLD_SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  fold_pieces_kernel<SPLIT><<<blocks, FOLD_THREADS, FOLD_SMEM_BYTES, stream>>>(
+      sums, cols, counts, offsets, dst, live, scratch, out, nb);
+  return MSM_LAUNCH_STATUS();
 }
 
 // sums: the (39|36, cols) plane of piece sums; bucket b's counts[b] pieces
@@ -280,17 +334,24 @@ extern "C" int msm_fold_pieces(const int32_t* sums, long long cols,
                                int32_t* scratch, int32_t* out, long long nb,
                                cudaStream_t stream) {
   if (nb == 0) return 0;
-  static bool sized = false;
-  if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fold_pieces_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        FOLD_SMEM_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
-  fold_pieces_kernel<<<(unsigned)nb, FOLD_THREADS, FOLD_SMEM_BYTES, stream>>>(
-      sums, cols, counts, offsets, scratch, out, nb);
-  return MSM_LAUNCH_STATUS();
+  return fold_launch<false>((unsigned)nb, sums, cols, counts, offsets,
+                            nullptr, nullptr, scratch, out, nb, stream);
+}
+
+// The hybrid finish's fold (ops/smvp_stream.py:packed_finish): sums and
+// scratch as above, cols of them; slots: the length of counts, offsets and
+// dst, whose first *live entries are the buckets cut into two or more
+// pieces; slot s's canonical sum goes to column dst[s] of out (39|36, nb),
+// which no other slot and no single-piece bucket writes.
+extern "C" int msm_fold_split(const int32_t* sums, long long cols,
+                              const int32_t* counts, const int32_t* offsets,
+                              const int32_t* dst, const long long* live,
+                              int32_t* scratch, int32_t* out, long long nb,
+                              long long slots, cudaStream_t stream) {
+  if (slots == 0) return 0;
+  const long long blocks = slots < FOLD_SPLIT_GRID ? slots : FOLD_SPLIT_GRID;
+  return fold_launch<true>((unsigned)blocks, sums, cols, counts, offsets, dst,
+                           live, scratch, out, nb, stream);
 }
 
 // -- The product itself, lane-wise ----------------------------------------------

@@ -11,7 +11,7 @@ chain, one launch each), and tree.cu's Montgomery products on their own
 Every kernel source under csrc/ is compiled by nvcc for sm_90a into a
 shared library with a plain C interface, loaded with ctypes, and a second
 time with -DMSM_CURVE_ED, for the Edwards field and curve
-(libmsm_<source>_ed.so): 16 libraries, 36 entry points.  The build runs
+(libmsm_<source>_ed.so): 16 libraries, 38 entry points.  The build runs
 at first use, one nvcc per library, all started together, into
 kernels_root()/<key>/: kernels_root() is $MSM_BUILD_DIR/kernels where that
 is set, else BUILD_ROOT (<repo>/build/kernels, listed in .gitignore), and
@@ -87,11 +87,12 @@ _ARGTYPES = {
         "msm_tree_level_aff": [_P, _I64, _P, _P, _P, _I64, _INT, _P],
         "msm_tree_level_full": [_P, _I64, _P, _P, _I64, _INT, _P],
         "msm_fold_pieces": [_P, _I64, _P, _P, _P, _P, _I64, _P],
+        "msm_fold_split": [_P, _I64, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
         "msm_field_mul_lanes": [_P, _P, _P, _P, _P, _P, _I64, _P],
         "msm_word_rate": [_P, _I64, _INT, _P],
     },
     "packed": {
-        "msm_packed_finish": [_P, _P, _P, _P, _I64, _P],
+        "msm_packed_finish": [_P, _P, _P, _P, _P, _I64, _P, _I64, _P],
     },
     "bpr": {
         "msm_bpr_stage1": [_P, _P, _P, _I64, _INT, _INT, _P],

@@ -3,12 +3,15 @@ packed level-K nodes, and the bucket permute.
 
 build_stream_layout sorts each window's buckets by descending length
 (stable, as the JAX package's lax.sort), so bucket rank r of a window
-sits beside buckets of similar length.  Kernels 3 and 5 give every real
-bucket one thread in that rank order; the sum it writes lands in column
-w*h + rank of a block-ordered plane that permute_buckets reorders.
-Kernel 5 (accumulate_buckets_streamed) sums a bucket's signed table
-points, kernel 3 (packed_finish) its level-K tree nodes, which the last
-tree level writes as rows (node_rows is the plain form of that layout).
+sits beside buckets of similar length.  Both kernels write a bucket's sum
+to column w*h + rank of a block-ordered plane that permute_buckets
+reorders.  Kernel 5 (accumulate_buckets_streamed) gives every real bucket
+one thread in that rank order and sums its signed table points.  The
+finish (packed_finish) sums a bucket's level-K tree nodes, which the last
+tree level writes as rows (node_rows is the plain form of that layout): a
+bucket of at most PIECE nodes on one thread of kernel 3, a longer one in
+pieces of PIECE nodes, one thread a piece, folded pairwise by tree.cu's
+fold (finish_plan lays the pieces out, in the same rank order).
 Every function here serves both curves: it takes the group
 (ops/curve.py: G1, the default, or EDWARDS), whose planes are (26|39, .)
 for G1 and (27|36, .) for Edwards.
@@ -34,6 +37,13 @@ from .kernels import ROW_WORDS, build_signed_table, check_plane, launch, on_cuda
 
 #: lanes of one slab on the TPU; stream_supported keeps its policy
 TPU_SLAB_LANES = 256
+#: node rows one thread of the finish sums in a chain before the fold
+#: takes over.  Uniform scalars leave the top window of a 2^20 MSM ~32
+#: level-2 nodes a bucket (at most ~46): 32 cut half of those buckets in
+#: two, and the fold of the halves cost that finish 4-10 % on an H100,
+#: where 48 and 64 cut none; at 64 zipf_2p18's ~16,600-node bucket walks
+#: 64 nodes and 9 fold levels, at 48 48 and 9 (PERF.md)
+PIECE = 48
 
 
 def stream_supported(chunk_size: int) -> bool:
@@ -143,45 +153,139 @@ def node_rows(plane: torch.Tensor, group=G1) -> torch.Tensor:
     return out
 
 
+class FinishPlan(NamedTuple):
+    starts: torch.Tensor  # (cap,) int32 first node row of each piece
+    lens: torch.Tensor  # (cap,) int32 piece lengths, 0 past the real pieces
+    dst: torch.Tensor  # (cap,) int32 output column of a one-piece bucket, else -1
+    counts: torch.Tensor  # (B,) int64 pieces of each bucket (at least one)
+    split: torch.Tensor  # (3, split cap + 1) int32 pieces, first piece, column
+    n_split: torch.Tensor  # (1,) int64 buckets cut into two or more pieces
+
+
+def finish_plan(starts: torch.Tensor, lens: torch.Tensor, t_rows: int,
+                piece: int = PIECE) -> FinishPlan:
+    """Cut bucket r's rows [starts[r], starts[r] + lens[r]) of T = t_rows
+    node rows into counts[r] = max(1, ceil(lens[r] / piece)) pieces of at
+    most `piece` rows: piece j of bucket r is column offsets[r] + j,
+    offsets the exclusive cumsum of counts.  A one-piece bucket's piece
+    names its output column r in dst; the buckets of two or more pieces
+    fill the first n_split slots of `split` in column order, each with its
+    piece count, its first piece's column and r.
+
+    The buckets' rows are disjoint (the tree's levels lay them out so), so
+    the T // piece + B piece columns and T // (piece + 1) slots bound what
+    any plan needs: everything is built on the tensors' device from shapes
+    alone, with no value read back."""
+    nb, dev = starts.shape[0], starts.device
+    ln = lens.to(torch.int64)
+    counts = ((ln + piece - 1) // piece).clamp(min=1)
+    offsets = torch.cumsum(counts, 0) - counts
+    per_bucket = torch.stack([starts.to(torch.int64), ln, counts, offsets,
+                              torch.arange(nb, device=dev)])
+    cap = t_rows // piece + nb
+    # the bucket of each column: one mark at each bucket's first column
+    mark = torch.zeros(cap, dtype=torch.int64, device=dev)
+    mark.index_fill_(0, offsets[1:], 1)
+    b = torch.cumsum(mark, 0)
+    s_b, ln_b, count_b, off_b, _ = per_bucket[:, b]
+    j = torch.arange(cap, device=dev) - off_b
+    real = j < count_b
+    pieces = torch.stack([
+        torch.where(real, s_b + piece * j, 0),
+        (ln_b - piece * j).clamp(0, piece),
+        torch.where(real & (count_b == 1), b, -1)]).to(torch.int32)
+    split = counts > 1
+    slot = torch.cumsum(split, 0)
+    slots = t_rows // (piece + 1)
+    # slot `slots` takes every one-piece bucket and is never read
+    table = torch.zeros((3, slots + 1), dtype=torch.int64, device=dev)
+    table.scatter_(1, torch.where(split, slot - 1, slots).expand(3, nb),
+                   per_bucket[2:])
+    return FinishPlan(starts=pieces[0], lens=pieces[1], dst=pieces[2],
+                      counts=counts, split=table.to(torch.int32),
+                      n_split=slot[-1:])
+
+
+def fold_depth(pieces: torch.Tensor) -> torch.Tensor:
+    """ceil(log2(pieces)) for a tensor of piece counts >= 1: the pairwise
+    levels that fold that many pieces into one, on the tensor's device."""
+    pow2 = torch.ones((), dtype=torch.int64, device=pieces.device) << \
+        torch.arange(62, device=pieces.device)
+    return (pow2 < pieces.to(torch.int64)[..., None]).sum(-1)
+
+
 def packed_finish_plain(
     rows: torch.Tensor, starts: torch.Tensor, lens: torch.Tensor, group=G1,
 ) -> torch.Tensor:
-    """Plain form of kernel 3 on (B,) starts/lens: per column, the nodes
-    from the identity in row order."""
-    starts = starts.to(torch.int64)
-    lens = lens.to(torch.int64)
-    acc = group.zero(starts.shape[0], rows.device)
-    max_len = int(lens.max()) if lens.numel() else 0
-    for t in range(max_len):
-        live = t < lens
-        idx = torch.where(live, starts + t, 0)
+    """Plain form of the finish (kernel 3's piece pass, then tree.cu's
+    fold) on (B,) starts/lens: per piece of at most PIECE rows (the
+    plan's), its rows from the identity in row order; per bucket its
+    pieces folded pairwise (ops/smvp_kernel.py:fold_pieces_plain, the
+    pairing of the fused path's fold), the last node canonical."""
+    from .smvp_kernel import fold_levels, fold_pieces_plain
+    from .smvp_tree import level_caps
+
+    nb = starts.shape[0]
+    plan = finish_plan(starts, lens, int(lens.to(torch.int64).sum()))
+    p_starts = plan.starts.to(torch.int64)
+    p_lens = plan.lens.to(torch.int64)
+    acc = group.zero(p_starts.shape[0], rows.device)
+    for t in range(int(p_lens.max()) if p_lens.numel() else 0):
+        live = t < p_lens
+        idx = torch.where(live, p_starts + t, 0)
         new = group.add_lazy(acc, group.split(rows[idx, :group.rows].T))
         acc = group.select(live, new, acc)
-    return C.merge(group.canon(acc))
+    offsets = torch.cumsum(plan.counts, 0) - plan.counts
+    max_len = int(lens.max()) if nb else 0
+    caps = level_caps(p_starts.shape[0], nb, fold_levels(max_len, PIECE))
+    return fold_pieces_plain(C.merge(acc), plan.counts, offsets, caps,
+                             group)[0]
 
 
-def packed_finish(rows: torch.Tensor, layout: StreamLayout,
-                  group=G1) -> torch.Tensor:
+def packed_finish(rows: torch.Tensor, layout: StreamLayout, group=G1,
+                  plan: FinishPlan | None = None) -> torch.Tensor:
     """(T_K, node_words) level-K node rows (the hybrid tree's last level)
     -> (39|36, B) canonical bucket sums, column r the bucket of the
     layout's column r: the sum of rows [starts_rk[r], starts_rk[r] +
-    lens_rk[r]) from the identity.  While a profiler records, the longest
-    chain a thread walks (the largest lens_rk) goes to the counter
-    msm.finish_chain, left on the device."""
+    lens_rk[r]) from the identity, in pieces of at most PIECE rows folded
+    pairwise.  plan: finish_plan of the layout over these rows (built here
+    where not given).
+
+    On the card two launches: kernel 3 (packed.cu) sums every piece, one
+    thread a piece, and writes a one-piece bucket's canonical sum; the
+    fold (tree.cu msm_fold_split) folds the pieces of the buckets cut in
+    two or more.  While a profiler records, the longest chain of dependent
+    adds a thread walks (the longest piece, then the fold's levels of the
+    bucket with the most pieces) goes to the counter msm.finish_chain, and
+    the buckets cut to msm.finish_split, both left on the device."""
     w = node_words(group)
     if rows.dim() != 2 or rows.shape[1] != w:
         raise ValueError(f"expected (T, {w}) node rows, got {tuple(rows.shape)}")
     starts, lens = layout.starts_rk, layout.lens_rk
+    if plan is None:
+        plan = finish_plan(starts, lens, rows.shape[0])
     if trace.recording() and lens.numel():
-        trace.count("msm.finish_chain", lens.max())
+        trace.count("msm.finish_chain",
+                    plan.lens.max() + fold_depth(plan.counts.max()))
+        trace.count("msm.finish_split", plan.n_split)
     if not on_cuda(rows, starts, lens):
         return packed_finish_plain(rows, starts, lens, group)
-    nb = starts.shape[0]
+    nb, cap = starts.shape[0], plan.starts.shape[0]
     out = torch.empty((group.rows, nb), dtype=torch.int32, device=rows.device)
+    sums = torch.empty((group.rows, cap), dtype=torch.int32,
+                       device=rows.device)
     tag = group.ctx.tag
-    launch("packed" + tag, "msm_packed_finish", "packed_finish" + tag, nb,
-           rows.data_ptr(), starts.data_ptr(), lens.data_ptr(),
-           out.data_ptr(), nb, device=out.device)
+    launch("packed" + tag, "msm_packed_finish", "packed_finish" + tag, cap,
+           rows.data_ptr(), plan.starts.data_ptr(), plan.lens.data_ptr(),
+           plan.dst.data_ptr(), sums.data_ptr(), cap, out.data_ptr(), nb,
+           device=out.device)
+    scratch = torch.empty_like(sums)
+    counts, offsets, cols = plan.split
+    launch("tree" + tag, "msm_fold_split", "finish_fold" + tag,
+           plan.split.shape[1], sums.data_ptr(), cap, counts.data_ptr(),
+           offsets.data_ptr(), cols.data_ptr(), plan.n_split.data_ptr(),
+           scratch.data_ptr(), out.data_ptr(), nb, plan.split.shape[1],
+           device=out.device)
     return out
 
 

@@ -1,6 +1,6 @@
 """Packed segmented-tree SMVP: the hybrid form (tree levels 1..K, then the
-packed finish of ops/smvp_stream.py) and the pure tree (every level, until
-each bucket is one node).
+packed finish of ops/smvp_stream.py, its pieces planned with the levels)
+and the pure tree (every level, until each bucket is one node).
 
 Level 1 pairs adjacent same-bucket entries of the sorted entry stream
 (both-affine adds) and every later level pairs adjacent nodes of the
@@ -38,8 +38,10 @@ from .buckets import check_signed_table, signed_rows
 from .curve import G1
 from .kernels import check_plane, launch, on_cuda
 from .smvp_stream import (
+    FinishPlan,
     StreamLayout,
     build_stream_layout,
+    finish_plan,
     node_rows,
     node_words,
     packed_finish,
@@ -148,6 +150,7 @@ class HybridPlan(NamedTuple):
     level_map1: torch.Tensor  # (T1 cap,) level-1 map into the sorted stream
     lens: torch.Tensor  # (B_e,) phantom-extended bucket lengths
     layout: StreamLayout  # finish layout over (S_K, c_K), real buckets
+    finish: FinishPlan  # the finish's pieces over the layout
 
 
 def build_hybrid_plan(
@@ -167,7 +170,10 @@ def build_hybrid_plan(
         real_bucket_view(c_k, num_windows),
         num_windows,
     )
-    return HybridPlan(level_map1=map1, lens=lens_e, layout=layout)
+    t_k = level_caps(kn, lens_e.shape[0], k_levels)[-1]
+    return HybridPlan(level_map1=map1, lens=lens_e, layout=layout,
+                      finish=finish_plan(layout.starts_rk, layout.lens_rk,
+                                         t_k))
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +292,7 @@ def tree_smvp_hybrid(
     permute_buckets)."""
     lvl, _ = _tree_levels(tree_table, sorted_vals, plan.level_map1, plan.lens,
                           k_levels, canon=False, group=group, rows=True)
-    return packed_finish(lvl, plan.layout, group)
+    return packed_finish(lvl, plan.layout, group, plan.finish)
 
 
 def tree_smvp(

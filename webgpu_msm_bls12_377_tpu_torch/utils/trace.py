@@ -41,9 +41,11 @@ SPANS = (
     "msm.smvp",  # the path's bucket sums, gathered into BPR order
     "msm.horner",  # the host Horner and the affine conversion
 )
-#: the longest chain of dependent adds one thread of the packed finish
-#: walks in an MSM (ops/smvp_stream.py:packed_finish)
-COUNTERS = ("msm.finish_chain",)
+#: of one packed finish (ops/smvp_stream.py:packed_finish): the longest
+#: chain of dependent adds one thread walks (the longest piece, then the
+#: fold's levels of the bucket with the most pieces), and the buckets cut
+#: into two or more pieces
+COUNTERS = ("msm.finish_chain", "msm.finish_split")
 
 _on = torch._C._autograd._profiler_enabled
 _range = torch._C._profiler._RecordFunctionFast
