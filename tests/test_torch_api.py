@@ -159,22 +159,31 @@ def test_rebuild_replaces_each_library_in_place(tmp_path, monkeypatch):
     assert sorted(p.name for p in (tmp_path / "kernels").iterdir()) == [built.name]
 
 
+#: the port's own exports, which the reference has no counterpart of
+PORT_ONLY = {"multi_scalar_mult_init", "multi_scalar_mult"}
+
+
 def test_exports_match_the_reference_where_the_meaning_is_the_same():
     """The field moduli under the reference's names; MontParams and
     compute_misc_params describe the reference's w-bit limbs and are left
-    out (the package docstring says why)."""
+    out (the package docstring says why); the resident-bases entries are
+    the port's alone, and the docstring names them."""
     assert port.BLS12_377_BASE_FIELD == jpkg.BLS12_377_BASE_FIELD
     assert port.EDWARDS_BLS12_BASE_FIELD == jpkg.EDWARDS_BLS12_BASE_FIELD
-    assert set(port.__all__) == set(jpkg.__all__) - {"MontParams",
-                                                      "compute_misc_params"}
+    assert set(port.__all__) - PORT_ONLY == set(jpkg.__all__) - {
+        "MontParams", "compute_misc_params"}
+    assert PORT_ONLY <= set(port.__all__)
+    assert not PORT_ONLY & set(jpkg.__all__)
     assert all(hasattr(port, name) for name in port.__all__)
     assert "MontParams" in port.__doc__ and "compute_misc_params" in port.__doc__
+    assert all(name in port.__doc__ for name in PORT_ONLY)
 
 
 def test_package_docstring_names_every_path_for_both_curves():
     doc = " ".join(port.__doc__.split())
     assert "Twisted Edwards BLS12: on either curve" in doc
     for word in ("tree", "stream", "fused", "legacy", "batch", "Pippenger",
-                 "naive"):
+                 "naive", "multi_scalar_mult_init"):
         assert word in doc
+    assert "device across calls" in doc
     assert "the tree and stream paths and batch mode" not in doc

@@ -147,8 +147,9 @@ def test_a_batch_has_a_plan_span_a_set(curve):
     names = [e.name() for e in spans_of(prof)]
     assert {name: names.count(name) for name in set(names)} == {
         "msm.prepare": 1, "msm.copy": 4, "msm.point_prep": 1, "msm.plan": 3,
-        "msm.smvp": 3, "msm.horner": 3}
+        "msm.smvp": 3, "msm.horner": 3, "msm.set": 3}
     assert trace.counters()["msm.finish_chain"][1] == 3
+    assert "msm.key_bytes" not in trace.counters()
 
 
 @CURVES

@@ -5,6 +5,11 @@ stream, fused and legacy paths and its batch mode over a fixed point set
 and (parallel/) the sharded engine over a mesh of devices and processes;
 and (native/) an independent host C++ oracle that checks a sum of points.
 
+multi_scalar_mult_init and multi_scalar_mult keep a fixed point set on the
+device across calls, for batches of scalar sets over it, on either curve
+and every path; the JAX package has no such entry, so they are the port's
+own exports.
+
 The JAX package webgpu_msm_bls12_377_tpu is the reference this port is
 tested against; the port imports nothing of it and no JAX.  Kernels are
 hand-written CUDA C++ for sm_90a (csrc/), built at first launch.
@@ -15,7 +20,12 @@ describe its w-bit limbs (nsafe, Barrett constants), which the port's
 that module's name only.
 """
 
-from .api import compute_msm, compute_msm_edwards
+from .api import (
+    compute_msm,
+    compute_msm_edwards,
+    multi_scalar_mult,
+    multi_scalar_mult_init,
+)
 from .params import BLS12_377_BASE_FIELD, EDWARDS_BLS12_BASE_FIELD, CurveId
 
 __all__ = [
@@ -24,4 +34,6 @@ __all__ = [
     "CurveId",
     "compute_msm",
     "compute_msm_edwards",
+    "multi_scalar_mult",
+    "multi_scalar_mult_init",
 ]

@@ -39,10 +39,13 @@ compute_msm(points, scalars) -> {"x": int, "y": int} runs, on one device
      runs reduce_buckets_prearranged;
   5. Montgomery exit (kernel 1) and one readback of num_windows points;
   6. Horner across windows on the host, with Python integers.
-compute_msm_batch(points, [scalars, ...]) runs step 1 once and steps 2-5
-per scalar set without the host waiting for the device between sets (tree,
-stream and fused paths), then reads every set's window sums back in one
-copy; with a pool of devices, set i runs whole on devices[i % D].
+compute_msm_batch(points, [scalars, ...]) runs step 1 once (_batch_prep,
+the prepared key) and steps 2-5 per scalar set over it without the host
+waiting for the device between sets (tree, stream and fused paths;
+_run_sets), then reads every set's window sums back in one copy; with a
+pool of devices, set i runs whole on devices[i % D].  ResidentBases keeps
+a prepared key across calls (api.multi_scalar_mult_init): each call runs
+_run_sets alone.
 prewarm(n) builds and loads the kernels and makes one throwaway run of
 n's path; debug_check(points, scalars) holds the
 point prep, the whole plan and sampled bucket sums of the stream kernel
@@ -52,9 +55,11 @@ size classes and their host readbacks, and its compile caches have no
 counterpart here; the pure tree's readback of its level count stays.
 Stages run in spans of utils/trace.py (the input checks in msm.prepare,
 0 msm.copy, 1 msm.point_prep, 2 msm.plan with the BPR order and the
-path's own plan, 3 msm.smvp, 6 msm.horner), once a set in a batch; BPR,
-the exit and the readback only enqueue behind the SMVP or wait for the
-device, so they need none.
+path's own plan, 3 msm.smvp, 6 msm.horner), once a set in a batch, where
+msm.set holds each set's scalar copy and steps 2-5; BPR, the exit and the
+readback only enqueue behind the SMVP or wait for the device, so they need
+none.  ResidentBases' set-up runs in msm.bases_init, and each set of its
+calls counts the key's bytes (msm.key_bytes).
 """
 
 from __future__ import annotations
@@ -217,6 +222,16 @@ class Smvp(NamedTuple):
 
     plan: Callable
     buckets: Callable
+
+
+class PreparedKey(NamedTuple):
+    """A point set prepared once for any number of scalar sets
+    (CuzkMsmEngine._batch_prep): the path's SMVP and the table it reads
+    (the signed table, the Montgomery table or the fused path's wide
+    rows), on one device."""
+
+    smvp: Smvp
+    table: torch.Tensor
 
 
 class CuzkMsmEngine:
@@ -563,15 +578,17 @@ class CuzkMsmEngine:
         converted and tabled once; each set then costs its scalar copy,
         plan, SMVP, BPR and Montgomery exit, enqueued without the host
         waiting for the device, and every set's window sums come back in
-        one copy before the host Horner.  The legacy path (a baseline)
-        runs compute_msm per set.
+        one copy before the host Horner: the prepared key (_batch_prep),
+        then the sets over it (_run_sets), as ResidentBases runs them.
+        The legacy path (a baseline) runs compute_msm per set.
 
         devices: a device pool for set-parallel execution (the JAX
         package's _msm_batch_stream_pool): with more than one member, and
         where the path is tree or stream, set i runs whole on
-        devices[i % D] on the stream path, the point prep once per member
-        and one readback per member; members may repeat a device.  One
-        member must be the engine's own device."""
+        devices[i % D] on the stream path, the point prep once per
+        distinct device of the pool and one readback per member; members
+        may repeat a device.  One member must be the engine's own
+        device."""
         if devices and len(devices) == 1 and _device_key(
                 devices[0]) != _device_key(self.device):
             raise ValueError(
@@ -582,33 +599,48 @@ class CuzkMsmEngine:
         with trace.span("msm.prepare"):
             points = self._prepare_points(points)
             n = points[1].n
-            sws = [self._prepare_scalars(sc) for sc in scalars_batch]
-            for sw in sws:
-                self._validate(n, sw)
+            sws = self._check_sets(n, scalars_batch)
         chunk_size = self._chunk_for(n)
         path = self._select_smvp(chunk_size, n)
         if path not in ("tree", "stream", "fused"):
-            return [self._compute(points, sw) for sw in sws]
+            out = []
+            for sw in sws:
+                with trace.span("msm.set"):
+                    out.append(self._compute(points, sw))
+            return out
         if len(pool) > 1 and path in ("tree", "stream"):
             return self._batch_pool(points, sws, chunk_size, pool)
-        shared = self._batch_prep(path, points)
-        coords = self._batch_sets(shared, sws, chunk_size)
-        return self._batch_finish(coords, chunk_size)
+        return self._run_sets(self._batch_prep(path, points), sws, chunk_size)
+
+    def _check_sets(self, n: int, scalars_batch: Sequence[Any]) -> list:
+        """The prepared scalar sets of a batch, every one checked against n
+        before any is enqueued.  A check reads the top word of every
+        scalar, so the whole set, while the device waits: the sets are
+        checked side by side (numpy releases the GIL)."""
+        sws = [self._prepare_scalars(sc) for sc in scalars_batch]
+        if sws:
+            with ThreadPoolExecutor(min(len(sws), STAGE_WORKERS)) as pool:
+                list(pool.map(functools.partial(self._validate, n), sws))
+        return sws
 
     def _batch_pool(self, points, sws, chunk_size: int, pool: list):
-        """Set-parallel batch over a device pool: every member's point prep
-        (its signed table), then each set's scalar copy, plan, stream SMVP,
+        """Set-parallel batch over a device pool: the point prep once a
+        distinct device of the pool (its signed table; members that repeat
+        a device share it), then each set's scalar copy, plan, stream SMVP,
         BPR and exit on member i % D, all enqueued before any wait; one
         readback per member of its sets' window sums, then the host
         Horner."""
-        smvp = self._smvp_fn("stream", points[1].n)
-        tables = [self._point_prep("stream", points, dev) for dev in pool]
-        coords = [
-            self._msm_set(smvp, tables[i % len(pool)],
-                          self._scalars_to_device(sc, pool[i % len(pool)]),
-                          chunk_size)
-            for i, sc in enumerate(sws)
-        ]
+        keys = {}
+        for dev in pool:
+            if _device_key(dev) not in keys:
+                keys[_device_key(dev)] = self._batch_prep("stream", points, dev)
+        coords = []
+        for i, sc in enumerate(sws):
+            dev = pool[i % len(pool)]
+            smvp, table = keys[_device_key(dev)]
+            with trace.span("msm.set"):
+                coords.append(self._msm_set(
+                    smvp, table, self._scalars_to_device(sc, dev), chunk_size))
         host = {}
         for k in range(min(len(pool), len(coords))):
             mine = range(k, len(coords), len(pool))
@@ -617,20 +649,30 @@ class CuzkMsmEngine:
         return [self._horner(host[i], chunk_size)
                 for i in range(len(coords))]
 
-    def _batch_prep(self, path: str, points):
-        """The batch's shared work: (the path's SMVP, the prepared points)."""
-        return (self._smvp_fn(path, points[1].n, batch=True),
-                self._point_prep(path, points))
+    def _batch_prep(self, path: str, points, device=None) -> PreparedKey:
+        """The batch's shared work, the prepared key: the path's SMVP (the
+        hybrid tree's K for a batch) and the point prep on device (default
+        the engine's)."""
+        return PreparedKey(self._smvp_fn(path, points[1].n, batch=True),
+                           self._point_prep(path, points, device))
 
-    def _batch_sets(self, shared, scalars_list, chunk_size: int):
-        """Per-set work, enqueued back to back: nothing here makes the host
-        wait for the device."""
-        smvp, points = shared
-        return [
-            self._msm_set(smvp, points, self._scalars_to_device(sc),
-                          chunk_size)
-            for sc in scalars_list
-        ]
+    def _run_sets(self, key: PreparedKey, scalars_list,
+                  chunk_size: int) -> list[dict[str, int]]:
+        """Checked scalar sets over a prepared key: each set enqueued back
+        to back, then one readback and the host Horner."""
+        return self._batch_finish(self._batch_sets(key, scalars_list,
+                                                   chunk_size), chunk_size)
+
+    def _batch_sets(self, key: PreparedKey, scalars_list, chunk_size: int):
+        """Per-set work, enqueued back to back, a set in one msm.set span:
+        nothing here makes the host wait for the device."""
+        out = []
+        for sc in scalars_list:
+            with trace.span("msm.set"):
+                out.append(self._msm_set(key.smvp, key.table,
+                                         self._scalars_to_device(sc),
+                                         chunk_size))
+        return out
 
     def _batch_finish(self, coords, chunk_size: int) -> list[dict[str, int]]:
         """One readback of every set's window sums, then the host Horner."""
@@ -808,3 +850,61 @@ class CuzkMsmEngine:
             assert ogroup.eq(acc, got), f"stage3 bucket {b} mismatch"
         results["stage3_buckets"] = True
         return results
+
+
+class ResidentBases:
+    """A fixed point set kept on its engine's device for any number of
+    batches of scalar sets (api.multi_scalar_mult_init and
+    multi_scalar_mult): a prover's commitment key, loaded once.
+
+    Construction checks the points once (compute_msm's forms), copies them
+    to the device once and runs the point prep once, into the table the
+    path for their n reads (the prepared key); the window, the path and
+    the hybrid's K are fixed then, for that n, as compute_msm_batch fixes
+    them.  The table is the handle's own: what the caller does to its
+    buffer afterwards changes no result.  run(scalars_batch) checks every
+    set before it enqueues any, then runs each set's scalar copy, plan,
+    SMVP, BPR and exit back to back over the key (the legacy path too),
+    one readback and the host Horner: no point moves and no prep runs.
+    close(), leaving a with block, or dropping the last reference frees
+    the table.  A device pool or the sharded engine over a resident key
+    is not offered."""
+
+    def __init__(self, engine: CuzkMsmEngine, points: Any):
+        with trace.span("msm.bases_init"):
+            prepared = engine._prepare_points(points)
+            n = prepared[1].n
+            if n == 0:
+                raise ValueError("empty MSM: no points")
+            self.engine, self.n = engine, n
+            self.chunk_size = engine._chunk_for(n)
+            self.path = engine._select_smvp(self.chunk_size, n)
+            self._key: PreparedKey | None = engine._batch_prep(self.path,
+                                                               prepared)
+            table = self._key.table
+            self.key_bytes = table.numel() * table.element_size()
+            if table.is_cuda:
+                torch.cuda.synchronize(table.device)
+
+    def run(self, scalars_batch: Sequence[Any]) -> list[dict[str, int]]:
+        """One exact affine result per scalar set, in order."""
+        if self._key is None:
+            raise ValueError("the resident bases are closed")
+        eng = self.engine
+        with trace.span("msm.prepare"):
+            sws = eng._check_sets(self.n, scalars_batch)
+        if not sws:
+            raise ValueError("empty batch: give at least one scalar set")
+        for _ in sws:
+            trace.count("msm.key_bytes", self.key_bytes)
+        return eng._run_sets(self._key, sws, self.chunk_size)
+
+    def close(self) -> None:
+        """Free the table; a closed handle refuses further calls."""
+        self._key = None
+
+    def __enter__(self) -> "ResidentBases":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

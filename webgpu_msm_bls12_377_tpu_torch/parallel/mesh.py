@@ -350,9 +350,7 @@ class ShardedMsmEngine(CuzkMsmEngine):
         points = self._prepare_points(points)
         n = points[1].n
         chunk_size = self._chunk_for(n)
-        sws = [self._prepare_scalars(sc) for sc in scalars_batch]
-        for sw in sws:
-            self._validate(n, sw)
+        sws = self._check_sets(n, scalars_batch)
         if not sws:
             return []
         n_pad, m = self._padded(n)

@@ -40,12 +40,18 @@ SPANS = (
     "msm.plan",  # digits, bucket plan, BPR order and the path's own plan
     "msm.smvp",  # the path's bucket sums, gathered into BPR order
     "msm.horner",  # the host Horner and the affine conversion
+    # a batch's one set, resident or not: its scalar copy, then its plan,
+    # SMVP, BPR and exit enqueued (a legacy batch's set: its compute_msm)
+    "msm.set",
+    # ResidentBases' set-up: the points' check, copy and prep, once
+    "msm.bases_init",
 )
 #: of one packed finish (ops/smvp_stream.py:packed_finish): the longest
 #: chain of dependent adds one thread walks (the longest piece, then the
 #: fold's levels of the bucket with the most pieces), and the buckets cut
-#: into two or more pieces
-COUNTERS = ("msm.finish_chain", "msm.finish_split")
+#: into two or more pieces; of each set a resident call runs: the device
+#: bytes of the table its ResidentBases holds
+COUNTERS = ("msm.finish_chain", "msm.finish_split", "msm.key_bytes")
 
 _on = torch._C._autograd._profiler_enabled
 _range = torch._C._profiler._RecordFunctionFast
