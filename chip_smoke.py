@@ -22,7 +22,10 @@ Phases, each of which fails the run on any error:
      passes: kernel 8 over pieces of at most PIECE rows, and the fold in
      one launch of tree.cu's msm_fold_pieces), and the finish on buckets
      of up to 130 PIECE + 5 nodes (the piece pass, then tree.cu's
-     msm_fold_split over the buckets cut into pieces); tree.cu's carry-chain
+     msm_fold_split over the buckets cut into pieces), and again at a
+     uniform 2^24 finish's shape scaled down (170,000 buckets of mostly 2-3
+     pieces, more than the fold's grid has threads, among them buckets of
+     FOLD_LONE, FOLD_LONE + 1 and 131 pieces); tree.cu's carry-chain
      Montgomery products on their own (field_mul_lanes) at extreme
      operands (R - 1, carries at every word, the formulas' largest
      bounds); the fold on buckets of up to 2,048 pieces: bit-exact
@@ -571,6 +574,7 @@ def lazy_kernel_cases(rng, group, n=4096):
                   S.packed_finish_plain(lvl2, hp.layout.starts_rk,
                                         hp.layout.lens_rk, group)))
     cases += finish_cases(rng, group)
+    cases += fold_split_cases(rng, group)
     layout = S.build_stream_layout(plan.starts, plan.lens, windows)
     cases.append((
         "stream_buckets" + tag,
@@ -609,6 +613,47 @@ def finish_cases(rng, group):
                                               device=DEV))
     return [("packed_finish" + ctx.tag, S.packed_finish(rows, layout, group),
              S.packed_finish_plain(rows, s, ln, group))]
+
+
+def fold_split_cases(rng, group, slots=170_000):
+    """Phase 2: the hybrid finish at a uniform 2^24 finish's shape, scaled
+    down: `slots` buckets (by default more than tree.cu's fold grid of
+    2,048 blocks of 64 threads, so that a thread folds several), most of
+    2-3 pieces, and six each of FOLD_LONE, FOLD_LONE + 1 and 131 pieces
+    spread among them, short buckets before and after each.  The buckets
+    read a few disjoint segments of random lazy node rows: the plain form
+    sums each segment once, and a bucket's expected sum is its segment's;
+    the plan is sized for the rows the buckets read, as if disjoint."""
+    import numpy as np
+    import torch
+
+    from webgpu_msm_bls12_377_tpu_torch.ops import smvp_stream as S
+
+    ctx, piece, lone = group.ctx, S.PIECE, S.FOLD_LONE
+    gen = np.random.default_rng(rng.randrange(2**32))
+    seg_lens = np.concatenate([
+        gen.integers(piece + 1, 3 * piece + 1, size=24),
+        [lone * piece, lone * piece + 1, 130 * piece + 5]])
+    seg_starts = np.cumsum(np.concatenate([[0], seg_lens[:-1]]))
+    # lazy values below 2p
+    rows = S.node_rows(rand_plane(rng, group.rows, int(seg_lens.sum()),
+                                  2 * ctx.p, ctx.nw), group)
+    pick = gen.integers(0, 24, size=slots)
+    edge = slots // 100
+    at = gen.choice(np.arange(edge, slots - edge), size=18, replace=False)
+    pick[at] = np.repeat(np.arange(24, 27), 6)
+    s, ln = (torch.as_tensor(v[pick].astype(np.int32), device=DEV)
+             for v in (seg_starts, seg_lens))
+    layout = S.StreamLayout(starts_rk=s, lens_rk=ln,
+                            perm=torch.arange(slots, dtype=torch.int32,
+                                              device=DEV))
+    want = S.packed_finish_plain(
+        rows, *(torch.as_tensor(v.astype(np.int32), device=DEV)
+                for v in (seg_starts, seg_lens)), group)
+    plan = S.finish_plan(s, ln, int(seg_lens[pick].sum()))
+    return [("packed_finish" + ctx.tag,
+             S.packed_finish(rows, layout, group, plan),
+             want[:, torch.as_tensor(pick, device=DEV)])]
 
 
 def edge_lanes(group, a, b):

@@ -153,6 +153,37 @@ def test_phase2_finish_case_on_the_cpu(ctx, monkeypatch):
 
 
 @pytest.mark.parametrize("ctx", [F.G1_CTX, F.ED_CTX], ids=["", "ed"])
+def test_phase2_fold_split_case_on_the_cpu(ctx, monkeypatch):
+    """fold_split_cases builds its layout on the CPU too, at 600 buckets
+    (the wrapper takes the plain form, so the case equals itself): most
+    buckets of 2-3 pieces, six each of FOLD_LONE, FOLD_LONE + 1 and 131
+    pieces, none of them first or last; and its default is more buckets
+    than the fold's 2,048 blocks of 64 threads."""
+    import inspect
+
+    from webgpu_msm_bls12_377_tpu_torch.ops import curve as C
+    from webgpu_msm_bls12_377_tpu_torch.ops import smvp_stream as S
+
+    monkeypatch.setattr(cs, "DEV", "cpu")
+    group = C.G1 if ctx is F.G1_CTX else C.EDWARDS
+    calls = []
+    real = S.packed_finish
+    monkeypatch.setattr(S, "packed_finish", lambda r, lay, g, plan: (
+        calls.append(lay.lens_rk.tolist()), real(r, lay, g, plan))[1])
+    (name, got, want), = cs.fold_split_cases(random.Random(6), group,
+                                             slots=600)
+    assert name == "packed_finish" + ctx.tag and got.shape == (group.rows, 600)
+    assert torch.equal(got, want)
+    pieces = [max(1, -(-n // S.PIECE)) for n in calls[0]]
+    assert sum(2 <= c <= 3 for c in pieces) == 600 - 18
+    for c in (S.FOLD_LONE, S.FOLD_LONE + 1, 131):
+        at = [i for i, k in enumerate(pieces) if k == c]
+        assert len(at) == 6 and 0 < min(at) and max(at) < 599
+    slots = inspect.signature(cs.fold_split_cases).parameters["slots"].default
+    assert slots > 2048 * 64
+
+
+@pytest.mark.parametrize("ctx", [F.G1_CTX, F.ED_CTX], ids=["", "ed"])
 def test_phase2_prep_cases_on_the_cpu(ctx, monkeypatch):
     """prep_cases builds the point prep's four cases (two layouts, two
     forms) on the CPU: the wire words hold 0, 1, p - 1 and p, and each

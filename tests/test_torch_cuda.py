@@ -408,6 +408,77 @@ def test_finish_pieces_and_fold_against_plain(dev, group):
         assert sorted(plan.split[0, :3].tolist()) == [2, 3, 131]
 
 
+@GROUPS
+def test_split_fold_lone_and_block_slots_against_plain(dev, group):
+    """The finish's fold with most slots of 2-3 pieces (the uniform 2^24
+    shape, scaled down), more of them than the fold's grid has threads, so
+    that a thread folds several; slots of 4 to FOLD_LONE pieces, folded
+    on one thread, and of FOLD_LONE + 1 and 131, folded by a block, mixed
+    among them with short slots before and after; one-piece and empty
+    buckets.  Against the plain form bit for bit, the plan and both
+    launches under sync debug mode "error"; msm.fold_lone counts the slots
+    of 2 to FOLD_LONE pieces.  The buckets share their node rows: each
+    reads one of a few disjoint segments, whose plain sums are the
+    expected sums of every bucket that reads it."""
+    from torch.profiler import ProfilerActivity, profile
+    from webgpu_msm_bls12_377_tpu_torch.utils import trace
+
+    ctx, tag = group.ctx, group.ctx.tag
+    piece, lone = S.PIECE, S.FOLD_LONE
+    rng = np.random.default_rng(23 + len(tag))
+    seg_lens = np.concatenate([
+        rng.integers(piece + 1, 3 * piece + 1, size=24),
+        [piece * k for k in range(4, lone + 1)],
+        [lone * piece + 1, 130 * piece + 5, 1, piece, 0]])
+    seg_starts = np.cumsum(np.concatenate([[0], seg_lens[:-1]]))
+    t_seg = int(seg_lens.sum())
+    nodes = rand_plane(random.Random("lone" + tag), group.rows, t_seg,
+                       lazy_bound(group) * ctx.p, dev, ctx.nw)
+    rows = S.node_rows(nodes, group)
+    seg_pieces = np.maximum(1, -(-seg_lens // piece))
+    short = np.flatnonzero(seg_pieces <= 3)
+    longer = np.flatnonzero(seg_pieces > 3)
+    nb = 170_000
+    pick = rng.choice(short, size=nb)
+    # the longer segments at spread positions, short slots all around them
+    at = rng.choice(np.arange(1000, nb - 1000), size=6 * longer.size,
+                    replace=False)
+    pick[at] = np.repeat(longer, 6)
+    lens = seg_lens[pick]
+    assert seg_pieces[pick].max() == 131
+    want_seg = S.packed_finish_plain(
+        rows.cpu(), torch.as_tensor(seg_starts.astype(np.int32)),
+        torch.as_tensor(seg_lens.astype(np.int32)), group)
+    want = want_seg[:, torch.as_tensor(pick)].to(dev)
+    layout = S.StreamLayout(
+        starts_rk=torch.as_tensor(seg_starts[pick].astype(np.int32), device=dev),
+        lens_rk=torch.as_tensor(lens.astype(np.int32), device=dev),
+        perm=torch.arange(nb, dtype=torch.int32, device=dev))
+    pieces = seg_pieces[pick]
+    cut = int((pieces > 1).sum())
+    # more than the fold's threads: tree.cu's FOLD_SPLIT_GRID blocks of 64
+    assert cut > 2048 * 64
+    trace.reset()
+    K.reset_launches()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            plan = S.finish_plan(layout.starts_rk, layout.lens_rk,
+                                 int(lens.sum()))
+            got = S.packed_finish(rows, layout, group, plan)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    same(got, want)
+    assert dict(K.launches) == {"packed_finish" + tag: 1,
+                                "finish_fold" + tag: 1}
+    counted = trace.counters()
+    trace.reset()
+    assert counted["msm.finish_split"] == (cut, 1)
+    assert counted["msm.fold_lone"] == (
+        int(((pieces > 1) & (pieces <= lone)).sum()), 1)
+
+
 def extreme_values(ctx):
     """R - 1, runs of all-ones words, all-ones words but one, alternating
     words, 0, 1, p - 1, p, R - p and k p - 1 for the formulas' bounds k."""

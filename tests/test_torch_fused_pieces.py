@@ -117,6 +117,77 @@ def test_fold_depth(pieces, depth):
     assert S.fold_depth(torch.tensor(pieces)).item() == depth
 
 
+def level_pairing(c):
+    """The fold's pairing of pieces 0..c-1 as nested pairs (left, right):
+    node i of a level is (node 2i, node 2i + 1) of the one before, an odd
+    last node carried up."""
+    lvl = list(range(c))
+    while len(lvl) > 1:
+        lvl = [tuple(lvl[i:i + 2]) if i + 1 < len(lvl) else lvl[i]
+               for i in range(0, len(lvl), 2)]
+    return lvl[0]
+
+
+def lone_pairing(c, depth):
+    """tree.cu's fold_lone on pieces 0..c-1, as nested pairs: a stack of
+    partial sums by level that never holds more than depth of them."""
+    st = []
+    for j in range(c):
+        q, k = j, 0
+        while st and st[-1][1] == k:
+            q, k = (st.pop()[0], q), k + 1
+        st.append((q, k))
+        assert len(st) <= depth
+    r = st.pop()[0]
+    while st:
+        r = (st.pop()[0], r)
+    return r
+
+
+def test_lone_fold_pairs_as_the_levels():
+    """The one-thread fold of a cut bucket adds the same nodes, operands in
+    the same order, as the block's fold and the plain form's levels, for
+    every piece count up to tree.cu's FOLD_LONE_MAX = 32, within a stack of
+    bit_length(count) partial sums (its FOLD_LONE_DEPTH, bit_length(32))."""
+    for c in range(1, 33):
+        assert lone_pairing(c, c.bit_length()) == level_pairing(c), c
+
+
+@pytest.mark.parametrize("lone", [1, 2, S.FOLD_LONE])
+def test_fold_lone_counts_the_cut_buckets_of_at_most_fold_lone(
+        lone, monkeypatch):
+    """msm.fold_lone counts the cut buckets of 2 to smvp_stream.FOLD_LONE
+    pieces, the count packed_finish hands the card's fold: one setting
+    decides both; the sums do not depend on it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from webgpu_msm_bls12_377_tpu_torch.utils import trace
+
+    group, piece = C.EDWARDS, S.PIECE
+    lens = np.array([0, 1, piece, piece + 1, 2 * piece + 1, 8 * piece,
+                     8 * piece + 1, 3 * piece])
+    pieces = np.maximum(1, -(-lens // piece))
+    starts = np.cumsum(np.concatenate([[0], lens[:-1]]))
+    rows = S.node_rows(C.merge(group.zero(int(lens.sum()), "cpu")), group)
+    layout = S.StreamLayout(
+        starts_rk=torch.as_tensor(starts.astype(np.int32)),
+        lens_rk=torch.as_tensor(lens.astype(np.int32)),
+        perm=torch.arange(lens.size, dtype=torch.int32))
+    want = S.packed_finish(rows, layout, group)
+    monkeypatch.setattr(S, "FOLD_LONE", lone)
+    trace.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = S.packed_finish(rows, layout, group)
+        counted = trace.counters()
+    finally:
+        trace.reset()
+    assert torch.equal(got, want)
+    assert counted["msm.finish_split"] == (int((pieces > 1).sum()), 1)
+    assert counted["msm.fold_lone"] == (
+        int(((pieces > 1) & (pieces <= lone)).sum()), 1)
+
+
 @pytest.mark.parametrize("max_len,piece,levels", [
     (0, 16, 0), (1, 16, 0), (16, 16, 0), (17, 16, 1), (32, 16, 1),
     (33, 16, 2), (1 << 14, 16, 10), (1 << 14, 8, 11), (1 << 10, 32, 5)])

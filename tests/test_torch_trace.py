@@ -167,7 +167,8 @@ def test_finish_chain_is_the_longest_level_k_bucket(curve):
     assert (got["x"], got["y"]) == want
     assert trace.counters() == {
         "msm.finish_chain": (math.ceil(math.ceil(11 / 2) / 2), 1),
-        "msm.finish_split": (0, 1)}
+        "msm.finish_split": (0, 1),
+        "msm.fold_lone": (0, 1)}
 
 
 @CURVES
@@ -176,9 +177,10 @@ def test_finish_counters_of_a_bucket_cut_into_pieces(curve):
     window where its digit is not 0, 75 nodes after two levels, cut into
     pieces of at most PIECE nodes.  The longest chain a thread walks is a
     whole piece and the fold's levels of those pieces; the buckets cut are
-    those windows' buckets."""
+    those windows' buckets, each of few enough pieces for one thread of
+    the fold."""
     from webgpu_msm_bls12_377_tpu_torch.ops import decompose
-    from webgpu_msm_bls12_377_tpu_torch.ops.smvp_stream import PIECE
+    from webgpu_msm_bls12_377_tpu_torch.ops.smvp_stream import FOLD_LONE, PIECE
 
     s = (1 << 252) + 0x123456789ABCDEF
     fn, aff, sc, want = case(curve, [s] * 300)
@@ -194,10 +196,11 @@ def test_finish_counters_of_a_bucket_cut_into_pieces(curve):
     assert (got["x"], got["y"]) == want
     assert 0 < cut < windows
     pieces = math.ceil(75 / PIECE)
-    assert pieces > 1
+    assert 1 < pieces <= FOLD_LONE
     assert trace.counters() == {
         "msm.finish_chain": (PIECE + math.ceil(math.log2(pieces)), 1),
-        "msm.finish_split": (cut, 1)}
+        "msm.finish_split": (cut, 1),
+        "msm.fold_lone": (cut, 1)}
 
 
 def test_names_are_listed_and_checked():

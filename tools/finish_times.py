@@ -5,11 +5,16 @@ by --root (default: this one), so that two commits can be compared on one
 card in one call (run parent, change, change, parent).
 
     python3 tools/finish_times.py [--root DIR] [--label NAME]
-                                  [--pieces 32,48,64]
+                                  [--pieces 32,48,64] [--lone 4,16]
 
 Both curves, each on the output of the hybrid tree's two levels:
   - uniform: the 2^20 bench case of DIR's chip_smoke.py (chunk 16), where
     no bucket is longer than a piece;
+  - uniform_24: the shape of a uniform 2^24 MSM's finish (chunk 16: 16
+    windows of 2^15 buckets, each of ceil(ceil(k / 2) / 2) level-2 nodes
+    for k ~ Poisson(512) entries, ~128 nodes and 3 pieces of 48, but the
+    top window's TOP_BUCKETS digits of ~3,510 entries, ~878 nodes and 19
+    pieces), its node rows the uniform case's repeated, every bucket cut;
   - zipf: 2^18 points (the 2^18 bench case's) with the scalars of the
     benchmark's zipf_2p18 traffic (msm_bench/gen/zipf.py, seed 7; chunk
     15), whose top ranks put ~16,600 level-2 nodes in one bucket a
@@ -22,8 +27,12 @@ a call (the piece pass packed_finish_kernel, the fold
 fold_pieces_kernel).  Where the checkout cuts buckets into pieces
 (smvp_stream.finish_plan), also: the plan's longest piece, pieces of the
 most cut bucket and buckets cut, and the same times with each piece
-length of --pieces.  Prints the card (nvidia-smi name and power limit)
-and one JSON line; writes nothing.
+length of --pieces (not on uniform_24).  Where the checkout's fold folds
+short slots on one thread (smvp_stream.FOLD_LONE): the fold's registers
+(ptxas), and with --lone the fold's device time on uniform_24 and zipf
+with smvp_stream.FOLD_LONE set to each count of the list (at most
+tree.cu's FOLD_LONE_MAX).  Prints the card (nvidia-smi name and power
+limit) and one JSON line; writes nothing.
 """
 
 from __future__ import annotations
@@ -36,11 +45,30 @@ import sys
 from pathlib import Path
 
 
+#: digits of the top window at chunk 16 (bits 240 and up of a scalar below
+#: the BLS12-377 group order r: r >> 240 = 4,779, and digit 0)
+TOP_BUCKETS = 4780
+
+
+def fold_regs(path: Path) -> dict:
+    """{fold kernel: its ptxas "Used ... registers" line} of a build log."""
+    out, kernel = {}, None
+    for line in path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel and "Used" in line and "registers" in line:
+            if "fold_pieces_kernel" in kernel:
+                out[kernel] = line.split(":", 1)[-1].strip()
+            kernel = None
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=None)
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--pieces", default="32,48,64")
+    ap.add_argument("--lone", default="")
     opts = ap.parse_args()
     root = opts.root or __file__.rsplit("/tools/", 1)[0]
     sys.path.insert(0, root)
@@ -70,6 +98,21 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     cut = hasattr(S, "finish_plan")
+    lone = hasattr(S, "FOLD_LONE")
+    sweep = [int(x) for x in opts.lone.split(",") if x] if lone else []
+
+    def fold_sweep(fn):
+        # the fold's device time at each lone count of --lone
+        if not sweep:
+            return {}
+        kept, got = S.FOLD_LONE, {}
+        try:
+            for k in sweep:
+                S.FOLD_LONE = k
+                got[f"lone{k}"] = fold_ms(device_ms(fn))
+        finally:
+            S.FOLD_LONE = kept
+        return got
 
     def kernel_ms(fn, reps=5):
         fn()
@@ -112,9 +155,36 @@ def main() -> int:
         map2 = T.build_level_map(s1, c1, s2, c2, cap2)
         return T.run_tree_level(lvl1, map2, "full", group=group, rows=True), hp
 
+    def shape_2p24(rows, seed=24):
+        # 16 windows of 2^15 buckets, each bucket's entries ~ Poisson(512)
+        # but in the top window, where a scalar below the group order
+        # leaves TOP_BUCKETS digits, each ~ Poisson(2^24 / TOP_BUCKETS);
+        # halved twice by the levels; disjoint segments in window-major
+        # order over the rows given, repeated as far as they need
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        mean = torch.full((16, 2**15), 512.0, device=dev)
+        mean[15] = 0.0
+        mean[15, :TOP_BUCKETS] = 2**24 / TOP_BUCKETS
+        k = torch.poisson(mean.flatten(), gen)
+        lens = ((k.to(torch.int64) + 1) // 2 + 1) // 2
+        starts = torch.cumsum(lens, 0) - lens
+        total = int(lens.sum())
+        reps = -(-total // rows.shape[0])
+        big = rows.repeat(reps, 1)[:total].contiguous()
+        layout = S.build_stream_layout(starts.to(torch.int32),
+                                       lens.to(torch.int32), 16)
+        return big, layout, S.finish_plan(layout.starts_rk, layout.lens_rk,
+                                          total)
+
+    def fold_ms(dev_ms):
+        return sum(v for k, v in dev_ms.items() if "fold_pieces_kernel" in k)
+
     traffic = json.loads((Path(root) / "msm_bench" / "traffic"
                           / "zipf_2p18.json").read_text())
-    res = {"label": opts.label, "cut": cut}
+    res = {"label": opts.label, "cut": cut, "lone": lone}
+    if lone:
+        res["fold_regs"] = {tag: fold_regs(K._build_dir() / f"tree{tag}.log")
+                            for tag in ("", "_ed")}
     for curve, group, tag in (("bls12_377", C.G1, ""),
                               ("edwards_bls12", C.EDWARDS, "_ed")):
         cases = {}
@@ -145,6 +215,24 @@ def main() -> int:
                         lambda: S.packed_finish(rows, hp.layout, group, fp))
                     res[f"device_{key}_p{piece}"] = device_ms(
                         lambda: S.packed_finish(rows, hp.layout, group, fp))
+            if case == "uniform_20" and cut:
+                big, lay, fp = shape_2p24(rows)
+                k24 = f"uniform_24{tag}"
+                res[f"plan_{k24}"] = {"rows": big.shape[0],
+                                      "most_pieces": int(fp.counts.max()),
+                                      "cut": int(fp.n_split)}
+                res[f"finish_{k24}"] = kernel_ms(
+                    lambda: S.packed_finish(big, lay, group, fp))
+                res[f"device_{k24}"] = device_ms(
+                    lambda: S.packed_finish(big, lay, group, fp))
+                for v, ms in fold_sweep(
+                        lambda: S.packed_finish(big, lay, group, fp)).items():
+                    res[f"fold_{k24}_{v}"] = ms
+                del big, lay, fp
+            if case == "zipf_18":
+                for v, ms in fold_sweep(
+                        lambda: S.packed_finish(*args)).items():
+                    res[f"fold_{key}_{v}"] = ms
             del rows, hp, plan, args
             torch.cuda.empty_cache()
     print(smi)

@@ -74,11 +74,24 @@
 // a scratch plane (in L2 at the fused path's sizes), a smaller one in
 // dynamic shared memory.  Each bucket runs only its own levels: no level
 // maps, no padding levels, one launch where the level loop made one a
-// level.  The hybrid finish (msm_fold_split, ops/smvp_stream.py) runs the
-// same fold over the buckets its piece pass (packed.cu) cut into two or
-// more pieces, listed in slots whose count stays on the card: a fixed grid
-// of blocks walks the slots, so no host reads the count, and a finish with
-// no long bucket pays an empty launch.
+// level.  The hybrid finish (msm_fold_split, ops/smvp_stream.py) folds
+// the buckets its piece pass (packed.cu) cut into two or more pieces,
+// listed in slots whose count stays on the card: a fixed grid of blocks
+// walks the slots, so no host reads the count, and a finish with no long
+// bucket pays an empty launch.  A slot of at most
+// smvp_stream.FOLD_LONE = 8 pieces (the caller's argument) is folded whole
+// by one thread (fold_lone, the same pairing), neighbouring threads taking
+// neighbouring slots; a longer one by a block as above.  Uniform 2^24 scalars cut every one of a set's
+// ~2^19 buckets (~128 level-2 nodes, 3 pieces of PIECE = 48): a block a
+// slot, one or two threads of 64 busy, folded them in 60-64 ms on an
+// H100, ~100x the 0.6 ms the products bound; one thread a slot takes 3.3
+// ms, most of it the top window's ~4,780 buckets of ~19 pieces, which
+// stay on the block fold.  zipf_2p18 cuts ~2,200, 18 % of them longer
+// than 8: its fold is paced by each window's top bucket of 347
+// pieces and fell from 0.59 to 0.41 ms (G1; Edwards 0.19 to 0.16; PERF.md).
+// 8 pieces against 4, 16 and 32: the fastest at zipf_2p18, within 8 %
+// at 2^24 but for 32, which folds the top window alone (2.1 ms) and costs
+// zipf_2p18 0.46 ms.
 #ifndef MSM_MONT_C
 #define MSM_MONT_CHAIN
 #endif
@@ -197,9 +210,22 @@ extern "C" int msm_tree_level_full(const int32_t* in, long long in_cols,
 // a level and the one before it)
 #define FOLD_SMEM_NODES 64
 #define FOLD_SMEM_BYTES (2 * FOLD_SMEM_NODES * (int)sizeof(Point))
-// blocks of the hybrid finish's fold: more than the card holds at once, so
-// a skewed finish's few thousand split buckets take one or two a block
+// blocks of the hybrid finish's fold, more than the card holds at once
+// (4 a SM on G1 and 8 on Edwards on an H100, bound by registers: the block
+// fold's shared memory costs none): the lone pass's 2^17 threads fill the
+// card, and a skewed finish's few hundred long slots take one block each
+// (a grid of what the card holds, 528 blocks, put two windows' top
+// buckets in one block and slowed zipf_2p18's fold to 0.97 ms)
 #define FOLD_SPLIT_GRID 2048
+// the most pieces of a slot the hybrid finish may fold on one thread (its
+// caller gives the count, ops/smvp_stream.py:FOLD_LONE)
+#define FOLD_LONE_MAX 32
+// a lone fold's stack of partial sums: at most bit_width(FOLD_LONE_MAX)
+// levels
+__host__ __device__ constexpr int fold_lone_depth(int c) {
+  return c ? 1 + fold_lone_depth(c >> 1) : 0;
+}
+#define FOLD_LONE_DEPTH fold_lone_depth(FOLD_LONE_MAX)
 
 // The add sits in a __noinline__ helper: nvcc 12.8's cicc crashes on a
 // runtime-length loop around an inlined point add.
@@ -276,11 +302,54 @@ __device__ __forceinline__ void fold_bucket(const int32_t* sums,
   }
 }
 
+// Fold a slot of 2..FOLD_LONE_MAX pieces (columns off.. of sums) on the calling
+// thread alone and store its canonical sum at column col of out.  A stack
+// of partial sums by level: each piece enters at level 0 and merges with
+// the top while the top is of its level (node 2i + node 2i+1, the left
+// operand first); what is left merges from the top down, which is the
+// carry of an odd last node up each level: the same adds, operands in the
+// same order, as fold_bucket and the plain form.
+__device__ __forceinline__ void fold_lone(const int32_t* sums, long long cols,
+                                          int c, long long off, int32_t* out,
+                                          long long nb, long long col) {
+  Point st[FOLD_LONE_DEPTH];
+  int lv[FOLD_LONE_DEPTH];
+  int top = 0;
+  for (int j = 0; j < c; ++j) {
+    Point q;
+    pt_load(q, sums, cols, off + j);
+    int k = 0;
+    while (top > 0 && lv[top - 1] == k) {
+      --top;
+      fold_add(st[top], q);
+      q = st[top];
+      ++k;
+    }
+    st[top] = q;
+    lv[top++] = k;
+  }
+  Point r = st[--top];
+  while (top > 0) {
+    --top;
+    fold_add(st[top], r);
+    r = st[top];
+  }
+  pt_canon(r);
+  pt_store(out, nb, col, r);
+}
+
 // SPLIT false (the fused path): block b folds bucket b into column b.
 // SPLIT true (the hybrid finish): the buckets are the first *live of the
-// slots, slot s's sum goes to column dst[s], and each block folds slots
-// blockIdx.x, + gridDim.x, ... (a fixed grid, so that a finish with no
-// bucket to fold costs an empty launch).
+// slots, slot s's sum goes to column dst[s].  Block b folds the slots of
+// more than lone pieces among b, + gridDim.x, ..., looking at
+// FOLD_THREADS of them at a time; then its thread t folds those of at most
+// lone among (gridDim.x - 1 - b) * FOLD_THREADS + t, + gridDim.x *
+// FOLD_THREADS, ...  Long slots first and the lone pass from the last
+// block down: where the slots are fewer than the grid's threads (a skewed
+// 2^18 finish cuts ~2,200), the lone ones land on the last blocks, which
+// hold no long slot, and the blocks of the long slots (each window's top
+// ranks) start them at once and take no lone slot.  Where folded is not
+// null, the slots folded on one thread are added to *folded.
 template <bool SPLIT>
 __global__ void __launch_bounds__(FOLD_THREADS)
     fold_pieces_kernel(const int32_t* __restrict__ sums, long long cols,
@@ -289,7 +358,8 @@ __global__ void __launch_bounds__(FOLD_THREADS)
                        const int32_t* __restrict__ dst,
                        const long long* __restrict__ live,
                        int32_t* __restrict__ scratch,
-                       int32_t* __restrict__ out, long long nb) {
+                       int32_t* __restrict__ out, long long nb, int lone,
+                       unsigned long long* __restrict__ folded) {
   extern __shared__ __align__(16) unsigned char fold_smem[];
   Point* smem = reinterpret_cast<Point*>(fold_smem);
   if (!SPLIT) {
@@ -298,12 +368,30 @@ __global__ void __launch_bounds__(FOLD_THREADS)
     return;
   }
   const long long n = *live;
-  for (long long s = blockIdx.x; s < n; s += gridDim.x) {
-    fold_bucket(sums, cols, counts[s], offsets[s], scratch, out, nb, dst[s],
-                smem);
-    // thread 0 may still read the last level from shared memory
-    __syncthreads();
+  const long long g = gridDim.x;
+  for (long long base = blockIdx.x; base < n; base += g * FOLD_THREADS) {
+    const long long mine = base + threadIdx.x * g;
+    if (!__syncthreads_or(mine < n && counts[mine] > lone)) continue;
+    for (int t = 0; t < FOLD_THREADS; ++t) {
+      const long long s = base + t * g;
+      if (s >= n) break;
+      if (counts[s] <= lone) continue;
+      fold_bucket(sums, cols, counts[s], offsets[s], scratch, out, nb, dst[s],
+                  smem);
+      // thread 0 may still read the last level from shared memory
+      __syncthreads();
+    }
   }
+  unsigned long long mine = 0;
+  for (long long s = (g - 1 - blockIdx.x) * FOLD_THREADS + threadIdx.x; s < n;
+       s += g * FOLD_THREADS) {
+    const int c = counts[s];
+    if (c <= lone) {
+      fold_lone(sums, cols, c, offsets[s], out, nb, dst[s]);
+      ++mine;
+    }
+  }
+  if (folded && mine) atomicAdd(folded, mine);
 }
 
 template <bool SPLIT>
@@ -311,6 +399,7 @@ static int fold_launch(unsigned blocks, const int32_t* sums, long long cols,
                        const int32_t* counts, const int32_t* offsets,
                        const int32_t* dst, const long long* live,
                        int32_t* scratch, int32_t* out, long long nb,
+                       int lone, unsigned long long* folded,
                        cudaStream_t stream) {
   static bool sized = false;
   if (!sized) {
@@ -321,7 +410,7 @@ static int fold_launch(unsigned blocks, const int32_t* sums, long long cols,
     sized = true;
   }
   fold_pieces_kernel<SPLIT><<<blocks, FOLD_THREADS, FOLD_SMEM_BYTES, stream>>>(
-      sums, cols, counts, offsets, dst, live, scratch, out, nb);
+      sums, cols, counts, offsets, dst, live, scratch, out, nb, lone, folded);
   return MSM_LAUNCH_STATUS();
 }
 
@@ -335,23 +424,35 @@ extern "C" int msm_fold_pieces(const int32_t* sums, long long cols,
                                cudaStream_t stream) {
   if (nb == 0) return 0;
   return fold_launch<false>((unsigned)nb, sums, cols, counts, offsets,
-                            nullptr, nullptr, scratch, out, nb, stream);
+                            nullptr, nullptr, scratch, out, nb, 0, nullptr,
+                            stream);
 }
 
 // The hybrid finish's fold (ops/smvp_stream.py:packed_finish): sums and
 // scratch as above, cols of them; slots: the length of counts, offsets and
 // dst, whose first *live entries are the buckets cut into two or more
 // pieces; slot s's canonical sum goes to column dst[s] of out (39|36, nb),
-// which no other slot and no single-piece bucket writes.
+// which no other slot and no single-piece bucket writes.  A slot of at
+// most lone (0..FOLD_LONE_MAX) pieces is folded on one thread, a longer
+// one by a block.  folded: null, or one word set to the number of slots
+// folded on one thread; zeroing it is a memset, not a kernel launch.
 extern "C" int msm_fold_split(const int32_t* sums, long long cols,
                               const int32_t* counts, const int32_t* offsets,
                               const int32_t* dst, const long long* live,
                               int32_t* scratch, int32_t* out, long long nb,
-                              long long slots, cudaStream_t stream) {
+                              long long slots, int lone, long long* folded,
+                              cudaStream_t stream) {
+  if (lone < 0 || lone > FOLD_LONE_MAX) return (int)cudaErrorInvalidValue;
+  if (folded) {
+    const cudaError_t z = cudaMemsetAsync(folded, 0, sizeof(*folded), stream);
+    if (z != cudaSuccess) return (int)z;
+  }
   if (slots == 0) return 0;
   const long long blocks = slots < FOLD_SPLIT_GRID ? slots : FOLD_SPLIT_GRID;
   return fold_launch<true>((unsigned)blocks, sums, cols, counts, offsets, dst,
-                           live, scratch, out, nb, stream);
+                           live, scratch, out, nb, lone,
+                           reinterpret_cast<unsigned long long*>(folded),
+                           stream);
 }
 
 // -- The product itself, lane-wise ----------------------------------------------

@@ -87,7 +87,8 @@ _ARGTYPES = {
         "msm_tree_level_aff": [_P, _I64, _P, _P, _P, _I64, _INT, _P],
         "msm_tree_level_full": [_P, _I64, _P, _P, _I64, _INT, _P],
         "msm_fold_pieces": [_P, _I64, _P, _P, _P, _P, _I64, _P],
-        "msm_fold_split": [_P, _I64, _P, _P, _P, _P, _P, _P, _I64, _I64, _P],
+        "msm_fold_split": [_P, _I64, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                           _INT, _P, _P],
         "msm_field_mul_lanes": [_P, _P, _P, _P, _P, _P, _I64, _P],
         "msm_word_rate": [_P, _I64, _INT, _P],
     },

@@ -44,6 +44,12 @@ TPU_SLAB_LANES = 256
 #: where 48 and 64 cut none; at 64 zipf_2p18's ~16,600-node bucket walks
 #: 64 nodes and 9 fold levels, at 48 48 and 9 (PERF.md)
 PIECE = 48
+#: the fold sums a cut bucket of at most this many pieces on one thread,
+#: a longer one on a block of threads (passed to tree.cu's
+#: msm_fold_split, which takes at most its FOLD_LONE_MAX = 32).  8 against
+#: 4, 16 and 32 on an H100: the fastest at zipf_2p18, within 8 % at a
+#: uniform 2^24 finish (PERF.md)
+FOLD_LONE = 8
 
 
 def stream_supported(chunk_size: int) -> bool:
@@ -254,21 +260,28 @@ def packed_finish(rows: torch.Tensor, layout: StreamLayout, group=G1,
     On the card two launches: kernel 3 (packed.cu) sums every piece, one
     thread a piece, and writes a one-piece bucket's canonical sum; the
     fold (tree.cu msm_fold_split) folds the pieces of the buckets cut in
-    two or more.  While a profiler records, the longest chain of dependent
-    adds a thread walks (the longest piece, then the fold's levels of the
-    bucket with the most pieces) goes to the counter msm.finish_chain, and
-    the buckets cut to msm.finish_split, both left on the device."""
+    two or more, a bucket of at most FOLD_LONE pieces on one thread, a
+    longer one on a block.  While a profiler records, the longest chain of
+    dependent adds a thread walks (the longest piece, then the fold's
+    levels of the bucket with the most pieces) goes to the counter
+    msm.finish_chain, the buckets cut to msm.finish_split and those of them
+    folded on one thread to msm.fold_lone (on the card the fold counts
+    them, with no launch of its own), all left on the device."""
     w = node_words(group)
     if rows.dim() != 2 or rows.shape[1] != w:
         raise ValueError(f"expected (T, {w}) node rows, got {tuple(rows.shape)}")
     starts, lens = layout.starts_rk, layout.lens_rk
     if plan is None:
         plan = finish_plan(starts, lens, rows.shape[0])
-    if trace.recording() and lens.numel():
+    counting = trace.recording() and lens.numel() > 0
+    if counting:
         trace.count("msm.finish_chain",
                     plan.lens.max() + fold_depth(plan.counts.max()))
         trace.count("msm.finish_split", plan.n_split)
     if not on_cuda(rows, starts, lens):
+        if counting:
+            trace.count("msm.fold_lone",
+                        ((plan.counts > 1) & (plan.counts <= FOLD_LONE)).sum())
         return packed_finish_plain(rows, starts, lens, group)
     nb, cap = starts.shape[0], plan.starts.shape[0]
     out = torch.empty((group.rows, nb), dtype=torch.int32, device=rows.device)
@@ -281,11 +294,16 @@ def packed_finish(rows: torch.Tensor, layout: StreamLayout, group=G1,
            device=out.device)
     scratch = torch.empty_like(sums)
     counts, offsets, cols = plan.split
+    lone = torch.empty(1, dtype=torch.int64, device=rows.device) \
+        if counting else None
     launch("tree" + tag, "msm_fold_split", "finish_fold" + tag,
            plan.split.shape[1], sums.data_ptr(), cap, counts.data_ptr(),
            offsets.data_ptr(), cols.data_ptr(), plan.n_split.data_ptr(),
            scratch.data_ptr(), out.data_ptr(), nb, plan.split.shape[1],
+           FOLD_LONE, None if lone is None else lone.data_ptr(),
            device=out.device)
+    if counting:
+        trace.count("msm.fold_lone", lone)
     return out
 
 

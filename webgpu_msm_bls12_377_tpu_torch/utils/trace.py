@@ -48,10 +48,12 @@ SPANS = (
 )
 #: of one packed finish (ops/smvp_stream.py:packed_finish): the longest
 #: chain of dependent adds one thread walks (the longest piece, then the
-#: fold's levels of the bucket with the most pieces), and the buckets cut
-#: into two or more pieces; of each set a resident call runs: the device
-#: bytes of the table its ResidentBases holds
-COUNTERS = ("msm.finish_chain", "msm.finish_split", "msm.key_bytes")
+#: fold's levels of the bucket with the most pieces), the buckets cut
+#: into two or more pieces, and those of them the fold sums on one thread
+#: (at most smvp_stream.FOLD_LONE pieces); of each set a resident call
+#: runs: the device bytes of the table its ResidentBases holds
+COUNTERS = ("msm.finish_chain", "msm.finish_split", "msm.key_bytes",
+            "msm.fold_lone")
 
 _on = torch._C._autograd._profiler_enabled
 _range = torch._C._profiler._RecordFunctionFast
